@@ -1,0 +1,180 @@
+"""The port's bin compositor without the JAX package: its plain version
+against a per-pixel sequential compositor on the CPU, and the CUDA kernel
+against the plain version on the card.
+
+This file imports no JAX, so on a machine with the card and no JAX it runs
+on its own:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
+"""
+
+import pytest
+
+# CPU parity tier of the port; kept out of the smoke manifest
+pytestmark = pytest.mark.heavy
+
+import numpy as np
+import torch
+
+from comfy3d_tpu_torch.ops import gs_flat
+
+PAD = 512   # zero columns after the pairs (the Pallas kernel's BLK)
+
+
+def make_bins_case(seed, W, H, bin_px, nchan, lens, sat_bin):
+    """Pair payload [DPAY, P+PAD] and bounds: per bin `lens[t]` random
+    anisotropic splats around the bin, the `sat_bin`'s opaque and wide."""
+    rng = np.random.RandomState(seed)
+    nby, nbx = -(-H // bin_px), -(-W // bin_px)
+    nbins = nby * nbx
+    lens = (list(lens) + [0] * nbins)[:nbins]
+    bounds = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    cols = []
+    for t in range(nbins):
+        n = lens[t]
+        bx, by = (t % nbx) * bin_px, (t // nbx) * bin_px
+        mx = bx + rng.uniform(-6, bin_px + 6, n)
+        my = by + rng.uniform(-6, bin_px + 6, n)
+        sig = rng.uniform(1.2, 4.0, (n, 2)) * (3.0 if t == sat_bin else 1.0)
+        th = rng.uniform(0, np.pi, n)
+        c, s = np.cos(th), np.sin(th)
+        sxx = c * c * sig[:, 0] ** 2 + s * s * sig[:, 1] ** 2 + 0.3
+        syy = s * s * sig[:, 0] ** 2 + c * c * sig[:, 1] ** 2 + 0.3
+        sxy = c * s * (sig[:, 0] ** 2 - sig[:, 1] ** 2)
+        det = sxx * syy - sxy * sxy
+        conic = np.stack([syy / det, -sxy / det, sxx / det], -1)
+        mid = 0.5 * (sxx + syy)
+        lam = mid + np.sqrt(np.maximum(mid * mid - det, 0))
+        rad = np.maximum(np.ceil(3 * np.sqrt(lam)), 0.5)
+        op = (rng.uniform(0.85, 0.99, n) if t == sat_bin
+              else rng.uniform(0.05, 0.9, n))
+        ch = np.concatenate([rng.rand(n, nchan - 1),
+                             rng.uniform(1, 3, (n, 1))], -1)
+        cols.append(np.concatenate([mx[:, None], my[:, None], conic,
+                                    op[:, None], ch, rad[:, None]], -1))
+    pay = np.concatenate(cols, 0).T.astype(np.float32)
+    dpay = -(-(7 + nchan) // 8) * 8
+    data = np.zeros((dpay, int(bounds[-1]) + PAD), np.float32)
+    data[:pay.shape[0], :bounds[-1]] = pay
+    return data, bounds, nbx, nby
+
+
+CASES = {
+    # H not a multiple of 32; bin 1 starts mid-chunk (skip 100) and crosses
+    # two 128 boundaries; bin 3 saturates before its last chunk
+    "32px": dict(W=64, H=40, bin_px=32, nchan=4, lens=(100, 200, 150, 700),
+                 sat_bin=3),
+    # 48-px bins (3×3 sub-tiles), an empty bin, 3 channels
+    "48px": dict(W=96, H=50, bin_px=48, nchan=3, lens=(300, 0, 129, 700),
+                 sat_bin=3),
+}
+
+
+def sequential_composite(data, bounds, nbx, nby, nchan, W, H, bin_px,
+                         merged):
+    """Per-pixel, one pair at a time, in float64: the contract of
+    `composite_bins_fwd` written as plainly as it reads."""
+    sub = bin_px // 16
+    nsub = sub * sub
+    nbins = nbx * nby
+    acc = np.zeros((nbins, nsub, nchan, 256))
+    trans = np.ones((nbins, nsub, 256))
+    stops = np.zeros((nbins, nsub), np.int32)
+    lx, ly = np.arange(256) % 16 + 0.5, np.arange(256) // 16 + 0.5
+    for t in range(nbins):
+        b0, b1 = int(bounds[t]), int(bounds[t + 1])
+        b0_al = b0 // 128 * 128
+        nch = -(-(b1 - b0_al) // 128) if b1 > b0 else 0
+        ox = [((t % nbx) * sub + s % sub) * 16 for s in range(nsub)]
+        oy = [((t // nbx) * sub + s // sub) * 16 for s in range(nsub)]
+        in_img = [ox[s] < W and oy[s] < H for s in range(nsub)]
+        if merged:
+            trans[t][~np.array(in_img)] = 0.0
+        groups = [list(range(nsub))] if merged else \
+            [[s] for s in range(nsub) if in_img[s]]
+        for group in groups:
+            for q in range(nch):
+                if trans[t][group].max() < gs_flat.EPS_T:
+                    break
+                for g in range(max(b0, b0_al + q * 128),
+                               min(b1, b0_al + (q + 1) * 128)):
+                    mx, my, a, b, c, op = data[:6, g].astype(np.float64)
+                    ch = data[6:6 + nchan, g]
+                    r = data[6 + nchan, g]
+                    mxl = mx - (t % nbx) * bin_px
+                    myl = my - (t // nbx) * bin_px
+                    for s in group:
+                        sx0, sy0 = (s % sub) * 16, (s // sub) * 16
+                        if not (mxl + r > sx0 and mxl - r < sx0 + 16
+                                and myl + r > sy0 and myl - r < sy0 + 16):
+                            continue
+                        dx, dy = lx + sx0 - mxl, ly + sy0 - myl
+                        power = -0.5 * (a * dx * dx + c * dy * dy) \
+                            - b * dx * dy
+                        raw = op * np.exp(np.minimum(power, 0.0))
+                        alpha = np.where(raw >= gs_flat.ALPHA_MIN,
+                                         np.minimum(raw, gs_flat.ALPHA_MAX),
+                                         0.0)
+                        acc[t, s] += ch[:, None] * alpha * trans[t, s]
+                        trans[t, s] *= 1.0 - alpha
+                for s in group:
+                    stops[t, s] = q + 1
+    return acc, trans[:, :, None, :], stops
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("merged", [True, False])
+def test_plain_matches_sequential_compositor(case, merged):
+    cfg = CASES[case]
+    data, bounds, nbx, nby = make_bins_case(2, **cfg)
+    args = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"], cfg["bin_px"])
+    acc, tr, st = gs_flat.composite_bins_fwd_plain(
+        torch.as_tensor(data), torch.as_tensor(bounds), *args, merged=merged)
+    r_acc, r_tr, r_st = sequential_composite(data, bounds, *args, merged)
+    np.testing.assert_array_equal(st.numpy(), r_st)
+    np.testing.assert_allclose(acc.numpy(), r_acc, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tr.numpy(), r_tr, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------- on the card only
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("merged", [True, False])
+def test_kernel_matches_plain_on_the_card(case, merged):
+    dev = _card()
+    cfg = CASES[case]
+    data, bounds, nbx, nby = make_bins_case(0, **cfg)
+    d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
+                                                              device=dev)
+    args = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"], cfg["bin_px"])
+    before = gs_flat.composite_bins_fwd.launches
+    acc, tr, st = gs_flat.composite_bins_fwd(d, b, *args, merged=merged)
+    torch.cuda.synchronize()
+    assert gs_flat.composite_bins_fwd.launches == before + 1
+    p_acc, p_tr, p_st = gs_flat.composite_bins_fwd_plain(d, b, *args,
+                                                         merged=merged)
+    assert torch.equal(st, p_st)
+    assert float((acc - p_acc).abs().max()) <= 1e-4
+    assert float((tr - p_tr).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_inputs_before_launch():
+    dev = _card()
+    data, bounds, nbx, nby = make_bins_case(0, **CASES["32px"])
+    d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
+                                                              device=dev)
+    before = gs_flat.composite_bins_fwd.launches
+    with pytest.raises(ValueError):
+        gs_flat.composite_bins_fwd(d.double(), b, nbx, nby, 4, 64, 40)
+    with pytest.raises(ValueError):
+        gs_flat.composite_bins_fwd(d.t(), b, nbx, nby, 4, 64, 40)
+    with pytest.raises(ValueError):
+        gs_flat.composite_bins_fwd(d, b.cpu(), nbx, nby, 4, 64, 40)
+    assert gs_flat.composite_bins_fwd.launches == before

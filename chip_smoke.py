@@ -5,15 +5,27 @@
 
 Phases, in order; the first failure ends the run with a non-zero exit:
   1. the card: its name, and `nvidia-smi`'s name and power limit;
-  2. build every CUDA source under comfy3d_tpu_torch/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card, on the same
-     inputs: the bin compositor (`gs_flat_fwd`) in merged and per-sub-tile
+  2. build every CUDA source under comfy3d_tpu_torch/csrc with nvcc, all
+     at once;
+  3. the compositor forward (`gs_flat_fwd`) against its plain PyTorch
+     version on the card, on the same inputs, in merged and per-sub-tile
      mode at 20k splats / 256² and 100k splats / 800²;
-  4. the main path — a 100k-splat GS-PLY written with `save_gs_ply`, read
-     back with `load_gs_ply(device="cuda")`, rendered from 8 orbit views at
-     800² with `render` — with every kernel's launch count reset just before
-     and read just after; then times of a frame, the kernel, its plain
-     version and the coarse sort, with CUDA events.
+  4. the render path — a 100k-splat GS-PLY written with `save_gs_ply`,
+     read back with `load_gs_ply(device="cuda")`, rendered from 8 orbit
+     views at 800² with `render` — with every kernel's launch count reset
+     just before and read just after; then times of a frame, the kernel,
+     its plain version and the coarse sort, with CUDA events;
+  5. the compositor backward (`gs_flat_bwd`) against its plain version on
+     the same scenes and modes, from the forward kernel's trans/stops and
+     seeded random cotangents;
+  6. the trainer learns: 64 random splats fitted to 4 views of a 4-splat
+     scene at 64² for 120 steps at batch 2 (loss must fall below 0.7× its
+     start);
+  7. the training path at full width (`bench.py::bench_gs_train_step`'s
+     set-up: 100k splats, 800², 4 orbit views, batch 1, `GSTrainConfig`
+     defaults) — 10 steps with the launch counts reset just before and read
+     just after, step and kernel times, a profile of one step, one densify
+     and one opacity reset, and the trained splat through GS-PLY and back.
 It prints one `{"kernels": [...]}` line, then the `nvidia-smi` line, and as
 its last line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -38,6 +50,13 @@ PEAK_F32_OPS_S = 67e12
 TOL_ABS = 1e-4          # acc / trans, kernel vs plain
 TOL_PSNR_DB = 60.0      # rendered image, kernel vs plain
 MAX_STOPS_MISMATCH = 1e-3   # share of bins whose stops may differ
+TOL_BWD_REL = 1e-3      # gradient rows, kernel vs plain, / the row's max |plain|
+LOSS_DROP = 0.7         # trainer learns: last-10 mean loss < 0.7 × first-10
+DEAD_SLOTS = 1024       # dead slots after the full-width splat's 100k
+# the learning check's render size: at 128² the initial splats' 3σ boxes
+# span more than the k = 4 coarse bins a splat may occupy
+# (`max_tiles_per_prim` 16, as in the JAX package) and are cut off
+LEARN_SIZE = 64
 
 
 def log(msg):
@@ -198,7 +217,316 @@ def kernel_vs_plain(label, inp, merged):
     check(err_acc <= TOL_ABS and err_tr <= TOL_ABS,
           f"{label}: acc err {err_acc}, trans err {err_tr} > {TOL_ABS}")
     check(db >= TOL_PSNR_DB, f"{label}: PSNR {db:.2f} dB < {TOL_PSNR_DB}")
-    return rec, st, to_image(p_acc, p_tr, inp)
+    return rec, (acc, tr, st), to_image(p_acc, p_tr, inp)
+
+
+def pair_bins(inp):
+    """Per pair column g < pairs: its bin t and its chunk q within the bin's
+    aligned walk."""
+    import torch
+    from comfy3d_tpu_torch.ops.gs_flat import CHUNK
+    bounds = inp["bounds"].long()
+    dev = bounds.device
+    nbins = inp["nbx"] * inp["nby"]
+    g = torch.arange(int(bounds[-1]), device=dev)
+    t = torch.repeat_interleave(torch.arange(nbins, device=dev),
+                                bounds[1:] - bounds[:-1])
+    q = torch.div(g - torch.div(bounds[:-1], CHUNK, rounding_mode="floor")
+                  [t] * CHUNK, CHUNK, rounding_mode="floor")
+    return g, t, q
+
+
+def walked_subtiles(inp, stops, t, q):
+    """[pairs, 4] bool: in-image sub-tiles whose composited prefix holds the
+    pair's chunk (what the backward walks)."""
+    import torch
+    from comfy3d_tpu_torch.ops.gs_flat import TILE
+    s = torch.arange(4, device=t.device)
+    ox = ((t % inp["nbx"])[:, None] * 2 + s % 2) * TILE
+    oy = (torch.div(t, inp["nbx"], rounding_mode="floor")[:, None] * 2
+          + torch.div(s, 2, rounding_mode="floor")) * TILE
+    in_img = (ox < inp["W"]) & (oy < inp["H"])
+    return in_img & (q[:, None] < stops[t].long())
+
+
+def bwd_visits(inp, stops, block=16384):
+    """The backward's pair-pixel visits on this input: (footprint, live,
+    unsaturated) — walked sub-tiles the pair's 3σ square meets, of those the
+    pixels with op·G ≥ 1/255, of those the ones with op·G < 0.99 — evaluated
+    with the kernel's operations."""
+    import torch
+    from comfy3d_tpu_torch.ops.gs_flat import ALPHA_MAX, ALPHA_MIN, TILE
+    data, C = inp["data"], inp["C"]
+    g, t, q = pair_bins(inp)
+    walk = walked_subtiles(inp, stops, t, q)
+    p = torch.arange(TILE * TILE, device=data.device)
+    s = torch.arange(4, device=data.device)
+    sx0 = ((s % 2) * TILE).float()
+    sy0 = (torch.div(s, 2, rounding_mode="floor") * TILE).float()
+    px = (p % TILE).float()[None, :] + (sx0[:, None] + 0.5)
+    py = torch.div(p, TILE, rounding_mode="floor").float()[None, :] \
+        + (sy0[:, None] + 0.5)
+    fp = live = unsat = 0
+    for lo in range(0, g.numel(), block):
+        sl = slice(lo, min(lo + block, g.numel()))
+        tt = t[sl]
+        mxl = data[0, sl] - ((tt % inp["nbx"]) * 2 * TILE).float()
+        myl = data[1, sl] - (torch.div(tt, inp["nbx"], rounding_mode="floor")
+                             * 2 * TILE).float()
+        r = data[6 + C, sl]
+        ov = walk[sl] & ((mxl[:, None] + r[:, None] > sx0)
+                         & (mxl[:, None] - r[:, None] < sx0 + TILE)
+                         & (myl[:, None] + r[:, None] > sy0)
+                         & (myl[:, None] - r[:, None] < sy0 + TILE))
+        e = (slice(None), None, None)
+        dx = px - mxl[e]
+        dy = py - myl[e]
+        a, b, c, op = (data[i, sl][e] for i in (2, 3, 4, 5))
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        raw = op * torch.exp(torch.clamp_max(power, 0.0))
+        hit = ov[..., None] & (raw >= ALPHA_MIN)
+        fp += int(ov.sum()) * TILE * TILE
+        live += int(hit.sum())
+        unsat += int((hit & (raw < ALPHA_MAX)).sum())
+    return fp, live, unsat
+
+
+def bwd_bound(inp, stops):
+    """K3's least time on this input: bytes (payload rows read, trans,
+    g_acc, g_trans, stops and bounds read, [DG, P] written, each once)
+    against f32 operations counted from csrc/gs_flat_bwd.cu per visit:
+    15 per footprint visit (offsets, power, exp, raw, test), 12 + 4C more
+    per live one (alpha, log, log T_i, exp, chan·g, α·T_i, d chan, S),
+    33 more per unsaturated one (dα, d op, d power, d μ, d conic)."""
+    from comfy3d_tpu_torch.ops.gs_flat import grad_rows
+    C = inp["C"]
+    nbins = inp["nbx"] * inp["nby"]
+    pairs = int(inp["bounds"][-1])
+    pix = nbins * 4 * 256
+    in_bytes = ((7 + C) * pairs + (C + 2) * pix + nbins * 4 + nbins + 1) * 4
+    out_bytes = grad_rows(C) * inp["data"].shape[1] * 4
+    fp, live, unsat = bwd_visits(inp, stops)
+    ops = 15 * fp + (12 + 4 * C) * live + 33 * unsat
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return dict(footprint_visits=fp, live_visits=live, unsat_visits=unsat,
+                ops=ops, bytes=in_bytes + out_bytes,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def bwd_args(inp, fwd, seed):
+    """The backward's arguments for a forward kernel's (acc, trans, stops),
+    with cotangents drawn from a seeded generator on the card."""
+    import torch
+    acc, trans, stops = fwd
+    gen = torch.Generator(device=acc.device).manual_seed(seed)
+    g_acc = torch.randn(acc.shape, generator=gen, device=acc.device)
+    g_trans = torch.randn(trans.shape, generator=gen, device=acc.device)
+    return (inp["data"], inp["bounds"], trans, stops, g_acc, g_trans,
+            inp["nbx"], inp["nby"], inp["C"], inp["W"], inp["H"])
+
+
+def bwd_vs_plain(label, inp, fwd, seed):
+    """K3 against its plain version: per gradient row max |kernel − plain| /
+    max |plain|; columns outside every walked prefix exactly 0 in both."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_flat
+    args = bwd_args(inp, fwd, seed)
+    k = gs_flat.composite_bins_bwd(*args)
+    torch.cuda.synchronize()
+    p = gs_flat.composite_bins_bwd_plain(*args)
+    g, t, q = pair_bins(inp)
+    walked = torch.zeros(k.shape[1], dtype=torch.bool, device=k.device)
+    walked[g] = walked_subtiles(inp, fwd[2], t, q).any(-1)
+    nrow = 6 + inp["C"]
+    rel = [float((k[r] - p[r]).abs().max() / p[r].abs().max().clamp_min(
+        1e-30)) for r in range(nrow)]
+    worst = max(range(nrow), key=lambda r: rel[r])
+    outside_zero = (not bool(k[:, ~walked].any())
+                    and not bool(p[:, ~walked].any())
+                    and not bool(k[nrow:].any()))
+    rec = dict(max_rel_err=rel[worst], worst_row=worst, rel_err_rows=rel,
+               max_abs_err=float((k - p).abs().max()),
+               walked_columns=int(walked.sum()),
+               unwalked_zero=outside_zero)
+    log(f"bwd {label}: worst row {worst} rel err {rel[worst]:.3g}, "
+        f"max abs err {rec['max_abs_err']:.3g}, {rec['walked_columns']} "
+        f"walked columns, unwalked zero {outside_zero}")
+    check(bool(torch.isfinite(k).all()), f"bwd {label}: non-finite")
+    check(rel[worst] <= TOL_BWD_REL,
+          f"bwd {label}: row {worst} rel err {rel[worst]} > {TOL_BWD_REL}")
+    check(outside_zero, f"bwd {label}: unwalked columns are not 0")
+    return rec
+
+
+def synthetic_views(dev, size, n_views=4):
+    """tests/test_gs_trainer.py's scene: 4 coloured splats rendered by the
+    port from an orbit at elevation 0 → (cameras, images, alpha masks)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.gaussian import GaussianSplat
+    from comfy3d_tpu_torch.ops import gs_render as G
+    gt = GaussianSplat.from_points(
+        np.array([[0.0, 0, 0], [0.25, 0, 0], [0, 0.25, 0], [0, 0, 0.25]],
+                 np.float32),
+        colors=np.array([[0.9, 0.1, 0.1], [0.1, 0.9, 0.1],
+                         [0.1, 0.1, 0.9], [0.9, 0.9, 0.1]], np.float32),
+        initial_scale=0.12, device=dev)
+    gt = dataclasses.replace(gt, opacity_raw=torch.full_like(
+        gt.opacity_raw, 3.0))
+    cams = Camera.from_orbit([0.0] * n_views,
+                             [i * 360.0 / n_views for i in range(n_views)],
+                             2.0, width=size, height=size, device=dev)
+    out = G.render(gt, cams, background=(1.0, 1.0, 1.0))
+    return cams, out["image"], out["alpha"]
+
+
+def trainer_learns(dev):
+    """Phase 6: 64 random splats fitted to the synthetic views."""
+    import torch
+    from comfy3d_tpu_torch.algorithms import gs_trainer as T
+    from comfy3d_tpu_torch.core.gaussian import GaussianSplat
+    from comfy3d_tpu_torch.ops import gs_render as G
+    cams, imgs, masks = synthetic_views(dev, LEARN_SIZE)
+    init = GaussianSplat.random(torch.Generator().manual_seed(1), 64,
+                                radius=0.4, device=dev)
+    check(not bool(G.render(init, cams)["overflow"].any()),
+          f"initial splats overflow their coarse bins at {LEARN_SIZE}²")
+    cfg = T.GSTrainConfig(iterations=120, batch_size=2,
+                          density_start_iter=10_000,
+                          position_lr_init=0.002, position_lr_final=0.0002)
+    step = T.make_train_step(cfg, cams, imgs, masks)
+    state = T.init_state(init)
+    gen = torch.Generator().manual_seed(2)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(cfg.iterations):
+        state, m = step(state, *T.draw_step_inputs(gen, 4, 2, 0.5))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    rec = dict(steps=cfg.iterations, size=LEARN_SIZE, first10=first,
+               last10=last,
+               ratio=last / first, seconds=time.perf_counter() - t0)
+    log(f"trainer learns: {rec}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(last < LOSS_DROP * first,
+          f"loss {first:.4f} → {last:.4f}, not below {LOSS_DROP}×")
+    return rec
+
+
+def pad_dead(splat, extra):
+    """The splat with `extra` dead slots appended (zeros, unit rotation)."""
+    import dataclasses
+    import torch
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+
+    rot = pad(splat.rot_raw)
+    rot[-extra:, 0] = 1.0
+    return dataclasses.replace(
+        splat, xyz=pad(splat.xyz), sh=pad(splat.sh),
+        opacity_raw=pad(splat.opacity_raw), scale_raw=pad(splat.scale_raw),
+        rot_raw=rot, alive=pad(splat.alive))
+
+
+def train_full_width(dev, asset_dir, size=800, n=100_000, n_views=4):
+    """Phase 7: bench.py's gs_train_step set-up on the card."""
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.algorithms import gs_trainer as T
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.io.ply import load_gs_ply, save_gs_ply
+    from comfy3d_tpu_torch.ops import gs_flat
+    splat = pad_dead(make_splat(n, 0.01, 5, dev), DEAD_SLOTS)
+    cams = Camera.from_orbit([0.0] * n_views, [0.0, 90.0, 180.0, 270.0],
+                             2.2, width=size, height=size, device=dev)
+    imgs = torch.as_tensor(np.random.RandomState(7).rand(
+        n_views, size, size, 3).astype(np.float32), device=dev)
+    masks = torch.ones((n_views, size, size), device=dev)
+    cfg = T.GSTrainConfig(batch_size=1)
+    step = T.make_train_step(cfg, cams, imgs, masks)
+    holder = {"state": T.init_state(splat)}
+    dead = ~splat.alive
+    dead_before = {k: v[dead].clone() for k, v in
+                   holder["state"].params.items()}
+    gen = torch.Generator().manual_seed(3)
+
+    def one_step():
+        holder["state"], m = step(holder["state"],
+                                  *T.draw_step_inputs(gen, n_views, 1, 0.5))
+        return m
+
+    torch.cuda.synchronize()
+    gs_flat.composite_bins_fwd.launches = 0
+    gs_flat.composite_bins_bwd.launches = 0
+    t0 = time.perf_counter()
+    losses = [one_step()["loss"] for _ in range(10)]
+    torch.cuda.synchronize()
+    first10_s = time.perf_counter() - t0
+    launches = {"gs_flat_fwd": gs_flat.composite_bins_fwd.launches,
+                "gs_flat_bwd": gs_flat.composite_bins_bwd.launches}
+    losses = torch.stack(losses).tolist()
+    log(f"train path: 10 steps at {size}²/{n} in {first10_s * 1e3:.0f} ms "
+        f"(first calls), launches {launches}, losses {losses}")
+    check(launches == {"gs_flat_fwd": 10, "gs_flat_bwd": 10},
+          f"launches over 10 steps: {launches}, not 10 of each")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    state = holder["state"]
+    check(all(torch.equal(state.params[k][dead], dead_before[k])
+              for k in dead_before), "dead slots changed")
+
+    times = {"train_step_ms": cuda_ms(one_step, 10)}
+    prof = profile_frames(one_step, 3)
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] \
+        / times["train_step_ms"]
+    log(f"train step {times['train_step_ms']:.2f} ms; profile {prof}")
+
+    # K3 alone, on the trained splat's compositor inputs for view 0
+    cam0 = Camera.from_orbit(0.0, 0.0, 2.2, width=size, height=size,
+                             device=dev)
+    inp = flat_inputs(holder["state"].to_splat(), cam0)
+    fwd = gs_flat.composite_bins_fwd(inp["data"], inp["bounds"], inp["nbx"],
+                                     inp["nby"], inp["C"], size, size)
+    args = bwd_args(inp, fwd, 11)
+    launches_before = gs_flat.composite_bins_bwd.launches
+    times["kernel_bwd_ms"] = cuda_ms(
+        lambda: gs_flat.composite_bins_bwd(*args), 20)
+    times["plain_bwd_ms"] = cuda_ms(
+        lambda: gs_flat.composite_bins_bwd_plain(*args), 3, warmup=1)
+    gs_flat.composite_bins_bwd.launches = launches_before
+    bound = bwd_bound(inp, fwd[2])
+    log(f"K3 at {size}²/{n}: kernel {times['kernel_bwd_ms']:.3f} ms, plain "
+        f"{times['plain_bwd_ms']:.1f} ms, bound {bound}")
+
+    # densify and prune, opacity reset, GS-PLY round trip
+    cap = splat.num_capacity
+    noise = torch.randn((2, cap, 3), generator=gen).to(dev)
+    state = T.make_densify_step(cfg)(holder["state"], noise[0], noise[1])
+    state = T.reset_opacity(state)
+    check(state.alive.shape[0] == cap and all(
+        v.shape[0] == cap for v in state.params.values()),
+        "capacity changed")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+          "non-finite parameters after densify / reset")
+    check(float(torch.sigmoid(state.params["opacity_raw"]).max()) <= 0.0101,
+          "opacity reset left an opacity above 0.01")
+    path = os.path.join(asset_dir, "trained_100k.ply")
+    trained = state.to_splat()
+    save_gs_ply(path, trained)
+    back = load_gs_ply(path, device=dev)
+    check(torch.equal(back.xyz, trained.xyz[trained.alive]),
+          "trained splat changed through GS-PLY")
+    rec = dict(splats=n, dead_slots=DEAD_SLOTS, size=size, views=n_views,
+               batch=1, launches=launches, losses=losses,
+               first_10_steps_s=first10_s,
+               alive_after_densify=int(state.alive.sum()),
+               ply_splats=back.num_capacity)
+    return rec, times, prof, bound
 
 
 def main(out_path=None) -> int:
@@ -255,12 +583,15 @@ def main(out_path=None) -> int:
                                           device=dev)),
     }
     compare, inputs, stops_by, plain_img = {}, {}, {}, {}
+    fwd_out, scene_of = {}, {}
     for sname, (splat, cam) in scenes.items():
         inputs[sname] = inp = flat_inputs(splat, cam)
         for merged in (True, False):
             label = f"{sname}_{'merged' if merged else 'per_subtile'}"
-            compare[label], stops_by[label], img = kernel_vs_plain(
+            compare[label], fwd_out[label], img = kernel_vs_plain(
                 label, inp, merged)
+            stops_by[label] = fwd_out[label][2]
+            scene_of[label] = sname
             if merged:
                 plain_img[sname] = img
     record["kernel_vs_plain"] = compare
@@ -384,7 +715,44 @@ def main(out_path=None) -> int:
                                  view0_vs_plain_psnr_db=view0_db,
                                  overflow_views=overflow_views,
                                  first_call_8_views_s=render8_s),
-                  times=times, profile=prof, kernels=[kernel])
+                  times=times, profile=prof)
+
+    # 5. the compositor backward vs its plain version, both scenes and modes
+    bwd_compare = {label: bwd_vs_plain(label, inputs[scene_of[label]],
+                                       fwd_out[label], seed)
+                   for seed, label in enumerate(fwd_out)}
+    record["bwd_vs_plain"] = bwd_compare
+    del fwd_out, stops_by
+    torch.cuda.empty_cache()
+
+    # 6. the trainer learns; 7. the training path at full width
+    record["trainer_learns"] = trainer_learns(dev)
+    train_rec, train_times, train_prof, bwd_bound_rec = train_full_width(
+        dev, asset_dir)
+    record.update(train_path=train_rec, train_times=train_times,
+                  train_profile=train_prof, bwd_bound=bwd_bound_rec)
+
+    kernel["launches_by_path"] = {
+        "render_8_views": launches["gs_flat_fwd"],
+        "train_10_steps": train_rec["launches"]["gs_flat_fwd"]}
+    kernel_bwd = {
+        "name": "gs_flat_bwd", "route": "cuda",
+        "source": "comfy3d_tpu_torch/csrc/gs_flat_bwd.cu",
+        "replaces": "comfy3d_tpu/ops/pallas/gs_flat.py:552",
+        "launches": train_rec["launches"]["gs_flat_bwd"],
+        "launches_by_path": {
+            "render_8_views": 0,
+            "train_10_steps": train_rec["launches"]["gs_flat_bwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_compare.values()),
+        "max_rel_err": max(r["max_rel_err"] for r in bwd_compare.values()),
+        "ms": train_times["kernel_bwd_ms"],
+        "kernel_ms": train_times["kernel_bwd_ms"],
+        "plain_ms": train_times["plain_bwd_ms"],
+        "bound_ms": bwd_bound_rec["bound_ms"],
+        "bound_by": bwd_bound_rec["bound_by"],
+        "library_ms": None,
+    }
+    record["kernels"] = [kernel, kernel_bwd]
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
@@ -392,8 +760,12 @@ def main(out_path=None) -> int:
 
     print(json.dumps({"main_path": record["main_path"], "times": times,
                       "profile": {k: v for k, v in prof.items()
-                                  if k != "top"}}))
-    print(json.dumps({"kernels": [kernel]}))
+                                  if k != "top"},
+                      "train_path": train_rec, "train_times": train_times,
+                      "train_profile": {k: v for k, v in train_prof.items()
+                                        if k != "top"},
+                      "trainer_learns": record["trainer_learns"]}))
+    print(json.dumps({"kernels": record["kernels"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,7 +9,8 @@ hand-written CUDA kernel under `csrc/`, built with `nvcc` at first use.
 Layering:
   core/      dataclasses of tensors (GaussianSplat, Camera), SH, GS-PLY I/O
   ops/       3DGS projection, coarse (bin|depth) sort, bin compositor
-             (`ops/gs_flat.py` wraps `csrc/gs_flat_fwd.cu`)
+             (`ops/gs_flat.py` wraps `csrc/gs_flat_{fwd,bwd}.cu`), SSIM
+  algorithms/  the per-asset 3DGS trainer (`gs_trainer.py`)
   convert    numpy arrays of the JAX containers → the port's tensors
 
 Entry points run on the card unless the caller passes `device="cpu"`.
@@ -19,7 +20,7 @@ __version__ = "0.1.0"
 
 import importlib as _importlib
 
-_SUBMODULES = ("core", "ops", "convert")
+_SUBMODULES = ("core", "ops", "algorithms", "convert")
 
 
 def default_device():

@@ -237,6 +237,6 @@ extern "C" int gs_flat_fwd(const float* data, long long ppad, int dpay,
   }
 }
 
-extern "C" const char* gs_flat_error_string(int err) {
+extern "C" const char* gs_flat_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

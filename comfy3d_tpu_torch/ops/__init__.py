@@ -1,10 +1,10 @@
-"""Device ops: 3DGS projection, coarse binning, the bin compositor.
+"""Device ops: 3DGS projection, coarse binning, the bin compositor, SSIM.
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("binning", "gs_flat", "gs_render")
+_SUBMODULES = ("binning", "gs_flat", "gs_render", "ssim")
 
 
 def __getattr__(name):

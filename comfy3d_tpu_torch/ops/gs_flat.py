@@ -1,10 +1,11 @@
-"""Coarse-bin 3DGS compositor, forward: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Coarse-bin 3DGS compositor, forward and backward: the CUDA kernels'
+wrappers and their plain PyTorch versions.
 
-Replaces the TPU kernels `comfy3d_tpu/ops/pallas/gs_flat.py::_fwd_kernel_merged`
-(:339, the default) and `::_fwd_kernel` (:198, `COMFY3D_GS_MERGED=0`), both
-reached through `composite_bins_fwd` (:481). The kernel is
-`csrc/gs_flat_fwd.cu`; both TPU kernels are modes of it.
+Forward. Replaces the TPU kernels
+`comfy3d_tpu/ops/pallas/gs_flat.py::_fwd_kernel_merged` (:339, the default)
+and `::_fwd_kernel` (:198, `COMFY3D_GS_MERGED=0`), both reached through
+`composite_bins_fwd` (:481). The kernel is `csrc/gs_flat_fwd.cu`; both TPU
+kernels are modes of it.
 
 What it computes, per coarse bin t (bin_px = 32: 2×2 sub-tiles of 16 px):
 walk the bin's depth-sorted pair segment [bounds[t], bounds[t+1]) of `data`
@@ -31,11 +32,27 @@ read from device memory once per bin and staged in shared memory one
 computed once at staging, so a pair that misses a sub-tile costs its 256
 threads one uniform branch; the saturation exit is a block-wide
 `__syncthreads_or` vote per chunk (per sub-tile in per-sub-tile mode).
+
+Backward. Replaces `comfy3d_tpu/ops/pallas/gs_flat.py::_bwd_kernel` (:552,
+reached through `composite_bins_bwd` :730). The kernel is
+`csrc/gs_flat_bwd.cu`. Per in-image sub-tile it walks the composited prefix
+(chunks below `stops`) back to front, rebuilding T in log space from the
+forward's final T (floored at e^-80: within the last chunk T can underflow
+to 0) and carrying S = Σ_later chan·g_acc·α·T, and emits per-pair gradient
+columns [DG, P]: rows d μx, d μy, d conic a, b, c, d opacity, d chan_0..C-1,
+zero pad to a multiple of 8. The visit decisions (footprint bit, α ≥ 1/255,
+α < 0.99, power ≤ 0) are re-derived with the forward's operations, so they
+equal the forward's. Bounded by operations as the forward is (~75 per live
+visit); one CTA per bin, one thread per pixel of each sub-tile, each pair's
+6+C sums reduced over the CTA by warp shuffles and a shared-memory pass over
+the 8 warps, and written by pair index: every pair belongs to one bin, so no
+two CTAs write one column and no atomics are needed.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 
 import torch
@@ -49,9 +66,8 @@ CHUNK = 128                # pairs per compositing step
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
 EPS_T = 1.0e-3             # saturation threshold on a group's largest T
-MAX_CHAN = 6               # channels the kernel is instantiated for
-
-_SRC = "gs_flat_fwd"
+LOG_FLOOR = -80.0          # floor of the backward's log T
+MAX_CHAN = 6               # channels the kernels are instantiated for
 
 
 def merged_default() -> bool:
@@ -60,18 +76,37 @@ def merged_default() -> bool:
     return os.environ.get("COMFY3D_GS_MERGED", "1") == "1"
 
 
-def _lib():
-    lib = _build.load(_SRC)
+def grad_rows(nchan: int) -> int:
+    """DG, the backward's output rows: 6 + nchan, padded to a multiple of 8."""
+    return -(-(6 + nchan) // 8) * 8
+
+
+def _lib(name):
+    lib = _build.load(name)
     if not getattr(lib, "_argtypes_set", False):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gs_flat_fwd.argtypes = [vp, ctypes.c_longlong, i32, vp, i32,
-                                    i32, i32, i32, i32, i32, i32,
-                                    vp, vp, vp, vp]
-        lib.gs_flat_fwd.restype = i32
-        lib.gs_flat_error_string.argtypes = [i32]
-        lib.gs_flat_error_string.restype = ctypes.c_char_p
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = getattr(lib, name)
+        fn.argtypes = {
+            # data, ppad, dpay, bounds, nbins, nbins_x, nchan, sub_n, width,
+            # height, merged, acc, trans, stops, stream
+            "gs_flat_fwd": [vp, i64, i32, vp] + [i32] * 7 + [vp] * 4,
+            # data, ppad, dpay, bounds, trans, stops, g_acc, g_trans, nbins,
+            # nbins_x, nchan, sub_n, width, height, out, dg, stream
+            "gs_flat_bwd": [vp, i64, i32] + [vp] * 5 + [i32] * 6
+            + [vp, i32, vp],
+        }[name]
+        fn.restype = i32
+        err = getattr(lib, name + "_error_string")
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+def _raise_on(err, lib, name):
+    if err != 0:
+        msg = getattr(lib, name + "_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
 def _check(data, bounds, nbins_x, nbins_y, nchan, bin_px):
@@ -90,6 +125,20 @@ def _check(data, bounds, nbins_x, nbins_y, nchan, bin_px):
                          f"{bounds.dtype} {tuple(bounds.shape)}")
     if bounds.device != data.device:
         raise ValueError(f"bounds on {bounds.device}, data on {data.device}")
+
+
+def _check_bwd(data, trans, stops, g_acc, g_trans, nbins, nchan, bin_px):
+    nsub = (bin_px // TILE) ** 2
+    want = {"trans": (trans, torch.float32, (nbins, nsub, 1, NPIX)),
+            "stops": (stops, torch.int32, (nbins, nsub)),
+            "g_acc": (g_acc, torch.float32, (nbins, nsub, nchan, NPIX)),
+            "g_trans": (g_trans, torch.float32, (nbins, nsub, 1, NPIX))}
+    for name, (x, dtype, shape) in want.items():
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != data.device:
+            raise ValueError(f"{name} on {x.device}, data on {data.device}")
 
 
 def composite_bins_fwd(data, bounds, nbins_x: int, nbins_y: int, nchan: int,
@@ -121,7 +170,7 @@ def composite_bins_fwd(data, bounds, nbins_x: int, nbins_y: int, nchan: int,
     trans = torch.empty((nbins, nsub, 1, NPIX), dtype=torch.float32,
                         device=dev)
     stops = torch.empty((nbins, nsub), dtype=torch.int32, device=dev)
-    lib = _lib()
+    lib = _lib("gs_flat_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gs_flat_fwd(data.data_ptr(), data.shape[1], data.shape[0],
@@ -129,14 +178,126 @@ def composite_bins_fwd(data, bounds, nbins_x: int, nbins_y: int, nchan: int,
                               bin_px // TILE, width, height, int(merged),
                               acc.data_ptr(), trans.data_ptr(),
                               stops.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"gs_flat_fwd launch failed: CUDA error {err} "
-                           f"({lib.gs_flat_error_string(err).decode()})")
+    _raise_on(err, lib, "gs_flat_fwd")
     composite_bins_fwd.launches += 1
     return acc, trans, stops
 
 
 composite_bins_fwd.launches = 0     # kernel launches since the last reset
+
+
+def composite_bins_bwd(data, bounds, trans, stops, g_acc, g_trans,
+                       nbins_x: int, nbins_y: int, nchan: int, width: int,
+                       height: int, bin_px: int = DEFAULT_BIN):
+    """Backward of `composite_bins_fwd`: `trans`/`stops` are its outputs,
+    `g_acc`/`g_trans` the cotangents of acc/trans.
+
+    Returns per-pair gradient columns [DG, P] f32 (rows d μx, d μy, d a,
+    d b, d c, d op, d chan_0..C-1, zero pad); columns of pairs no sub-tile
+    walked are 0. On a CUDA tensor it launches the kernel; on a CPU tensor
+    it runs `composite_bins_bwd_plain`; any other device raises."""
+    _check(data, bounds, nbins_x, nbins_y, nchan, bin_px)
+    nbins = nbins_x * nbins_y
+    _check_bwd(data, trans, stops, g_acc, g_trans, nbins, nchan, bin_px)
+    if data.device.type == "cpu":
+        return composite_bins_bwd_plain(data, bounds, trans, stops, g_acc,
+                                        g_trans, nbins_x, nbins_y, nchan,
+                                        width, height, bin_px)
+    if data.device.type != "cuda":
+        raise ValueError(f"composite_bins_bwd runs on cuda (kernel) or cpu "
+                         f"(plain version), not {data.device}")
+    ins = (data, bounds, trans, stops, g_acc, g_trans)
+    if not all(x.is_contiguous() for x in ins):
+        raise ValueError("composite_bins_bwd needs contiguous inputs")
+    dg = grad_rows(nchan)
+    out = torch.zeros((dg, data.shape[1]), dtype=torch.float32,
+                      device=data.device)
+    lib = _lib("gs_flat_bwd")
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = lib.gs_flat_bwd(data.data_ptr(), data.shape[1], data.shape[0],
+                              bounds.data_ptr(), trans.data_ptr(),
+                              stops.data_ptr(), g_acc.data_ptr(),
+                              g_trans.data_ptr(), nbins, nbins_x, nchan,
+                              bin_px // TILE, width, height, out.data_ptr(),
+                              dg, stream)
+    _raise_on(err, lib, "gs_flat_bwd")
+    composite_bins_bwd.launches += 1
+    return out
+
+
+composite_bins_bwd.launches = 0     # kernel launches since the last reset
+
+
+# ------------------------------------------------------------------ #
+# Plain versions
+# ------------------------------------------------------------------ #
+def _bin_geometry(bounds, nbins_x, nbins_y, width, height, bin_px, dev):
+    """What both plain versions derive from `bounds` and the image size."""
+    sub = bin_px // TILE
+    nsub = sub * sub
+    nbins = nbins_x * nbins_y
+    b = bounds.to(torch.int64)
+    b0, b1 = b[:-1], b[1:]
+    b0_al = torch.div(b0, CHUNK, rounding_mode="floor") * CHUNK
+    nch = torch.where(
+        b1 > b0, torch.div(b1 - b0_al + CHUNK - 1, CHUNK,
+                           rounding_mode="floor"), torch.zeros_like(b0))
+    t = torch.arange(nbins, device=dev)
+    s = torch.arange(nsub, device=dev)
+    bin_x, bin_y = t % nbins_x, torch.div(t, nbins_x, rounding_mode="floor")
+    ox = (bin_x[:, None] * sub + s % sub) * TILE
+    oy = (bin_y[:, None] * sub + torch.div(s, sub, rounding_mode="floor")) \
+        * TILE
+    sx0 = ((s % sub) * TILE).to(torch.float32)             # [nsub]
+    sy0 = (torch.div(s, sub, rounding_mode="floor") * TILE).to(torch.float32)
+    p = torch.arange(NPIX, device=dev)
+    return dict(
+        nbins=nbins, nsub=nsub, b0=b0, b1=b1, b0_al=b0_al, nch=nch,
+        in_img=(ox < width) & (oy < height),               # [nbins, nsub]
+        bin_ox=(bin_x * (sub * TILE)).to(torch.float32),
+        bin_oy=(bin_y * (sub * TILE)).to(torch.float32),
+        sx0=sx0, sy0=sy0,
+        # bin-local pixel centres [nsub, NPIX]
+        px=(p % TILE).to(torch.float32)[None, :] + (sx0[:, None] + 0.5),
+        py=torch.div(p, TILE, rounding_mode="floor").to(torch.float32)
+        [None, :] + (sy0[:, None] + 0.5))
+
+
+def _chunk_visits(data, geo, sel, q, runs, nchan):
+    """Chunk q of bins `sel`, in the sub-tiles `runs` [nb, nsub] walks:
+    the pairs' columns and every pair-pixel term both plain versions use.
+    The power is evaluated with the kernels' operations in their order, so
+    on the card both round it identically."""
+    ppad = data.shape[1]
+    lane = torch.arange(CHUNK, device=data.device)
+    g = geo["b0_al"][sel, None] + q * CHUNK + lane         # [nb, CHUNK]
+    valid = (g >= geo["b0"][sel, None]) & (g < geo["b1"][sel, None]) \
+        & (g < ppad)
+    cols = data[:, g.clamp(0, max(ppad - 1, 0))]           # [D, nb, CHUNK]
+    mxl = cols[0] - geo["bin_ox"][sel, None]
+    myl = cols[1] - geo["bin_oy"][sel, None]
+    r = cols[6 + nchan]
+    sx0, sy0 = geo["sx0"], geo["sy0"]
+    # [nb, CHUNK, nsub]: the pair's 3σ square meets the sub-tile
+    ov = (valid[..., None] & runs[:, None, :]
+          & (mxl[..., None] + r[..., None] > sx0)
+          & (mxl[..., None] - r[..., None] < sx0 + TILE)
+          & (myl[..., None] + r[..., None] > sy0)
+          & (myl[..., None] - r[..., None] < sy0 + TILE))
+    e = (...,) + (None, None)
+    dx = geo["px"] - mxl[e]                                # [nb,CHUNK,nsub,NPIX]
+    dy = geo["py"] - myl[e]
+    a, bb, c, op = cols[2][e], cols[3][e], cols[4][e], cols[5][e]
+    power = -0.5 * (a * dx * dx + c * dy * dy) - bb * dx * dy
+    G = torch.exp(torch.clamp_max(power, 0.0))
+    raw = op * G
+    live = (raw >= ALPHA_MIN) & ov[..., None]
+    alpha = torch.where(live, torch.clamp_max(raw, ALPHA_MAX),
+                        torch.zeros_like(raw))
+    return dict(g=g, valid=valid, chans=cols[6:6 + nchan], a=a, b=bb, c=c,
+                op=op, dx=dx, dy=dy, power=power, G=G, raw=raw, live=live,
+                alpha=alpha)
 
 
 def composite_bins_fwd_plain(data, bounds, nbins_x: int, nbins_y: int,
@@ -146,41 +307,14 @@ def composite_bins_fwd_plain(data, bounds, nbins_x: int, nbins_y: int,
     """Plain PyTorch version of `composite_bins_fwd` (same contract).
 
     Vectorised over bins, a Python loop over the chunk index, `cumprod`
-    inside a chunk. The power is evaluated with the kernel's operations in
-    the kernel's order, so on the card both round it identically."""
+    inside a chunk."""
     if merged is None:
         merged = merged_default()
     _check(data, bounds, nbins_x, nbins_y, nchan, bin_px)
     dev = data.device
-    sub = bin_px // TILE
-    nsub = sub * sub
-    nbins = nbins_x * nbins_y
-    ppad = data.shape[1]
-
-    b = bounds.to(torch.int64)
-    b0, b1 = b[:-1], b[1:]
-    b0_al = torch.div(b0, CHUNK, rounding_mode="floor") * CHUNK
-    nch = torch.where(
-        b1 > b0, torch.div(b1 - b0_al + CHUNK - 1, CHUNK,
-                           rounding_mode="floor"), torch.zeros_like(b0))
-
-    t = torch.arange(nbins, device=dev)
-    s = torch.arange(nsub, device=dev)
-    bin_x, bin_y = t % nbins_x, torch.div(t, nbins_x, rounding_mode="floor")
-    ox = (bin_x[:, None] * sub + s % sub) * TILE
-    oy = (bin_y[:, None] * sub + torch.div(s, sub, rounding_mode="floor")) \
-        * TILE
-    in_img = (ox < width) & (oy < height)                  # [nbins, nsub]
-    bin_ox = (bin_x * (sub * TILE)).to(torch.float32)
-    bin_oy = (bin_y * (sub * TILE)).to(torch.float32)
-    sx0 = ((s % sub) * TILE).to(torch.float32)             # [nsub]
-    sy0 = (torch.div(s, sub, rounding_mode="floor") * TILE).to(torch.float32)
-    p = torch.arange(NPIX, device=dev)
-    # bin-local pixel centres [nsub, NPIX]
-    px = (p % TILE).to(torch.float32)[None, :] + (sx0[:, None] + 0.5)
-    py = torch.div(p, TILE, rounding_mode="floor").to(torch.float32)[None, :] \
-        + (sy0[:, None] + 0.5)
-
+    geo = _bin_geometry(bounds, nbins_x, nbins_y, width, height, bin_px, dev)
+    nbins, nsub, nch, in_img = (geo["nbins"], geo["nsub"], geo["nch"],
+                                geo["in_img"])
     if merged:
         T = in_img.to(torch.float32)[..., None].repeat(1, 1, NPIX)
     else:
@@ -188,7 +322,6 @@ def composite_bins_fwd_plain(data, bounds, nbins_x: int, nbins_y: int,
     acc = torch.zeros((nbins, nsub, nchan, NPIX), dtype=torch.float32,
                       device=dev)
     stops = torch.zeros((nbins, nsub), dtype=torch.int32, device=dev)
-    lane = torch.arange(CHUNK, device=dev)
     max_chunks = int(nch.max()) if nbins else 0
 
     for q in range(max_chunks):
@@ -203,33 +336,12 @@ def composite_bins_fwd_plain(data, bounds, nbins_x: int, nbins_y: int,
         if sel.numel() == 0:
             break
         runs = run[sel]                                    # [nb, nsub]
-        g = b0_al[sel, None] + q * CHUNK + lane            # [nb, CHUNK]
-        valid = (g >= b0[sel, None]) & (g < b1[sel, None]) & (g < ppad)
-        cols = data[:, g.clamp(0, max(ppad - 1, 0))]       # [D, nb, CHUNK]
-        mxl = cols[0] - bin_ox[sel, None]
-        myl = cols[1] - bin_oy[sel, None]
-        r = cols[6 + nchan]
-        # [nb, CHUNK, nsub]: the pair's 3σ square meets the sub-tile
-        ov = (valid[..., None] & runs[:, None, :]
-              & (mxl[..., None] + r[..., None] > sx0)
-              & (mxl[..., None] - r[..., None] < sx0 + TILE)
-              & (myl[..., None] + r[..., None] > sy0)
-              & (myl[..., None] - r[..., None] < sy0 + TILE))
-
-        e = (...,) + (None, None)
-        dx = px - mxl[e]                                   # [nb,CHUNK,nsub,NPIX]
-        dy = py - myl[e]
-        a, bb, c, op = cols[2][e], cols[3][e], cols[4][e], cols[5][e]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - bb * dx * dy
-        G = torch.exp(torch.clamp_max(power, 0.0))
-        raw = op * G
-        live = (raw >= ALPHA_MIN) & ov[..., None]
-        alpha = torch.where(live, torch.clamp_max(raw, ALPHA_MAX),
-                            torch.zeros_like(raw))
+        v = _chunk_visits(data, geo, sel, q, runs, nchan)
+        alpha = v["alpha"]
         cp = torch.cumprod(1.0 - alpha, dim=1)
         t_excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
         w = alpha * t_excl
-        contrib = torch.einsum("cnk,nksp->nscp", cols[6:6 + nchan], w)
+        contrib = torch.einsum("cnk,nksp->nscp", v["chans"], w)
         t_sel = T[sel]
         acc[sel] = acc[sel] + t_sel[:, :, None, :] * contrib
         T[sel] = t_sel * cp[:, -1]
@@ -237,3 +349,68 @@ def composite_bins_fwd_plain(data, bounds, nbins_x: int, nbins_y: int,
                                  stops[sel])
 
     return acc, T[:, :, None, :], stops
+
+
+def composite_bins_bwd_plain(data, bounds, trans, stops, g_acc, g_trans,
+                             nbins_x: int, nbins_y: int, nchan: int,
+                             width: int, height: int,
+                             bin_px: int = DEFAULT_BIN):
+    """Plain PyTorch version of `composite_bins_bwd` (same contract).
+
+    Vectorised over bins, a Python loop over the chunk index from the last
+    walked chunk to the first; inside a chunk, `cumsum` of log(1−α) rebuilds
+    each pair's T_i from the chunk's end and `cumsum` of u = chan·g·α·T_i
+    gives the later pairs' sum S, as the JAX kernel's prefix sums do."""
+    _check(data, bounds, nbins_x, nbins_y, nchan, bin_px)
+    nbins = nbins_x * nbins_y
+    _check_bwd(data, trans, stops, g_acc, g_trans, nbins, nchan, bin_px)
+    dev = data.device
+    geo = _bin_geometry(bounds, nbins_x, nbins_y, width, height, bin_px, dev)
+    in_img = geo["in_img"]
+    out = torch.zeros((grad_rows(nchan), data.shape[1]), dtype=torch.float32,
+                      device=dev)
+    tfin = trans[:, :, 0, :]                               # [nbins,nsub,NPIX]
+    g_t = g_trans[:, :, 0, :]
+    log_t = torch.log(torch.clamp_min(tfin, math.exp(LOG_FLOOR)))
+    S = torch.zeros_like(log_t)
+    walked = torch.where(in_img, stops, torch.zeros_like(stops))
+    max_chunks = int(walked.max()) if nbins else 0
+
+    for q in range(max_chunks - 1, -1, -1):
+        run = in_img & (q < stops)                         # [nbins, nsub]
+        sel = run.any(-1).nonzero()[:, 0]
+        v = _chunk_visits(data, geo, sel, q, run[sel], nchan)
+        alpha, G, live = v["alpha"], v["G"], v["live"]
+        one_m = torch.clamp_min(1.0 - alpha, 1.0 - ALPHA_MAX)
+        log_om = torch.log(one_m)                          # 0 off the visits
+        lcp = torch.cumsum(log_om, dim=1)
+        total_log = lcp[:, -1:]
+        lt = log_t[sel]
+        t_i = torch.exp(torch.clamp(lt[:, None] + (lcp - log_om) - total_log,
+                                    LOG_FLOOR, 0.0))
+        gacc = g_acc[sel]                                  # [nb,nsub,C,NPIX]
+        colgdot = torch.einsum("cnk,nscp->nksp", v["chans"], gacc)
+        wc = alpha * t_i
+        u = colgdot * wc
+        pu = torch.cumsum(u, dim=1)
+        total_u = pu[:, -1:]
+        s_k = (total_u - pu) + S[sel][:, None]
+        d_alpha = torch.where(
+            live & (v["raw"] < ALPHA_MAX),
+            colgdot * t_i - s_k / one_m
+            - g_t[sel][:, None] * (tfin[sel][:, None] / one_m),
+            torch.zeros_like(alpha))
+        d_power = torch.where(v["power"] <= 0.0, d_alpha * v["op"] * G,
+                              torch.zeros_like(alpha))
+        a, b, c, dx, dy = v["a"], v["b"], v["c"], v["dx"], v["dy"]
+        rows = [d_power * (a * dx + b * dy), d_power * (c * dy + b * dx),
+                -0.5 * d_power * dx * dx, -d_power * dx * dy,
+                -0.5 * d_power * dy * dy, d_alpha * G]
+        grads = torch.stack([r.sum((2, 3)) for r in rows]
+                            + list(torch.einsum("nksp,nscp->cnk", wc, gacc)))
+        valid = v["valid"]
+        out[:6 + nchan, v["g"][valid]] = grads[:, valid]
+        S[sel] = S[sel] + total_u[:, 0]
+        log_t[sel] = torch.clamp_min(lt - total_log[:, 0], LOG_FLOOR)
+
+    return out

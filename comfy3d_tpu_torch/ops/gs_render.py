@@ -7,8 +7,11 @@ JAX package runs on its accelerator, `render_arrays(backend="pallas")`):
      dilation, conic, 3σ radius, frustum cull (elementwise on [N] vectors);
   2. `binning.bin_coarse` — one (bin|depth)-key sort of (splat, bin) pairs;
   3. `gs_flat.composite_bins_fwd` — the compositor: the CUDA kernel for
-     tensors on the card, its plain PyTorch version for tensors on the CPU.
-`render` loops over a batch of cameras (the JAX package vmaps).
+     tensors on the card, its plain PyTorch version for tensors on the CPU;
+     its gradient is `gs_flat.composite_bins_bwd`, likewise.
+`render` loops over a batch of cameras (the JAX package vmaps). Gradients
+reach xyz, scale, rotation, opacity, colours and `means2d_offset` through
+autograd over the component-wise projection and the compositor's backward.
 """
 
 from __future__ import annotations
@@ -155,7 +158,14 @@ def pack_payload(means2d, conic, opacity, chans, radii, sprim):
 
 class _CompositeFlat(torch.autograd.Function):
     """The compositor as an autograd node (JAX: `_composite_flat`, a
-    custom VJP). Returns (acc [nbins, NSUB, C, 256], trans [.., 1, 256])."""
+    custom VJP, `_flat_vjp_fwd`/`_flat_vjp_bwd`). Returns
+    (acc [nbins, NSUB, C, 256], trans [.., 1, 256]).
+
+    The payload is packed inside `forward`, where autograd is off, so
+    `backward` returns the gradients of means2d, conic, opacity and chans
+    itself: the per-pair columns of `gs_flat.composite_bins_bwd`
+    scatter-added per splat (`index_add_`, atomics on the card, so the sums
+    vary in their last bits from run to run). The radius row has none."""
 
     @staticmethod
     def forward(ctx, means2d, conic, opacity, chans, radii, sprim, bounds,
@@ -164,15 +174,30 @@ class _CompositeFlat(torch.autograd.Function):
         acc, trans, stops = gs_flat.composite_bins_fwd(
             data, bounds, nbx, nby, chans.shape[-1], width, height,
             bin_px=bin_px)
-        ctx.mark_non_differentiable(stops)
+        ctx.save_for_backward(data, bounds, trans, stops, sprim)
+        ctx.geometry = (nbx, nby, chans.shape[-1], width, height, bin_px,
+                        means2d.shape[0])
         return acc, trans
 
     @staticmethod
     def backward(ctx, g_acc, g_trans):
-        raise NotImplementedError(
-            "the backward of the bin compositor (the gradient kernel that "
-            "replaces comfy3d_tpu/ops/pallas/gs_flat.py::_bwd_kernel) is "
-            "ROADMAP item B3 and not ported yet")
+        # an output without a gradient arrives as zeros (autograd
+        # materialises it); the permute and crop of `_bins_to_image` leave
+        # the cotangents strided
+        data, bounds, trans, stops, sprim = ctx.saved_tensors
+        nbx, nby, c, width, height, bin_px, n = ctx.geometry
+        gflat = gs_flat.composite_bins_bwd(
+            data, bounds, trans, stops, g_acc.contiguous(),
+            g_trans.contiguous(), nbx, nby, c, width, height, bin_px=bin_px)
+        g_rows = gflat[:, :sprim.numel()].t()                # [P, DG]
+
+        def scatter(rows):
+            return rows.new_zeros((n,) + rows.shape[1:]).index_add_(
+                0, sprim, rows)
+
+        return (scatter(g_rows[:, 0:2]), scatter(g_rows[:, 2:5]),
+                scatter(g_rows[:, 5]), scatter(g_rows[:, 6:6 + c]),
+                *[None] * 8)
 
 
 def render_flat(means2d, conic, opacity, chans, depth, active, radii,

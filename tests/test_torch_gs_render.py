@@ -220,15 +220,19 @@ def test_render_batch_of_three_matches_jax():
 
 # ------------------------------------------------------------- hygiene
 def test_backward_through_the_compositor_is_not_implemented():
+    """(The name dates from before the compositor had a backward.) The
+    backward now runs and fills every differentiable input's `.grad`."""
     W, H = 32, 32
     _, tc = both_cameras(0.0, 0.0, 3.0, W, H)
     xyz, scale, rot, opacity, colors, alive = (
         torch.as_tensor(a) for a in make_scene(2, n=12, spread=0.4))
-    colors.requires_grad_(True)
+    ins = [x.requires_grad_(True) for x in (xyz, scale, rot, opacity, colors)]
     out = G.render_arrays(xyz, scale, rot, opacity, colors, alive, tc.w2c,
                           tc.intrinsics, W, H)
-    with pytest.raises(NotImplementedError, match="B3"):
-        out["image"].sum().backward()
+    (out["image"].sum() + out["alpha"].sum() + out["depth"].sum()).backward()
+    for x in ins:
+        assert x.grad is not None and x.grad.shape == x.shape
+        assert bool(torch.isfinite(x.grad).all()) and bool(x.grad.any())
 
 
 def test_wrapper_runs_the_plain_version_only_on_the_cpu():

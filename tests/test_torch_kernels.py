@@ -1,6 +1,6 @@
-"""The port's bin compositor without the JAX package: its plain version
-against a per-pixel sequential compositor on the CPU, and the CUDA kernel
-against the plain version on the card.
+"""The port's bin compositor without the JAX package: its plain versions
+against a per-pixel sequential compositor on the CPU, and the CUDA kernels
+(forward and backward) against the plain versions on the card.
 
 This file imports no JAX, so on a machine with the card and no JAX it runs
 on its own:
@@ -70,6 +70,21 @@ CASES = {
 }
 
 
+def deep_bin_case(nchan=4, n=300):
+    """One 32-px bin under 300 wide, nearly opaque splats: within its first
+    chunk every pixel's T falls below e^-80 and underflows to 0."""
+    rng = np.random.RandomState(5)
+    sig = rng.uniform(20.0, 30.0, n)
+    inv = 1.0 / (sig * sig)
+    pay = np.stack([rng.uniform(8, 24, n), rng.uniform(8, 24, n), inv,
+                    np.zeros(n), inv, rng.uniform(0.9, 0.99, n)]
+                   + list(rng.rand(nchan, n)) + [np.ceil(3 * sig)])
+    data = np.zeros((-(-(7 + nchan) // 8) * 8, n + PAD), np.float32)
+    data[:pay.shape[0], :n] = pay
+    return data, np.array([0, n], np.int32), 1, 1, dict(
+        W=32, H=32, bin_px=32, nchan=nchan)
+
+
 def sequential_composite(data, bounds, nbx, nby, nchan, W, H, bin_px,
                          merged):
     """Per-pixel, one pair at a time, in float64: the contract of
@@ -120,6 +135,108 @@ def sequential_composite(data, bounds, nbx, nby, nchan, W, H, bin_px,
                 for s in group:
                     stops[t, s] = q + 1
     return acc, trans[:, :, None, :], stops
+
+
+def sequential_gradients(data, bounds, nbx, nby, nchan, W, H, bin_px,
+                         stops, g_acc, g_trans):
+    """Float64 autograd of Σ acc·g_acc + Σ T·g_trans through a per-pixel
+    compositor that walks each in-image sub-tile's first `stops` chunks one
+    pair at a time: the gradient `composite_bins_bwd` computes. Which
+    pair-pixel terms are live is decided in float32 with the plain
+    version's operations, so both keep the same terms."""
+    d = torch.tensor(data, dtype=torch.float64, requires_grad=True)
+    f32 = np.float32
+    sub = bin_px // 16
+    p = np.arange(256)
+    loss = d.new_zeros(())
+    for t in range(nbx * nby):
+        b0, b1 = int(bounds[t]), int(bounds[t + 1])
+        box, boy = f32((t % nbx) * bin_px), f32((t // nbx) * bin_px)
+        for s in range(sub * sub):
+            sx0, sy0 = (s % sub) * 16, (s // sub) * 16
+            if not ((t % nbx) * bin_px + sx0 < W
+                    and (t // nbx) * bin_px + sy0 < H):
+                continue
+            px = (p % 16).astype(f32) + f32(sx0 + 0.5)
+            py = (p // 16).astype(f32) + f32(sy0 + 0.5)
+            T = d.new_ones(256)
+            acc = d.new_zeros((nchan, 256))
+            for g in range(b0, min(b1, b0 // 128 * 128 + 128 * stops[t, s])):
+                mxl, myl = data[0, g] - box, data[1, g] - boy
+                r = data[6 + nchan, g]
+                if not (mxl + r > sx0 and mxl - r < sx0 + 16
+                        and myl + r > sy0 and myl - r < sy0 + 16):
+                    continue
+                a, b, c, op = data[2:6, g]
+                dx, dy = px - mxl, py - myl
+                power = f32(-0.5) * (a * dx * dx + c * dy * dy) - b * dx * dy
+                live = torch.as_tensor(
+                    op * np.exp(np.minimum(power, f32(0))) >= f32(1 / 255))
+                dx = torch.as_tensor(px, dtype=torch.float64) \
+                    - (d[0, g] - float(box))
+                dy = torch.as_tensor(py, dtype=torch.float64) \
+                    - (d[1, g] - float(boy))
+                power = -0.5 * (d[2, g] * dx * dx + d[4, g] * dy * dy) \
+                    - d[3, g] * dx * dy
+                raw = d[5, g] * torch.exp(torch.clamp_max(power, 0.0))
+                alpha = torch.where(live, torch.clamp_max(raw, 0.99),
+                                    torch.zeros_like(raw))
+                acc = acc + d[6:6 + nchan, g][:, None] * alpha * T
+                T = T * (1.0 - alpha)
+            loss = loss + (acc * torch.as_tensor(g_acc[t, s])).sum() \
+                + (T * torch.as_tensor(g_trans[t, s, 0])).sum()
+    loss.backward()
+    return d.grad.numpy()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("merged", [True, False])
+def test_bwd_plain_matches_float64_autograd(case, merged):
+    """The plain backward is the gradient of the composited prefix (here T
+    stays far above the e^-80 floor of the backward's log T)."""
+    cfg = CASES[case]
+    data, bounds, nbx, nby = make_bins_case(3, **cfg)
+    geo = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"], cfg["bin_px"])
+    acc, tr, st = gs_flat.composite_bins_fwd_plain(
+        torch.as_tensor(data), torch.as_tensor(bounds), *geo, merged=merged)
+    rng = np.random.RandomState(4)
+    g_acc = rng.randn(*acc.shape).astype(np.float32)
+    g_tr = rng.randn(*tr.shape).astype(np.float32)
+    assert float(tr[tr > 0].min()) > 1e-30       # far above the floor
+    ref = sequential_gradients(data, bounds, *geo, st.numpy(), g_acc, g_tr)
+    out = gs_flat.composite_bins_bwd_plain(
+        torch.as_tensor(data), torch.as_tensor(bounds), tr, st,
+        torch.as_tensor(g_acc), torch.as_tensor(g_tr), *geo).numpy()
+    p = int(bounds[-1])
+    for row in range(6 + cfg["nchan"]):
+        scale = np.abs(ref[row, :p]).max()
+        assert scale > 0, row
+        np.testing.assert_allclose(out[row, :p] / scale, ref[row, :p] / scale,
+                                   atol=1e-4, rtol=0, err_msg=f"row {row}")
+
+
+def test_bwd_is_inexact_where_t_underflows():
+    """Pins a fault the port shares with the JAX kernel (ROADMAP §C): where
+    T underflows inside the last walked chunk, the backward rebuilds T_i
+    from log max(T_fin, e^-80), which overstates every T_i of that chunk,
+    and its gradient is not the composited prefix's. When the forward keeps
+    log T, this test is to become a parity test with the float64 one."""
+    data, bounds, nbx, nby, cfg = deep_bin_case()
+    geo = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"], cfg["bin_px"])
+    acc, tr, st = gs_flat.composite_bins_fwd_plain(
+        torch.as_tensor(data), torch.as_tensor(bounds), *geo, merged=True)
+    assert float((tr == 0).float().mean()) > 0.5
+    rng = np.random.RandomState(4)
+    g_acc = rng.randn(*acc.shape).astype(np.float32)
+    g_tr = rng.randn(*tr.shape).astype(np.float32)
+    ref = sequential_gradients(data, bounds, *geo, st.numpy(), g_acc, g_tr)
+    out = gs_flat.composite_bins_bwd_plain(
+        torch.as_tensor(data), torch.as_tensor(bounds), tr, st,
+        torch.as_tensor(g_acc), torch.as_tensor(g_tr), *geo).numpy()
+    p = int(bounds[-1])
+    worst = max(np.abs(out[r, :p] - ref[r, :p]).max()
+                / np.abs(ref[r, :p]).max() for r in range(6 + cfg["nchan"]))
+    assert np.isfinite(out).all() and worst > 1.0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -178,3 +295,61 @@ def test_kernel_rejects_bad_inputs_before_launch():
     with pytest.raises(ValueError):
         gs_flat.composite_bins_fwd(d, b.cpu(), nbx, nby, 4, 64, 40)
     assert gs_flat.composite_bins_fwd.launches == before
+
+
+def _bwd_case(case):
+    if case == "deep":
+        return deep_bin_case()
+    cfg = CASES[case]
+    return (*make_bins_case(0, **cfg), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES) + ["deep"])
+@pytest.mark.parametrize("merged", [True, False])
+def test_bwd_kernel_matches_plain_on_the_card(case, merged):
+    dev = _card()
+    data, bounds, nbx, nby, cfg = _bwd_case(case)
+    d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
+                                                              device=dev)
+    geo = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"])
+    acc, tr, st = gs_flat.composite_bins_fwd(d, b, *geo, cfg["bin_px"],
+                                             merged=merged)
+    rng = np.random.RandomState(1)
+    g_acc = torch.as_tensor(rng.randn(*acc.shape).astype(np.float32),
+                            device=dev)
+    g_tr = torch.as_tensor(rng.randn(*tr.shape).astype(np.float32),
+                           device=dev)
+    args = (d, b, tr, st, g_acc, g_tr, *geo, cfg["bin_px"])
+    before = gs_flat.composite_bins_bwd.launches
+    out = gs_flat.composite_bins_bwd(*args)
+    torch.cuda.synchronize()
+    assert gs_flat.composite_bins_bwd.launches == before + 1
+    ref = gs_flat.composite_bins_bwd_plain(*args)
+    assert out.shape == ref.shape
+    for row in range(6 + cfg["nchan"]):
+        scale = float(ref[row].abs().max())
+        assert float((out[row] - ref[row]).abs().max()) <= 1e-3 * scale, row
+    # pad rows, and the columns after the last pair, stay 0
+    assert not out[6 + cfg["nchan"]:].any()
+    assert not out[:, int(bounds[-1]):].any()
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_rejects_bad_inputs_before_launch():
+    dev = _card()
+    data, bounds, nbx, nby, cfg = _bwd_case("32px")
+    d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
+                                                              device=dev)
+    acc, tr, st = gs_flat.composite_bins_fwd(d, b, nbx, nby, 4, 64, 40)
+    before = gs_flat.composite_bins_bwd.launches
+    with pytest.raises(ValueError):
+        gs_flat.composite_bins_bwd(d, b, tr, st, acc.double(), tr, nbx, nby,
+                                   4, 64, 40)
+    with pytest.raises(ValueError):
+        gs_flat.composite_bins_bwd(d, b, tr, st, acc.transpose(2, 3), tr,
+                                   nbx, nby, 4, 64, 40)
+    with pytest.raises(ValueError):
+        gs_flat.composite_bins_bwd(d, b, tr.cpu(), st, acc, tr, nbx, nby, 4,
+                                   64, 40)
+    assert gs_flat.composite_bins_bwd.launches == before

@@ -25,7 +25,18 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      set-up: 100k splats, 800², 4 orbit views, batch 1, `GSTrainConfig`
      defaults) — 10 steps with the launch counts reset just before and read
      just after, step and kernel times, a profile of one step, one densify
-     and one opacity reset, and the trained splat through GS-PLY and back.
+     and one opacity reset, and the trained splat through GS-PLY and back;
+  8. the tile compositor forward and backward (`gs_tile_fwd`, `gs_tile_bwd`)
+     against their plain versions on the card, at 20k splats / 256² with
+     `max_per_tile` 512 and 100k splats / 800² with 1024;
+  9. the tile render path — phase 4's GS-PLY from the same 8 views with
+     `render(..., backend="tile", max_per_tile=1024)`, launch counts reset
+     just before and read just after; tile-vs-flat PSNR per view and on the
+     20k/256² parity scene; times of a frame, the kernel, its plain
+     version, `bin_primitives` and the gather, and a profile of one frame;
+ 10. the tile train path — the learning check of phase 6 and phase 7's 10
+     steps with `GSTrainConfig(backend="tile")` (M = 512), with launch
+     counts, step and kernel times and a profile of one step.
 It prints one `{"kernels": [...]}` line, then the `nvidia-smi` line, and as
 its last line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -51,6 +62,7 @@ TOL_ABS = 1e-4          # acc / trans, kernel vs plain
 TOL_PSNR_DB = 60.0      # rendered image, kernel vs plain
 MAX_STOPS_MISMATCH = 1e-3   # share of bins whose stops may differ
 TOL_BWD_REL = 1e-3      # gradient rows, kernel vs plain, / the row's max |plain|
+TOL_TILE_FLAT_DB = 40.0  # tile vs coarse-bin render on the 20k/256² scene
 LOSS_DROP = 0.7         # trainer learns: last-10 mean loss < 0.7 × first-10
 DEAD_SLOTS = 1024       # dead slots after the full-width splat's 100k
 # the learning check's render size: at 128² the initial splats' 3σ boxes
@@ -384,8 +396,9 @@ def synthetic_views(dev, size, n_views=4):
     return cams, out["image"], out["alpha"]
 
 
-def trainer_learns(dev):
-    """Phase 6: 64 random splats fitted to the synthetic views."""
+def trainer_learns(dev, backend="flat"):
+    """Phase 6 (and 10, with backend "tile"): 64 random splats fitted to
+    the synthetic views."""
     import torch
     from comfy3d_tpu_torch.algorithms import gs_trainer as T
     from comfy3d_tpu_torch.core.gaussian import GaussianSplat
@@ -393,11 +406,12 @@ def trainer_learns(dev):
     cams, imgs, masks = synthetic_views(dev, LEARN_SIZE)
     init = GaussianSplat.random(torch.Generator().manual_seed(1), 64,
                                 radius=0.4, device=dev)
-    check(not bool(G.render(init, cams)["overflow"].any()),
-          f"initial splats overflow their coarse bins at {LEARN_SIZE}²")
+    check(not bool(G.render(init, cams, backend=backend)["overflow"].any()),
+          f"initial splats overflow their {backend} lists at {LEARN_SIZE}²")
     cfg = T.GSTrainConfig(iterations=120, batch_size=2,
                           density_start_iter=10_000,
-                          position_lr_init=0.002, position_lr_final=0.0002)
+                          position_lr_init=0.002, position_lr_final=0.0002,
+                          backend=backend)
     step = T.make_train_step(cfg, cams, imgs, masks)
     state = T.init_state(init)
     gen = torch.Generator().manual_seed(2)
@@ -408,10 +422,10 @@ def trainer_learns(dev):
         losses.append(m["loss"])
     losses = torch.stack(losses).tolist()
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
-    rec = dict(steps=cfg.iterations, size=LEARN_SIZE, first10=first,
-               last10=last,
+    rec = dict(backend=backend, steps=cfg.iterations, size=LEARN_SIZE,
+               first10=first, last10=last,
                ratio=last / first, seconds=time.perf_counter() - t0)
-    log(f"trainer learns: {rec}")
+    log(f"trainer learns ({backend}): {rec}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     check(last < LOSS_DROP * first,
           f"loss {first:.4f} → {last:.4f}, not below {LOSS_DROP}×")
@@ -434,21 +448,46 @@ def pad_dead(splat, extra):
         rot_raw=rot, alive=pad(splat.alive))
 
 
-def train_full_width(dev, asset_dir, size=800, n=100_000, n_views=4):
-    """Phase 7: bench.py's gs_train_step set-up on the card."""
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from comfy3d_tpu_torch.ops import gs_flat, gs_tile
+    for fn in (gs_flat.composite_bins_fwd, gs_flat.composite_bins_bwd,
+               gs_tile.composite_tiles_fwd, gs_tile.composite_tiles_bwd):
+        fn.launches = 0
+
+
+def read_launches():
+    from comfy3d_tpu_torch.ops import gs_flat, gs_tile
+    return {"gs_flat_fwd": gs_flat.composite_bins_fwd.launches,
+            "gs_flat_bwd": gs_flat.composite_bins_bwd.launches,
+            "gs_tile_fwd": gs_tile.composite_tiles_fwd.launches,
+            "gs_tile_bwd": gs_tile.composite_tiles_bwd.launches}
+
+
+def expect_launches(launches, backend, fwd, bwd, what):
+    want = {k: 0 for k in launches}
+    want[f"gs_{backend}_fwd"] = fwd
+    want[f"gs_{backend}_bwd"] = bwd
+    check(launches == want, f"{what}: launches {launches}, not {want}")
+
+
+def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
+                     n_views=4):
+    """Phase 7 (and 10, with backend "tile"): bench.py's gs_train_step
+    set-up on the card."""
     import numpy as np
     import torch
     from comfy3d_tpu_torch.algorithms import gs_trainer as T
     from comfy3d_tpu_torch.core.camera import Camera
     from comfy3d_tpu_torch.core.io.ply import load_gs_ply, save_gs_ply
-    from comfy3d_tpu_torch.ops import gs_flat
+    from comfy3d_tpu_torch.ops import gs_flat, gs_tile
     splat = pad_dead(make_splat(n, 0.01, 5, dev), DEAD_SLOTS)
     cams = Camera.from_orbit([0.0] * n_views, [0.0, 90.0, 180.0, 270.0],
                              2.2, width=size, height=size, device=dev)
     imgs = torch.as_tensor(np.random.RandomState(7).rand(
         n_views, size, size, 3).astype(np.float32), device=dev)
     masks = torch.ones((n_views, size, size), device=dev)
-    cfg = T.GSTrainConfig(batch_size=1)
+    cfg = T.GSTrainConfig(batch_size=1, backend=backend)
     step = T.make_train_step(cfg, cams, imgs, masks)
     holder = {"state": T.init_state(splat)}
     dead = ~splat.alive
@@ -462,19 +501,17 @@ def train_full_width(dev, asset_dir, size=800, n=100_000, n_views=4):
         return m
 
     torch.cuda.synchronize()
-    gs_flat.composite_bins_fwd.launches = 0
-    gs_flat.composite_bins_bwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     losses = [one_step()["loss"] for _ in range(10)]
     torch.cuda.synchronize()
     first10_s = time.perf_counter() - t0
-    launches = {"gs_flat_fwd": gs_flat.composite_bins_fwd.launches,
-                "gs_flat_bwd": gs_flat.composite_bins_bwd.launches}
+    launches = read_launches()
     losses = torch.stack(losses).tolist()
-    log(f"train path: 10 steps at {size}²/{n} in {first10_s * 1e3:.0f} ms "
-        f"(first calls), launches {launches}, losses {losses}")
-    check(launches == {"gs_flat_fwd": 10, "gs_flat_bwd": 10},
-          f"launches over 10 steps: {launches}, not 10 of each")
+    log(f"train path ({backend}): 10 steps at {size}²/{n} in "
+        f"{first10_s * 1e3:.0f} ms (first calls), launches {launches}, "
+        f"losses {losses}")
+    expect_launches(launches, backend, 10, 10, f"10 {backend} train steps")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     state = holder["state"]
     check(all(torch.equal(state.params[k][dead], dead_before[k])
@@ -484,23 +521,35 @@ def train_full_width(dev, asset_dir, size=800, n=100_000, n_views=4):
     prof = profile_frames(one_step, 3)
     prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] \
         / times["train_step_ms"]
-    log(f"train step {times['train_step_ms']:.2f} ms; profile {prof}")
+    log(f"train step ({backend}) {times['train_step_ms']:.2f} ms; profile "
+        f"{prof}")
 
-    # K3 alone, on the trained splat's compositor inputs for view 0
+    # the backward kernel alone, on the trained splat's compositor inputs
+    # for view 0; its launches here are not the path's
     cam0 = Camera.from_orbit(0.0, 0.0, 2.2, width=size, height=size,
                              device=dev)
-    inp = flat_inputs(holder["state"].to_splat(), cam0)
-    fwd = gs_flat.composite_bins_fwd(inp["data"], inp["bounds"], inp["nbx"],
-                                     inp["nby"], inp["C"], size, size)
-    args = bwd_args(inp, fwd, 11)
-    launches_before = gs_flat.composite_bins_bwd.launches
-    times["kernel_bwd_ms"] = cuda_ms(
-        lambda: gs_flat.composite_bins_bwd(*args), 20)
-    times["plain_bwd_ms"] = cuda_ms(
-        lambda: gs_flat.composite_bins_bwd_plain(*args), 3, warmup=1)
-    gs_flat.composite_bins_bwd.launches = launches_before
-    bound = bwd_bound(inp, fwd[2])
-    log(f"K3 at {size}²/{n}: kernel {times['kernel_bwd_ms']:.3f} ms, plain "
+    trained = holder["state"].to_splat()
+    if backend == "flat":
+        inp = flat_inputs(trained, cam0)
+        fwd = gs_flat.composite_bins_fwd(inp["data"], inp["bounds"],
+                                         inp["nbx"], inp["nby"], inp["C"],
+                                         size, size)
+        args = bwd_args(inp, fwd, 11)
+        kernel, plain = gs_flat.composite_bins_bwd, \
+            gs_flat.composite_bins_bwd_plain
+        bound = bwd_bound(inp, fwd[2])
+    else:
+        inp = tile_inputs(trained, cam0, cfg.max_per_tile)
+        fwd = gs_tile.composite_tiles_fwd(inp["data"], inp["counts"],
+                                          inp["grid_w"], inp["C"])
+        args = tile_bwd_args(inp, fwd, 11)
+        kernel, plain = gs_tile.composite_tiles_bwd, \
+            gs_tile.composite_tiles_bwd_plain
+        bound = tile_bwd_bound(inp)
+    times["kernel_bwd_ms"] = cuda_ms(lambda: kernel(*args), 20)
+    times["plain_bwd_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
+    log(f"{'K3' if backend == 'flat' else 'K5'} at {size}²/{n}: kernel "
+        f"{times['kernel_bwd_ms']:.3f} ms, plain "
         f"{times['plain_bwd_ms']:.1f} ms, bound {bound}")
 
     # densify and prune, opacity reset, GS-PLY round trip
@@ -515,18 +564,263 @@ def train_full_width(dev, asset_dir, size=800, n=100_000, n_views=4):
           "non-finite parameters after densify / reset")
     check(float(torch.sigmoid(state.params["opacity_raw"]).max()) <= 0.0101,
           "opacity reset left an opacity above 0.01")
-    path = os.path.join(asset_dir, "trained_100k.ply")
+    path = os.path.join(asset_dir, f"trained_100k_{backend}.ply")
     trained = state.to_splat()
     save_gs_ply(path, trained)
     back = load_gs_ply(path, device=dev)
     check(torch.equal(back.xyz, trained.xyz[trained.alive]),
           "trained splat changed through GS-PLY")
-    rec = dict(splats=n, dead_slots=DEAD_SLOTS, size=size, views=n_views,
-               batch=1, launches=launches, losses=losses,
+    rec = dict(backend=backend, splats=n, dead_slots=DEAD_SLOTS, size=size,
+               views=n_views, batch=1, max_per_tile=cfg.max_per_tile,
+               launches=launches, losses=losses,
                first_10_steps_s=first10_s,
                alive_after_densify=int(state.alive.sum()),
                ply_splats=back.num_capacity)
     return rec, times, prof, bound
+
+
+# ------------------------------------------------------------------ #
+# The per-16-px-tile compositor (phases 8-10)
+# ------------------------------------------------------------------ #
+def tile_inputs(splat, cam, max_per_tile):
+    """The tile compositor's inputs for one camera, as `render_tiles` builds
+    them: projection, SH colour, depth order, binning, tile-data gather."""
+    import torch
+    from comfy3d_tpu_torch.ops import binning
+    from comfy3d_tpu_torch.ops import gs_render as G
+    W, H = cam.width, cam.height
+    means2d, depth, conic, radii, visible = G.project_gaussians(
+        splat.xyz, splat.scale, splat.rotation, cam.w2c, cam.intrinsics,
+        W, H)
+    active = visible & splat.alive & (splat.opacity > G.ALPHA_MIN)
+    chans = torch.cat([splat.colors_toward(cam.campos), depth[:, None]], -1)
+    grid_h, grid_w = binning.num_tiles(H, W)
+    order = torch.argsort(torch.where(active, depth, math.inf), stable=True)
+    s_m2d, s_r = means2d[order], radii[order][:, None]
+    bin_args = (s_m2d - s_r, s_m2d + s_r, active[order], grid_h, grid_w,
+                max_per_tile)
+    bins = binning.bin_primitives(*bin_args)
+    gather_args = (s_m2d, conic[order], splat.opacity[order], chans[order],
+                   bins.prim_idx, bins.valid)
+    data = G._build_tile_data(*gather_args)
+    return dict(data=data, counts=torch.clamp_max(bins.count, max_per_tile),
+                grid_w=grid_w, grid_h=grid_h, W=W, H=H, C=chans.shape[-1],
+                overflow=bool(bins.overflow), bin_args=bin_args,
+                gather_args=gather_args)
+
+
+def tile_to_image(acc, trans, inp):
+    from comfy3d_tpu_torch.ops import binning
+    geo = (inp["grid_h"], inp["grid_w"], inp["H"], inp["W"])
+    img = binning.tiles_to_image(acc.transpose(1, 2), *geo)
+    tr = binning.tiles_to_image(trans.transpose(1, 2), *geo)
+    return img[..., :-1] + tr * 1.0         # rgb + (1 - alpha) · white
+
+
+def tile_visits(inp, block=8192):
+    """The walked slot-pixel visits of this input (slots below each tile's
+    count × 256 pixels), of those the live ones (power ≤ 0, op·G ≥ 1/255)
+    and of those the unsaturated ones (op·G < 0.99), evaluated with the
+    kernels' operations; and the walked slots."""
+    import torch
+    from comfy3d_tpu_torch.ops.gs_tile import ALPHA_MAX, ALPHA_MIN, TILE
+    data, counts = inp["data"], inp["counts"]
+    dev = data.device
+    m = data.shape[2]
+    t, slot = (torch.arange(m, device=dev)[None, :]
+               < counts[:, None]).nonzero(as_tuple=True)
+    p = torch.arange(TILE * TILE, device=dev)
+    live = unsat = 0
+    for lo in range(0, t.numel(), block):
+        tt, ss = t[lo:lo + block], slot[lo:lo + block]
+        cols = data[tt, :, ss]                          # [b, D]
+        px = (p % TILE).float()[None, :] + 0.5 \
+            + ((tt % inp["grid_w"]) * TILE).float()[:, None]
+        py = torch.div(p, TILE, rounding_mode="floor").float()[None, :] \
+            + 0.5 + (torch.div(tt, inp["grid_w"], rounding_mode="floor")
+                     * TILE).float()[:, None]
+        mx = cols[:, 0:1] - px
+        my = cols[:, 1:2] - py
+        a, b, c, op = (cols[:, i:i + 1] for i in (2, 3, 4, 5))
+        power = -0.5 * (a * mx * mx + c * my * my) - b * mx * my
+        raw = op * torch.exp(torch.clamp_max(power, 0.0))
+        hit = (power <= 0.0) & (raw >= ALPHA_MIN)
+        live += int(hit.sum())
+        unsat += int((hit & (raw < ALPHA_MAX)).sum())
+    return dict(slots=t.numel(), visits=t.numel() * TILE * TILE, live=live,
+                unsat=unsat)
+
+
+def _bound(in_bytes, out_bytes, ops, **counts):
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return dict(counts, ops=ops, bytes=in_bytes + out_bytes,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def tile_fwd_bound(inp):
+    """K4's least time on this input: bytes (the walked slots' 6 + C rows and
+    the counts read, acc and trans written, each once) against f32
+    operations counted from csrc/gs_tile_fwd.cu: 17 per visit (offsets,
+    power, exp, raw, tests), 4 + 2C more per live one (α, α·T, acc, T)."""
+    C, ntiles = inp["C"], inp["data"].shape[0]
+    v = tile_visits(inp)
+    return _bound(v["slots"] * (6 + C) * 4 + ntiles * 4,
+                  ntiles * (C + 1) * 256 * 4,
+                  17 * v["visits"] + (4 + 2 * C) * v["live"], **v)
+
+
+def tile_bwd_bound(inp):
+    """K5's least time on this input: bytes (the walked slots' 6 + C rows,
+    counts, trans, g_acc and g_trans read, the [T, D, M] columns written,
+    each once) against f32 operations counted from csrc/gs_tile_bwd.cu:
+    17 per visit, 11 + 4C more per live one (one_m, log1p, log T, clamp,
+    exp, α·T, chan·g, d chan and its sum, S), 35 more per unsaturated one
+    (dα, d power, d μ, d conic, d op and their sums)."""
+    data, C = inp["data"], inp["C"]
+    ntiles = data.shape[0]
+    v = tile_visits(inp)
+    return _bound(v["slots"] * (6 + C) * 4 + ntiles * 4
+                  + ntiles * (C + 2) * 256 * 4, data.numel() * 4,
+                  17 * v["visits"] + (11 + 4 * C) * v["live"]
+                  + 35 * v["unsat"], **v)
+
+
+def tile_kernel_vs_plain(label, inp):
+    """K4 against its plain version: acc/trans max abs error and the image's
+    PSNR."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_tile
+    args = (inp["data"], inp["counts"], inp["grid_w"], inp["C"])
+    acc, tr = gs_tile.composite_tiles_fwd(*args)
+    torch.cuda.synchronize()
+    p_acc, p_tr = gs_tile.composite_tiles_fwd_plain(*args)
+    err_acc = float((acc - p_acc).abs().max())
+    err_tr = float((tr - p_tr).abs().max())
+    plain_img = tile_to_image(p_acc, p_tr, inp)
+    db = psnr(tile_to_image(acc, tr, inp), plain_img)
+    rec = dict(max_abs_err_acc=err_acc, max_abs_err_trans=err_tr,
+               psnr_db=db, walked_slots=int(inp["counts"].sum()),
+               max_count=int(inp["counts"].max()),
+               max_per_tile=inp["data"].shape[2], overflow=inp["overflow"])
+    log(f"tile {label}: {rec}")
+    check(bool(torch.isfinite(acc).all()) and bool(torch.isfinite(tr).all()),
+          f"tile {label}: non-finite")
+    check(err_acc <= TOL_ABS and err_tr <= TOL_ABS,
+          f"tile {label}: acc err {err_acc}, trans err {err_tr} > {TOL_ABS}")
+    check(db >= TOL_PSNR_DB, f"tile {label}: PSNR {db:.2f} dB < "
+          f"{TOL_PSNR_DB}")
+    return rec, (acc, tr), plain_img
+
+
+def tile_bwd_args(inp, fwd, seed):
+    """The tile backward's arguments for a forward kernel's (acc, trans),
+    with cotangents drawn from a seeded generator on the card."""
+    import torch
+    acc, trans = fwd
+    gen = torch.Generator(device=acc.device).manual_seed(seed)
+    g_acc = torch.randn(acc.shape, generator=gen, device=acc.device)
+    g_trans = torch.randn(trans.shape, generator=gen, device=acc.device)
+    return (inp["data"], inp["counts"], inp["grid_w"], trans, g_acc, g_trans,
+            inp["C"])
+
+
+def tile_bwd_vs_plain(label, inp, fwd, seed):
+    """K5 against its plain version: per gradient row max |kernel − plain| /
+    max |plain|; padding rows and slots past each count exactly 0 in both."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_tile
+    args = tile_bwd_args(inp, fwd, seed)
+    k = gs_tile.composite_tiles_bwd(*args)
+    torch.cuda.synchronize()
+    p = gs_tile.composite_tiles_bwd_plain(*args)
+    nrow = 6 + inp["C"]
+    rel = [float((k[:, r] - p[:, r]).abs().max()
+                 / p[:, r].abs().max().clamp_min(1e-30)) for r in range(nrow)]
+    worst = max(range(nrow), key=lambda r: rel[r])
+    past = torch.arange(k.shape[2], device=k.device)[None, :] \
+        >= inp["counts"][:, None]
+    outside_zero = all(not bool(x[:, nrow:].any())
+                       and not bool(x.transpose(1, 2)[past].any())
+                       for x in (k, p))
+    rec = dict(max_rel_err=rel[worst], worst_row=worst, rel_err_rows=rel,
+               max_abs_err=float((k - p).abs().max()),
+               unwalked_zero=outside_zero)
+    log(f"tile bwd {label}: worst row {worst} rel err {rel[worst]:.3g}, "
+        f"max abs err {rec['max_abs_err']:.3g}, unwalked zero "
+        f"{outside_zero}")
+    check(bool(torch.isfinite(k).all()), f"tile bwd {label}: non-finite")
+    check(rel[worst] <= TOL_BWD_REL, f"tile bwd {label}: row {worst} rel "
+          f"err {rel[worst]} > {TOL_BWD_REL}")
+    check(outside_zero, f"tile bwd {label}: unwalked slots or pad rows "
+          f"are not 0")
+    return rec
+
+
+def tile_render_path(dev, splat, cams, cam0, flat_imgs, parity_scene):
+    """Phase 9: the tile render path, 8 views at 800², M = 1024 (the sizes
+    are read from `splat` and `cams`)."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_tile
+    from comfy3d_tpu_torch.ops import gs_render as G
+    kw = dict(backend="tile", max_per_tile=1024)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = G.render(splat, cams, **kw)
+    torch.cuda.synchronize()
+    render8_s = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"tile render path: {cams.batch_shape} views in "
+        f"{render8_s * 1e3:.1f} ms (first call), launches {launches}")
+    nview, size = cams.batch_shape[0], cams.height
+    expect_launches(launches, "tile", nview, 0, f"{nview} tile views")
+    img, alpha = out["image"], out["alpha"]
+    check(tuple(img.shape) == (nview, size, cams.width, 3),
+          f"image shape {img.shape}")
+    check(bool(torch.isfinite(img).all()) and bool(
+        torch.isfinite(alpha).all()) and bool(
+        torch.isfinite(out["depth"]).all()), "non-finite tile output")
+    mean_alpha = float(alpha.mean())
+    check(0.0 < mean_alpha < 1.0, f"tile mean alpha {mean_alpha}")
+    vs_flat = [psnr(img[i], flat_imgs[i]) for i in range(nview)]
+    # bench.py::bench_render_parity_psnr's scene: tile vs coarse-bin
+    p_splat, p_cam = parity_scene
+    parity_db = psnr(G.render(p_splat, p_cam, **dict(kw, max_per_tile=512))
+                     ["image"], G.render(p_splat, p_cam)["image"])
+    log(f"tile vs flat PSNR per view {vs_flat}; 20k/256² parity "
+        f"{parity_db:.2f} dB")
+    check(parity_db >= TOL_TILE_FLAT_DB, f"tile vs flat on the parity "
+          f"scene: {parity_db:.2f} dB < {TOL_TILE_FLAT_DB}")
+
+    inp = tile_inputs(splat, cam0, 1024)
+    kargs = (inp["data"], inp["counts"], inp["grid_w"], inp["C"])
+    times = {
+        "frame_ms": cuda_ms(lambda: G.render(splat, cam0, **kw), 20),
+        "kernel_fwd_ms": cuda_ms(
+            lambda: gs_tile.composite_tiles_fwd(*kargs), 20),
+        "plain_fwd_ms": cuda_ms(
+            lambda: gs_tile.composite_tiles_fwd_plain(*kargs), 3, warmup=1),
+        "bin_primitives_ms": cuda_ms(
+            lambda: G.binning.bin_primitives(*inp["bin_args"]), 20),
+        "gather_ms": cuda_ms(
+            lambda: G._build_tile_data(*inp["gather_args"]), 20),
+        "prep_ms": cuda_ms(lambda: tile_inputs(splat, cam0, 1024), 20),
+        "render_8_views_ms": cuda_ms(lambda: G.render(splat, cams, **kw), 5),
+    }
+    log(f"tile times at 800²/100k: {times}")
+    prof = profile_frames(lambda: G.render(splat, cam0, **kw), 5)
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] \
+        / times["frame_ms"]
+    log(f"profile of one tile frame: {prof}")
+    rec = dict(views=nview, size=size, splats=splat.num_capacity,
+               max_per_tile=1024,
+               launches=launches, mean_alpha=mean_alpha,
+               overflow_views=int(out["overflow"].sum()),
+               vs_flat_psnr_db=vs_flat, parity_20k_256_psnr_db=parity_db,
+               first_call_8_views_s=render8_s)
+    return rec, times, prof, tile_fwd_bound(inp)
 
 
 def main(out_path=None) -> int:
@@ -608,16 +902,15 @@ def main(out_path=None) -> int:
     cams = Camera.from_camposes(poses, width=800, height=800, device="cuda")
 
     torch.cuda.synchronize()
-    gs_flat.composite_bins_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = G.render(splat, cams)
     torch.cuda.synchronize()
     render8_s = time.perf_counter() - t0
-    launches = {"gs_flat_fwd": gs_flat.composite_bins_fwd.launches}
+    launches = read_launches()
     log(f"main path: 8 views in {render8_s * 1e3:.1f} ms (first call), "
         f"launches {launches}")
-    check(launches["gs_flat_fwd"] == 8,
-          f"gs_flat_fwd launched {launches['gs_flat_fwd']} times, not 8")
+    expect_launches(launches, "flat", 8, 0, "8 views")
     img, alpha = out["image"], out["alpha"]
     check(tuple(img.shape) == (8, 800, 800, 3), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()) and bool(
@@ -731,18 +1024,47 @@ def main(out_path=None) -> int:
         dev, asset_dir)
     record.update(train_path=train_rec, train_times=train_times,
                   train_profile=train_prof, bwd_bound=bwd_bound_rec)
+    torch.cuda.empty_cache()
 
-    kernel["launches_by_path"] = {
-        "render_8_views": launches["gs_flat_fwd"],
-        "train_10_steps": train_rec["launches"]["gs_flat_fwd"]}
+    # 8. the tile compositor, forward and backward, vs its plain versions
+    tile_cmp, tile_bwd_cmp = {}, {}
+    for seed, (sname, m) in enumerate((("20k_256", 512), ("100k_800", 1024))):
+        t_inp = tile_inputs(*scenes[sname], m)
+        label = f"{sname}_m{m}"
+        tile_cmp[label], t_fwd, _ = tile_kernel_vs_plain(label, t_inp)
+        tile_bwd_cmp[label] = tile_bwd_vs_plain(label, t_inp, t_fwd, seed)
+        del t_inp, t_fwd
+    record.update(tile_vs_plain=tile_cmp, tile_bwd_vs_plain=tile_bwd_cmp)
+    torch.cuda.empty_cache()
+
+    # 9. the tile render path; 10. the tile train path
+    tile_rec, tile_times, tile_prof, tile_fwd_bound_rec = tile_render_path(
+        dev, splat, cams, cam0, img, scenes["20k_256"])
+    record.update(tile_render_path=tile_rec, tile_times=tile_times,
+                  tile_profile=tile_prof, tile_fwd_bound=tile_fwd_bound_rec)
+    del out, img, alpha
+    torch.cuda.empty_cache()
+    record["tile_trainer_learns"] = trainer_learns(dev, backend="tile")
+    (tile_train_rec, tile_train_times, tile_train_prof,
+     tile_bwd_bound_rec) = train_full_width(dev, asset_dir, backend="tile")
+    record.update(tile_train_path=tile_train_rec,
+                  tile_train_times=tile_train_times,
+                  tile_train_profile=tile_train_prof,
+                  tile_bwd_bound=tile_bwd_bound_rec)
+
+    def by_path(name):
+        return {"render_8_views": launches[name],
+                "train_10_steps": train_rec["launches"][name],
+                "tile_render_8_views": tile_rec["launches"][name],
+                "tile_train_10_steps": tile_train_rec["launches"][name]}
+
+    kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel_bwd = {
         "name": "gs_flat_bwd", "route": "cuda",
         "source": "comfy3d_tpu_torch/csrc/gs_flat_bwd.cu",
         "replaces": "comfy3d_tpu/ops/pallas/gs_flat.py:552",
         "launches": train_rec["launches"]["gs_flat_bwd"],
-        "launches_by_path": {
-            "render_8_views": 0,
-            "train_10_steps": train_rec["launches"]["gs_flat_bwd"]},
+        "launches_by_path": by_path("gs_flat_bwd"),
         "max_abs_err": max(r["max_abs_err"] for r in bwd_compare.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd_compare.values()),
         "ms": train_times["kernel_bwd_ms"],
@@ -752,7 +1074,37 @@ def main(out_path=None) -> int:
         "bound_by": bwd_bound_rec["bound_by"],
         "library_ms": None,
     }
-    record["kernels"] = [kernel, kernel_bwd]
+    kernel_tile_fwd = {
+        "name": "gs_tile_fwd", "route": "cuda",
+        "source": "comfy3d_tpu_torch/csrc/gs_tile_fwd.cu",
+        "replaces": "comfy3d_tpu/ops/pallas/gs_tile.py:92",
+        "launches": tile_rec["launches"]["gs_tile_fwd"],
+        "launches_by_path": by_path("gs_tile_fwd"),
+        "max_abs_err": max(max(r["max_abs_err_acc"], r["max_abs_err_trans"])
+                           for r in tile_cmp.values()),
+        "ms": tile_times["kernel_fwd_ms"],
+        "kernel_ms": tile_times["kernel_fwd_ms"],
+        "plain_ms": tile_times["plain_fwd_ms"],
+        "bound_ms": tile_fwd_bound_rec["bound_ms"],
+        "bound_by": tile_fwd_bound_rec["bound_by"],
+        "library_ms": None,
+    }
+    kernel_tile_bwd = {
+        "name": "gs_tile_bwd", "route": "cuda",
+        "source": "comfy3d_tpu_torch/csrc/gs_tile_bwd.cu",
+        "replaces": "comfy3d_tpu/ops/pallas/gs_tile.py:127",
+        "launches": tile_train_rec["launches"]["gs_tile_bwd"],
+        "launches_by_path": by_path("gs_tile_bwd"),
+        "max_abs_err": max(r["max_abs_err"] for r in tile_bwd_cmp.values()),
+        "max_rel_err": max(r["max_rel_err"] for r in tile_bwd_cmp.values()),
+        "ms": tile_train_times["kernel_bwd_ms"],
+        "kernel_ms": tile_train_times["kernel_bwd_ms"],
+        "plain_ms": tile_train_times["plain_bwd_ms"],
+        "bound_ms": tile_bwd_bound_rec["bound_ms"],
+        "bound_by": tile_bwd_bound_rec["bound_by"],
+        "library_ms": None,
+    }
+    record["kernels"] = [kernel, kernel_bwd, kernel_tile_fwd, kernel_tile_bwd]
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
@@ -764,7 +1116,16 @@ def main(out_path=None) -> int:
                       "train_path": train_rec, "train_times": train_times,
                       "train_profile": {k: v for k, v in train_prof.items()
                                         if k != "top"},
-                      "trainer_learns": record["trainer_learns"]}))
+                      "trainer_learns": record["trainer_learns"],
+                      "tile_render_path": tile_rec, "tile_times": tile_times,
+                      "tile_profile": {k: v for k, v in tile_prof.items()
+                                       if k != "top"},
+                      "tile_train_path": tile_train_rec,
+                      "tile_train_times": tile_train_times,
+                      "tile_train_profile": {
+                          k: v for k, v in tile_train_prof.items()
+                          if k != "top"},
+                      "tile_trainer_learns": record["tile_trainer_learns"]}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,10 +18,12 @@ node's body). What carries over unchanged:
 
 What differs from the JAX module:
 
-  * the batch is a Python loop of `render_arrays` over views (JAX vmaps),
-    always on the coarse-bin path (the compositor kernels on the card, their
-    plain versions on the CPU); `GSTrainConfig.backend`, `max_per_tile` and
-    `chunk` are kept only so configs carry across;
+  * the batch is a Python loop of `render_arrays` over views (JAX vmaps);
+    each view renders through `GSTrainConfig.backend` (the compositor
+    kernels on the card, their plain versions on the CPU): "flat", the
+    coarse-bin path, or "tile", the per-16-px-tile path whose lists are cut
+    at `max_per_tile`; the JAX names map onto them ("pallas" and "auto" →
+    "flat", "xla" → "tile"), and `chunk` has no effect;
   * randomness is explicit: a step takes its `view_idx` and `bgs`, densify
     its two standard-normal noise tensors, and `train` draws all of them
     from one `torch.Generator`;
@@ -76,8 +78,7 @@ class GSTrainConfig:
     prune_max_world_scale: float = 0.4   # 0.1 * extent(=4) as in reference
     scene_extent: float = 4.0
     sh_degree: int = 0
-    # renderer (carried for config compatibility; the port runs the
-    # coarse-bin path)
+    # renderer (see `gs_render.render_arrays`)
     max_per_tile: int = 512
     chunk: int = 16
     backend: str = "auto"
@@ -183,7 +184,9 @@ def make_train_step(cfg: GSTrainConfig, cameras: Camera,
         outs = [gs_render.render_arrays(
             splat.xyz, scale, rot, opacity, splat.colors_toward(campos[i]),
             alive, w2c[i], intr[i], width, height, background=bgs[b],
-            means2d_offset=vs_off[b]) for b, i in enumerate(view_idx)]
+            max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
+            means2d_offset=vs_off[b], backend=cfg.backend)
+            for b, i in enumerate(view_idx)]
         img = torch.stack([o["image"] for o in outs])     # [B, H, W, 3]
         alpha = torch.stack([o["alpha"] for o in outs])
         ref_m = masks[view_idx]

@@ -1,10 +1,10 @@
-"""Device ops: 3DGS projection, coarse binning, the bin compositor, SSIM.
+"""Device ops: 3DGS projection, binning, the bin and tile compositors, SSIM.
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("binning", "gs_flat", "gs_render", "ssim")
+_SUBMODULES = ("binning", "gs_flat", "gs_render", "gs_tile", "ssim")
 
 
 def __getattr__(name):

@@ -1,14 +1,22 @@
-"""3D Gaussian Splatting renderer: EWA projection, coarse (bin|depth) sort,
-and the bin compositor.
+"""3D Gaussian Splatting renderer: EWA projection, binning, and the two
+compositors.
 
-Port of `comfy3d_tpu/ops/gs_render.py`, coarse-bin flat path only (what the
-JAX package runs on its accelerator, `render_arrays(backend="pallas")`):
-  1. `project_gaussians` — 3D→2D EWA splatting: 2D covariance + 0.3 px
-     dilation, conic, 3σ radius, frustum cull (elementwise on [N] vectors);
-  2. `binning.bin_coarse` — one (bin|depth)-key sort of (splat, bin) pairs;
-  3. `gs_flat.composite_bins_fwd` — the compositor: the CUDA kernel for
-     tensors on the card, its plain PyTorch version for tensors on the CPU;
-     its gradient is `gs_flat.composite_bins_bwd`, likewise.
+Port of `comfy3d_tpu/ops/gs_render.py`. `render_arrays(backend=...)` picks
+one of two paths after the shared projection (`project_gaussians`: 3D→2D
+EWA splatting, 2D covariance + 0.3 px dilation, conic, 3σ radius, frustum
+cull, elementwise on [N] vectors):
+
+  * "flat" (the default; JAX's "pallas" and "auto") — the coarse-bin path
+    the JAX package runs on its accelerator: `binning.bin_coarse`, one
+    (bin|depth)-key sort of (splat, bin) pairs, then `gs_flat`'s
+    compositor, saturation exit per bin;
+  * "tile" (JAX's "xla") — the per-16-px-tile path: one global depth sort
+    of the splats, `binning.bin_primitives` into padded per-tile lists of
+    `max_per_tile` slots, a packed row gather (`_build_tile_data`), then
+    `gs_tile`'s compositor, which walks every counted slot.
+
+Each compositor is a CUDA kernel for tensors on the card and its plain
+PyTorch version for tensors on the CPU, with its backward likewise.
 `render` loops over a batch of cameras (the JAX package vmaps). Gradients
 reach xyz, scale, rotation, opacity, colours and `means2d_offset` through
 autograd over the component-wise projection and the compositor's backward.
@@ -16,11 +24,13 @@ autograd over the component-wise projection and the compositor's backward.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.camera import Camera
 from ..core.gaussian import GaussianSplat
-from . import binning, gs_flat
+from . import binning, gs_flat, gs_tile
 from .gs_flat import ALPHA_MIN, TILE
 
 
@@ -223,19 +233,128 @@ def render_flat(means2d, conic, opacity, chans, depth, active, radii,
 
 
 # ------------------------------------------------------------------ #
+# 3. Per-16-px-tile compositing
+# ------------------------------------------------------------------ #
+def _build_tile_data(means2d, conics, opacities, colors, prim_idx,
+                     prim_valid):
+    """Gather per-tile splat columns [T, D, M] (D = 6 + C padded to 8·k).
+
+    Packs every per-splat channel into one [N, D] matrix first, so the
+    expansion is a single row gather; invalid slots get opacity 0, so
+    their gradient columns are exactly 0."""
+    d_raw = 2 + 3 + 1 + colors.shape[-1]
+    pad = (-d_raw) % 8
+    parts = [means2d, conics, opacities[:, None], colors]
+    if pad:
+        parts.append(means2d.new_zeros((means2d.shape[0], pad)))
+    packed = torch.cat(parts, dim=-1)                    # [N, D]
+    gathered = packed[prim_idx]                          # [T, M, D]
+    gathered[..., 5] *= prim_valid
+    return gathered.transpose(1, 2).contiguous()         # [T, D, M]
+
+
+class _CompositeTiles(torch.autograd.Function):
+    """The tile compositor as an autograd node (JAX: `tile_composite_pallas`,
+    a custom VJP, `_pallas_vjp_fwd`/`_pallas_vjp_bwd`; the binning stays
+    outside, in `render_tiles`). Returns (acc [T, C, 256], trans
+    [T, 1, 256]).
+
+    The tile data is gathered inside `forward`, where autograd is off, so
+    `backward` returns the gradients of means2d, conic, opacity and chans
+    itself: `gs_tile.composite_tiles_bwd`'s per-slot columns scatter-added
+    per splat (`index_add_`, atomics on the card, so the sums vary in their
+    last bits from run to run). Invalid slots point at splat 0 with zero
+    columns."""
+
+    @staticmethod
+    def forward(ctx, means2d, conic, opacity, chans, prim_idx, valid, counts,
+                grid_w):
+        data = _build_tile_data(means2d, conic, opacity, chans, prim_idx,
+                                valid)
+        acc, trans = gs_tile.composite_tiles_fwd(data, counts, grid_w,
+                                                 chans.shape[-1])
+        ctx.save_for_backward(data, counts, trans, prim_idx)
+        ctx.geometry = (grid_w, chans.shape[-1], means2d.shape[0])
+        return acc, trans
+
+    @staticmethod
+    def backward(ctx, g_acc, g_trans):
+        data, counts, trans, prim_idx = ctx.saved_tensors
+        grid_w, c, n = ctx.geometry
+        gdata = gs_tile.composite_tiles_bwd(
+            data, counts, grid_w, trans, g_acc.contiguous(),
+            g_trans.contiguous(), c)                     # [T, D, M]
+        g_rows = gdata.transpose(1, 2).reshape(-1, data.shape[1])
+        flat_idx = prim_idx.reshape(-1)
+
+        def scatter(rows):
+            return rows.new_zeros((n,) + rows.shape[1:]).index_add_(
+                0, flat_idx, rows)
+
+        return (scatter(g_rows[:, 0:2]), scatter(g_rows[:, 2:5]),
+                scatter(g_rows[:, 5]), scatter(g_rows[:, 6:6 + c]),
+                *[None] * 4)
+
+
+def render_tiles(means2d, conic, opacity, chans, depth, active, radii,
+                 width: int, height: int, max_per_tile: int = 512,
+                 max_tiles_per_prim: int = 16):
+    """Per-16-px-tile splat compositing for one camera (JAX: the `xla`
+    branch of `render_arrays`).
+
+    chans: [N, C] channel vector (rgb... + depth last). Returns
+    (rgb [H,W,C-1], alpha [H,W], depth [H,W], overflow)."""
+    grid_h, grid_w = binning.num_tiles(height, width)
+    # global front-to-back depth order: each tile's ascending-index list
+    # is then depth-ordered
+    order = torch.argsort(torch.where(active, depth.detach(),
+                                      torch.full_like(depth, math.inf)),
+                          stable=True)
+    s_means2d = means2d[order]
+    s_radii = radii[order][:, None]
+    bins = binning.bin_primitives(
+        s_means2d.detach() - s_radii, s_means2d.detach() + s_radii,
+        active[order], grid_h, grid_w, max_per_tile=max_per_tile,
+        max_tiles_per_prim=max_tiles_per_prim)
+    counts = torch.clamp_max(bins.count, max_per_tile)
+    acc, trans = _CompositeTiles.apply(
+        s_means2d, conic[order], opacity[order], chans[order],
+        bins.prim_idx, bins.valid, counts, grid_w)
+    img = binning.tiles_to_image(acc.transpose(1, 2), grid_h, grid_w,
+                                 height, width)
+    alpha = 1.0 - binning.tiles_to_image(trans[:, 0], grid_h, grid_w,
+                                         height, width)
+    return img[..., :-1], alpha, img[..., -1], bins.overflow
+
+
+# ------------------------------------------------------------------ #
 # Public renderer
 # ------------------------------------------------------------------ #
+# the port's two paths, and the JAX package's backend names for them
+BACKENDS = {"flat": "flat", "tile": "tile", "pallas": "flat", "auto": "flat",
+            "xla": "tile"}
+
+
 def render_arrays(xyz, scale, rot_quat, opacity, colors, alive,
                   w2c, intrinsics, width: int, height: int,
-                  background=None, max_tiles_per_prim: int = 16,
-                  means2d_offset=None, bin_px: int = 32):
+                  background=None, max_per_tile: int = 512,
+                  max_tiles_per_prim: int = 16, chunk: int = 16,
+                  means2d_offset=None, backend: str = "flat",
+                  bin_px: int = 32):
     """Render raw gaussian arrays for one camera on the arrays' device.
 
     colors: [N, C] per-gaussian channel vector (precomputed — SH eval or
     raw RGB). `means2d_offset` [N,2] is the viewspace-gradient hook.
-    Returns dict(image [H,W,C], alpha, depth, radii [N], means2d [N,2],
-    overflow flag).
+    `backend`: "flat" (coarse bins, `bin_px`) or "tile" (16-px tiles, each
+    list cut at `max_per_tile`, a multiple of 128); the JAX package's
+    names map onto them: "pallas" and "auto" → "flat", "xla" → "tile".
+    `chunk` is accepted for the JAX signature and has no effect: the tile
+    compositor walks 128-slot chunks. Returns dict(image [H,W,C], alpha,
+    depth, radii [N], means2d [N,2], overflow flag).
     """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {sorted(BACKENDS)}, got "
+                         f"{backend!r}")
     means2d, depth, conic, radii, visible = project_gaussians(
         xyz, scale, rot_quat, w2c, intrinsics, width, height)
     if means2d_offset is not None:
@@ -243,10 +362,16 @@ def render_arrays(xyz, scale, rot_quat, opacity, colors, alive,
     active = visible & alive & (opacity > ALPHA_MIN)
 
     chans = torch.cat([colors, depth[:, None]], -1)
-    rgb, alpha, depth_img, overflow = render_flat(
-        means2d, conic, opacity, chans, depth, active, radii.detach(),
-        width, height, k=max_tiles_per_prim_coarse(max_tiles_per_prim),
-        bin_px=bin_px)
+    if BACKENDS[backend] == "tile":
+        rgb, alpha, depth_img, overflow = render_tiles(
+            means2d, conic, opacity, chans, depth, active, radii.detach(),
+            width, height, max_per_tile=max_per_tile,
+            max_tiles_per_prim=max_tiles_per_prim)
+    else:
+        rgb, alpha, depth_img, overflow = render_flat(
+            means2d, conic, opacity, chans, depth, active, radii.detach(),
+            width, height, k=max_tiles_per_prim_coarse(max_tiles_per_prim),
+            bin_px=bin_px)
     if background is not None:
         bg = torch.as_tensor(background, dtype=rgb.dtype, device=rgb.device)
         rgb = rgb + (1.0 - alpha[..., None]) * bg

@@ -219,9 +219,9 @@ def test_render_batch_of_three_matches_jax():
 
 
 # ------------------------------------------------------------- hygiene
-def test_backward_through_the_compositor_is_not_implemented():
-    """(The name dates from before the compositor had a backward.) The
-    backward now runs and fills every differentiable input's `.grad`."""
+def test_backward_through_the_compositor_fills_every_grad():
+    """The compositor's backward runs and fills every differentiable
+    input's `.grad`."""
     W, H = 32, 32
     _, tc = both_cameras(0.0, 0.0, 3.0, W, H)
     xyz, scale, rot, opacity, colors, alive = (

@@ -1,6 +1,6 @@
-"""The port's bin compositor without the JAX package: its plain versions
-against a per-pixel sequential compositor on the CPU, and the CUDA kernels
-(forward and backward) against the plain versions on the card.
+"""The port's bin and tile compositors without the JAX package: their plain
+versions against per-pixel sequential compositors on the CPU, and the CUDA
+kernels (forward and backward) against the plain versions on the card.
 
 This file imports no JAX, so on a machine with the card and no JAX it runs
 on its own:
@@ -16,9 +16,24 @@ pytestmark = pytest.mark.heavy
 import numpy as np
 import torch
 
-from comfy3d_tpu_torch.ops import gs_flat
+from comfy3d_tpu_torch.ops import binning, gs_flat, gs_tile
+from comfy3d_tpu_torch.ops import gs_render as G
 
 PAD = 512   # zero columns after the pairs (the Pallas kernel's BLK)
+
+
+def _conic_and_radius(sig, th):
+    """Conic (a, b, c) and ceil(3σ) radius of 2D gaussians with axis sigmas
+    `sig` [n, 2] turned by `th` [n], with the renderer's 0.3 px² dilation."""
+    c, s = np.cos(th), np.sin(th)
+    sxx = c * c * sig[:, 0] ** 2 + s * s * sig[:, 1] ** 2 + 0.3
+    syy = s * s * sig[:, 0] ** 2 + c * c * sig[:, 1] ** 2 + 0.3
+    sxy = c * s * (sig[:, 0] ** 2 - sig[:, 1] ** 2)
+    det = sxx * syy - sxy * sxy
+    conic = np.stack([syy / det, -sxy / det, sxx / det], -1)
+    mid = 0.5 * (sxx + syy)
+    lam = mid + np.sqrt(np.maximum(mid * mid - det, 0))
+    return conic, np.ceil(3 * np.sqrt(lam))
 
 
 def make_bins_case(seed, W, H, bin_px, nchan, lens, sat_bin):
@@ -36,16 +51,8 @@ def make_bins_case(seed, W, H, bin_px, nchan, lens, sat_bin):
         mx = bx + rng.uniform(-6, bin_px + 6, n)
         my = by + rng.uniform(-6, bin_px + 6, n)
         sig = rng.uniform(1.2, 4.0, (n, 2)) * (3.0 if t == sat_bin else 1.0)
-        th = rng.uniform(0, np.pi, n)
-        c, s = np.cos(th), np.sin(th)
-        sxx = c * c * sig[:, 0] ** 2 + s * s * sig[:, 1] ** 2 + 0.3
-        syy = s * s * sig[:, 0] ** 2 + c * c * sig[:, 1] ** 2 + 0.3
-        sxy = c * s * (sig[:, 0] ** 2 - sig[:, 1] ** 2)
-        det = sxx * syy - sxy * sxy
-        conic = np.stack([syy / det, -sxy / det, sxx / det], -1)
-        mid = 0.5 * (sxx + syy)
-        lam = mid + np.sqrt(np.maximum(mid * mid - det, 0))
-        rad = np.maximum(np.ceil(3 * np.sqrt(lam)), 0.5)
+        conic, rad = _conic_and_radius(sig, rng.uniform(0, np.pi, n))
+        rad = np.maximum(rad, 0.5)
         op = (rng.uniform(0.85, 0.99, n) if t == sat_bin
               else rng.uniform(0.05, 0.9, n))
         ch = np.concatenate([rng.rand(n, nchan - 1),
@@ -68,6 +75,80 @@ CASES = {
     "48px": dict(W=96, H=50, bin_px=48, nchan=3, lens=(300, 0, 129, 700),
                  sat_bin=3),
 }
+
+
+TILE_CASES = {
+    # 3×3 tiles; the centre tiles hold more than one 128-slot chunk
+    "two_chunks": dict(seed=1, grid=(3, 3), n=40, crowd=150, m=256, nchan=4),
+    # 4×3 tiles, 3 channels; the crowded tiles' counts exceed M = 128
+    "over_m": dict(seed=2, grid=(3, 4), n=24, crowd=150, m=128, nchan=3),
+}
+
+
+def make_tiles_case(seed, grid, n, crowd, m, nchan):
+    """A tile compositor's inputs as `render_arrays` builds them: `n` random
+    anisotropic splats over a grid of (rows, cols) 16-px tiles and `crowd`
+    more around pixel (24, 24), binned by their 3σ boxes with
+    `bin_primitives` and gathered by `_build_tile_data`. Returns (tile_data
+    [T, D, M], counts [T] i32 (cut at M), grid_w, nchan, splats, bins);
+    splats are the float32 arrays (means2d, conic, opacity, chans, 3σ
+    radius)."""
+    rng = np.random.RandomState(seed)
+    gh, gw = grid
+    k = n + crowd
+    m2d = np.concatenate([rng.rand(n, 2) * [gw * 16 + 8, gh * 16 + 8] - 4,
+                          18 + rng.rand(crowd, 2) * 12]).astype(np.float32)
+    conic, rad = _conic_and_radius(rng.uniform(1.5, 6.0, (k, 2)),
+                                   rng.uniform(0, np.pi, k))
+    conic, rad = conic.astype(np.float32), rad.astype(np.float32)
+    op = rng.uniform(0.05, 0.95, k).astype(np.float32)
+    chans = np.concatenate([rng.rand(k, nchan - 1),
+                            rng.uniform(1, 3, (k, 1))], -1).astype(np.float32)
+    r = torch.as_tensor(rad)[:, None]
+    mt = torch.as_tensor(m2d)
+    bins = binning.bin_primitives(mt - r, mt + r, torch.ones(k, dtype=torch.bool),
+                                  gh, gw, max_per_tile=m)
+    splats = (m2d, conic, op, chans, rad)
+    data = G._build_tile_data(*map(torch.as_tensor, splats[:4]),
+                              bins.prim_idx, bins.valid)
+    counts = torch.clamp_max(bins.count, m)
+    return data, counts, gw, nchan, splats, bins
+
+
+def sequential_tiles(data, counts, grid_w, nchan):
+    """Per-pixel, one slot at a time, in float64: the contract of
+    `composite_tiles_fwd` written as plainly as it reads."""
+    data = np.asarray(data, np.float64)
+    t_tiles, _, m = data.shape
+    acc = np.zeros((t_tiles, nchan, 256))
+    trans = np.ones((t_tiles, 1, 256))
+    p = np.arange(256)
+    for t in range(t_tiles):
+        px = p % 16 + 0.5 + (t % grid_w) * 16
+        py = p // 16 + 0.5 + (t // grid_w) * 16
+        for g in range(min(int(counts[t]), m)):
+            mx, my, a, b, c, op = data[t, :6, g]
+            dx, dy = mx - px, my - py
+            power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+            raw = op * np.exp(np.minimum(power, 0.0))
+            alpha = np.where((power <= 0) & (raw >= gs_tile.ALPHA_MIN),
+                             np.minimum(raw, gs_tile.ALPHA_MAX), 0.0)
+            acc[t] += data[t, 6:6 + nchan, g][:, None] * alpha * trans[t, 0]
+            trans[t, 0] *= 1.0 - alpha
+    return acc, trans
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_tile_plain_matches_sequential_compositor(case):
+    data, counts, grid_w, nchan, _, bins = make_tiles_case(**TILE_CASES[case])
+    m = data.shape[2]
+    assert int(bins.count.max()) > 128               # more than one chunk,
+    assert (case == "over_m") == bool((bins.count > m).any())   # or cut at M
+    acc, tr = gs_tile.composite_tiles_fwd_plain(data, counts, grid_w, nchan)
+    r_acc, r_tr = sequential_tiles(data.numpy(), counts.numpy(), grid_w,
+                                   nchan)
+    np.testing.assert_allclose(acc.numpy(), r_acc, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tr.numpy(), r_tr, atol=1e-5, rtol=0)
 
 
 def deep_bin_case(nchan=4, n=300):
@@ -353,3 +434,66 @@ def test_bwd_kernel_rejects_bad_inputs_before_launch():
         gs_flat.composite_bins_bwd(d, b, tr.cpu(), st, acc, tr, nbx, nby, 4,
                                    64, 40)
     assert gs_flat.composite_bins_bwd.launches == before
+
+
+# ------------------------------------------- tile compositor on the card
+def _tile_case_on(case, dev):
+    data, counts, grid_w, nchan, _, _ = make_tiles_case(**TILE_CASES[case])
+    return data.to(dev), counts.to(dev), grid_w, nchan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_tile_kernels_match_plain_on_the_card(case):
+    dev = _card()
+    data, counts, grid_w, nchan = _tile_case_on(case, dev)
+    fwd0 = gs_tile.composite_tiles_fwd.launches
+    bwd0 = gs_tile.composite_tiles_bwd.launches
+    acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
+    torch.cuda.synchronize()
+    assert gs_tile.composite_tiles_fwd.launches == fwd0 + 1
+    p_acc, p_tr = gs_tile.composite_tiles_fwd_plain(data, counts, grid_w,
+                                                    nchan)
+    assert float((acc - p_acc).abs().max()) <= 1e-4
+    assert float((tr - p_tr).abs().max()) <= 1e-4
+
+    rng = np.random.RandomState(1)
+    g_acc = torch.as_tensor(rng.randn(*acc.shape).astype(np.float32),
+                            device=dev)
+    g_tr = torch.as_tensor(rng.randn(*tr.shape).astype(np.float32),
+                           device=dev)
+    args = (data, counts, grid_w, tr, g_acc, g_tr, nchan)
+    out = gs_tile.composite_tiles_bwd(*args)
+    torch.cuda.synchronize()
+    assert gs_tile.composite_tiles_bwd.launches == bwd0 + 1
+    ref = gs_tile.composite_tiles_bwd_plain(*args)
+    for row in range(6 + nchan):
+        scale = float(ref[:, row].abs().max())
+        assert float((out[:, row] - ref[:, row]).abs().max()) <= 1e-3 * scale
+    # pad rows, and the slots past each tile's count, are exactly 0
+    assert not out[:, 6 + nchan:].any()
+    past = torch.arange(data.shape[2], device=dev)[None, :] \
+        >= counts[:, None]
+    assert not out.transpose(1, 2)[past].any()
+
+
+@pytest.mark.cuda
+def test_tile_kernels_reject_bad_inputs_before_launch():
+    dev = _card()
+    data, counts, grid_w, nchan = _tile_case_on("over_m", dev)
+    fwd0 = gs_tile.composite_tiles_fwd.launches
+    bad_fwd = [(data.double(), counts), (data.transpose(1, 2), counts),
+               (data, counts.cpu()), (data, counts.long()),
+               (data[:, :, :100].contiguous(), counts)]
+    for d, c in bad_fwd:
+        with pytest.raises(ValueError):
+            gs_tile.composite_tiles_fwd(d, c, grid_w, nchan)
+    assert gs_tile.composite_tiles_fwd.launches == fwd0
+    acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
+    bwd0 = gs_tile.composite_tiles_bwd.launches
+    for g_acc, g_tr in [(acc.double(), tr), (acc.transpose(1, 2), tr),
+                        (acc, tr.cpu()), (acc[:, :1], tr)]:
+        with pytest.raises(ValueError):
+            gs_tile.composite_tiles_bwd(data, counts, grid_w, tr, g_acc,
+                                        g_tr, nchan)
+    assert gs_tile.composite_tiles_bwd.launches == bwd0

@@ -9,6 +9,7 @@ import pytest
 pytestmark = pytest.mark.heavy
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -129,16 +130,20 @@ def test_render_gradients_match_jax(backend):
 
     ref = jax.grad(jloss)(tuple(map(jnp.asarray, arrs + (offset,))))
 
-    ts = [torch.tensor(a, requires_grad=True) for a in arrs + (offset,)]
-    out = G.render_arrays(*ts[:5], torch.as_tensor(alive), tc.w2c,
-                          tc.intrinsics, W, H, means2d_offset=ts[5])
-    loss = ((out["image"] - torch.as_tensor(target)) ** 2).mean() \
-        + 0.1 * out["alpha"].mean()
-    loss.backward()
-    names = ["xyz", "scale", "rot", "opacity", "colors", "means2d_offset"]
-    for t, r, name in zip(ts, ref, names):
-        assert np.abs(np.asarray(r)).max() > 0, name
-        _close_to_max(t.grad, r, 2e-3, f"{backend} {name}")
+    # the port's coarse-bin path against both JAX paths, its tile path
+    # against JAX's (the "xla" backend)
+    for port_backend in {"pallas": ["flat"], "xla": ["flat", "tile"]}[backend]:
+        ts = [torch.tensor(a, requires_grad=True) for a in arrs + (offset,)]
+        out = G.render_arrays(*ts[:5], torch.as_tensor(alive), tc.w2c,
+                              tc.intrinsics, W, H, max_per_tile=128,
+                              means2d_offset=ts[5], backend=port_backend)
+        loss = ((out["image"] - torch.as_tensor(target)) ** 2).mean() \
+            + 0.1 * out["alpha"].mean()
+        loss.backward()
+        names = ["xyz", "scale", "rot", "opacity", "colors", "means2d_offset"]
+        for t, r, name in zip(ts, ref, names):
+            assert np.abs(np.asarray(r)).max() > 0, name
+            _close_to_max(t.grad, r, 2e-3, f"{backend}/{port_backend} {name}")
 
 
 def test_project_gaussians_gradient_matches_jax():
@@ -264,12 +269,18 @@ def _state_numpy(state):
             "step": int(state.step)}
 
 
-def test_train_step_matches_jax():
+@pytest.mark.parametrize("jax_backend,port_backend",
+                         [("pallas", "flat"), ("xla", "tile")])
+def test_train_step_matches_jax(monkeypatch, jax_backend, port_backend):
     jc, tc, imgs, masks = _synthetic_views()
     arrays = _init_splat_arrays()
+    # the JAX trainer runs its Pallas kernels on the CPU in interpret mode
+    monkeypatch.setattr(JT.gs_render, "render_arrays", functools.partial(
+        JG.render_arrays, interpret=True))
     jcfg = JT.GSTrainConfig(batch_size=2, max_per_tile=128, chunk=8,
                             density_start_iter=10_000,
-                            position_lr_init=0.002, position_lr_final=0.0002)
+                            position_lr_init=0.002, position_lr_final=0.0002,
+                            backend=jax_backend)
     jstate = JT.init_state(JSplat(**{k: jnp.asarray(v)
                                      for k, v in arrays.items()}))
     key = jax.random.PRNGKey(3)
@@ -282,7 +293,8 @@ def test_train_step_matches_jax():
                                0.0, 1.0) * jnp.ones((2, 3)))
 
     state = convert.train_state_from_numpy(_state_numpy(jstate), "cpu")
-    cfg = T.GSTrainConfig(**dataclasses.asdict(jcfg))
+    cfg = T.GSTrainConfig(**dict(dataclasses.asdict(jcfg),
+                                 backend=port_backend))
     new, met = T.make_train_step(cfg, tc, torch.as_tensor(imgs),
                                  torch.as_tensor(masks))(
         state, torch.as_tensor(view_idx), torch.as_tensor(bgs))

@@ -15,20 +15,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      views at 800² with `render` — with every kernel's launch count reset
      just before and read just after; then times of a frame, the kernel,
      its plain version and the coarse sort, with CUDA events;
-  5. the compositor backward (`gs_flat_bwd`) against its plain version on
-     the same scenes and modes, from the forward kernel's trans/stops and
-     seeded random cotangents;
+  5. the compositor backward with its per-splat scatter (`gs_flat_bwd`)
+     against its plain version on the same scenes and modes, from the
+     forward kernel's trans/stops and seeded random cotangents: each
+     gradient row within 1e-3 of its largest value, the rows of splats no
+     walked pair holds exactly 0, splat 0's row the sum of its own pairs'
+     plain columns;
   6. the trainer learns: 64 random splats fitted to 4 views of a 4-splat
      scene at 64² for 120 steps at batch 2 (loss must fall below 0.7× its
      start);
   7. the training path at full width (`bench.py::bench_gs_train_step`'s
      set-up: 100k splats, 800², 4 orbit views, batch 1, `GSTrainConfig`
      defaults) — 10 steps with the launch counts reset just before and read
-     just after, step and kernel times, a profile of one step, one densify
-     and one opacity reset, and the trained splat through GS-PLY and back;
+     just after, step and kernel times, a profile of one step (which must
+     hold no `index_add_`), one densify and one opacity reset, and the
+     trained splat through GS-PLY and back; beside the backward kernel, the
+     counts of the per-slot design on the same input (warp
+     reductions, their shuffle bound, walk lengths) and the time of its
+     per-step scatter (`index_add_` × 4 of the plain per-slot columns);
   8. the tile compositor forward and backward (`gs_tile_fwd`, `gs_tile_bwd`)
      against their plain versions on the card, at 20k splats / 256² with
-     `max_per_tile` 512 and 100k splats / 800² with 1024;
+     `max_per_tile` 512 and 100k splats / 800² with 1024, the backward
+     with phase 5's gates;
   9. the tile render path — phase 4's GS-PLY from the same 8 views with
      `render(..., backend="tile", max_per_tile=1024)`, launch counts reset
      just before and read just after; tile-vs-flat PSNR per view and on the
@@ -36,7 +44,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      version, `bin_primitives` and the gather, and a profile of one frame;
  10. the tile train path — the learning check of phase 6 and phase 7's 10
      steps with `GSTrainConfig(backend="tile")` (M = 512), with launch
-     counts, step and kernel times and a profile of one step.
+     counts, step and kernel times, a profile of one step and phase 7's
+     old-design counts.
 It prints one `{"kernels": [...]}` line, then the `nvidia-smi` line, and as
 its last line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -120,11 +129,37 @@ def profile_frames(fn, frames):
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     ops.sort(key=dev_us, reverse=True)
+    # PyTorch's index_add_ kernels (indexFuncLargeIndex / SmallIndex)
+    scatter = [e for e in ops if "indexFunc" in e.key]
     return dict(
         device_busy_ms=sum(dev_us(e) for e in ops) / 1e3 / frames,
         device_ops=sum(e.count for e in ops) / frames,
+        index_add_ms=sum(dev_us(e) for e in scatter) / 1e3 / frames,
+        index_add_launches=sum(e.count for e in scatter) / frames,
         top=[dict(name=e.key[:80], ms=dev_us(e) / 1e3 / frames,
                   count=e.count / frames) for e in ops[:10]])
+
+
+def smi(fields):
+    """One line of `nvidia-smi --query-gpu=<fields>` for card 0."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def subtiles_in_image(inp):
+    """[nbins, 4] bool: the 16-px sub-tiles whose origin lies in the
+    image."""
+    import torch
+    from comfy3d_tpu_torch.ops.gs_flat import TILE
+    t = torch.arange(inp["nbx"] * inp["nby"],
+                     device=inp["data"].device)[:, None]
+    s = torch.arange(4, device=t.device)[None, :]
+    ox = ((t % inp["nbx"]) * 2 + s % 2) * TILE
+    oy = (torch.div(t, inp["nbx"], rounding_mode="floor") * 2
+          + torch.div(s, 2, rounding_mode="floor")) * TILE
+    return (ox < inp["W"]) & (oy < inp["H"])
 
 
 def psnr(a, b):
@@ -166,7 +201,8 @@ def flat_inputs(splat, cam):
     data = G.pack_payload(means2d, conic, splat.opacity, chans, r_row, sprim)
     sort_args = (means2d, depth, radii, active, nby, nbx, k)
     return dict(data=data, bounds=bounds, nbx=nbx, nby=nby, W=W, H=H,
-                C=chans.shape[-1], sort_args=sort_args)
+                C=chans.shape[-1], sort_args=sort_args, sprim=sprim,
+                n=means2d.shape[0])
 
 
 def to_image(acc, trans, inp):
@@ -251,21 +287,18 @@ def pair_bins(inp):
 def walked_subtiles(inp, stops, t, q):
     """[pairs, 4] bool: in-image sub-tiles whose composited prefix holds the
     pair's chunk (what the backward walks)."""
-    import torch
-    from comfy3d_tpu_torch.ops.gs_flat import TILE
-    s = torch.arange(4, device=t.device)
-    ox = ((t % inp["nbx"])[:, None] * 2 + s % 2) * TILE
-    oy = (torch.div(t, inp["nbx"], rounding_mode="floor")[:, None] * 2
-          + torch.div(s, 2, rounding_mode="floor")) * TILE
-    in_img = (ox < inp["W"]) & (oy < inp["H"])
-    return in_img & (q[:, None] < stops[t].long())
+    return subtiles_in_image(inp)[t] & (q[:, None] < stops[t].long())
 
 
 def bwd_visits(inp, stops, block=16384):
-    """The backward's pair-pixel visits on this input: (footprint, live,
-    unsaturated) — walked sub-tiles the pair's 3σ square meets, of those the
-    pixels with op·G ≥ 1/255, of those the ones with op·G < 0.99 — evaluated
-    with the kernel's operations."""
+    """The backward's pair-pixel visits on this input: footprint (walked
+    sub-tiles the pair's 3σ square meets), live (of those the pixels with
+    op·G ≥ 1/255), unsat (of those the ones with op·G < 0.99), evaluated
+    with the kernel's operations; and two counts of the per-slot
+    one-CTA-per-bin design: pair_warps_live, its warp reductions (walked
+    pairs × the 8 warps of 32 pixel slots, each over the 4 sub-tiles, with
+    a live lane), and pairs_walked (pairs with a footprint bit in a walked
+    sub-tile); pair_subtiles (walked (pair, sub-tile) footprint entries)."""
     import torch
     from comfy3d_tpu_torch.ops.gs_flat import ALPHA_MAX, ALPHA_MIN, TILE
     data, C = inp["data"], inp["C"]
@@ -278,7 +311,7 @@ def bwd_visits(inp, stops, block=16384):
     px = (p % TILE).float()[None, :] + (sx0[:, None] + 0.5)
     py = torch.div(p, TILE, rounding_mode="floor").float()[None, :] \
         + (sy0[:, None] + 0.5)
-    fp = live = unsat = 0
+    fp = live = unsat = warps_live = pairs_walked = 0
     for lo in range(0, g.numel(), block):
         sl = slice(lo, min(lo + block, g.numel()))
         tt = t[sl]
@@ -296,80 +329,119 @@ def bwd_visits(inp, stops, block=16384):
         a, b, c, op = (data[i, sl][e] for i in (2, 3, 4, 5))
         power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
         raw = op * torch.exp(torch.clamp_max(power, 0.0))
-        hit = ov[..., None] & (raw >= ALPHA_MIN)
+        hit = ov[..., None] & (raw >= ALPHA_MIN)          # [b, 4, 256]
         fp += int(ov.sum()) * TILE * TILE
         live += int(hit.sum())
         unsat += int((hit & (raw < ALPHA_MAX)).sum())
-    return fp, live, unsat
+        warps_live += int(hit.reshape(hit.shape[0], 4, 8, 32).any(-1)
+                          .any(1).sum())
+        pairs_walked += int(ov.any(-1).sum())
+    return dict(footprint_visits=fp, live_visits=live, unsat_visits=unsat,
+                pair_warps_live=warps_live, pairs_walked=pairs_walked,
+                pair_subtiles=fp // (TILE * TILE))
 
 
 def bwd_bound(inp, stops):
-    """K3's least time on this input: bytes (payload rows read, trans,
-    g_acc, g_trans, stops and bounds read, [DG, P] written, each once)
-    against f32 operations counted from csrc/gs_flat_bwd.cu per visit:
-    15 per footprint visit (offsets, power, exp, raw, test), 12 + 4C more
-    per live one (alpha, log, log T_i, exp, chan·g, α·T_i, d chan, S),
-    33 more per unsaturated one (dα, d op, d power, d μ, d conic)."""
-    from comfy3d_tpu_torch.ops.gs_flat import grad_rows
+    """The least time of K3's function, the coarse-bin backward with its
+    per-splat scatter, on this input: bytes (payload rows, trans, g_acc,
+    g_trans, stops, bounds and the pairs' splat indices read, the [n, 6 + C]
+    per-splat rows written, each once) against f32 operations counted from
+    the kernel's arithmetic per visit: 15 per footprint visit (offsets,
+    power, exp, raw, test), 12 + 4C more per live one (alpha, log, log T_i,
+    exp, chan·g, α·T_i, d chan, S), 33 more per unsaturated one (dα, d op,
+    d power, d μ, d conic), and 6 + C adds per walked (pair, sub-tile)."""
     C = inp["C"]
     nbins = inp["nbx"] * inp["nby"]
     pairs = int(inp["bounds"][-1])
     pix = nbins * 4 * 256
-    in_bytes = ((7 + C) * pairs + (C + 2) * pix + nbins * 4 + nbins + 1) * 4
-    out_bytes = grad_rows(C) * inp["data"].shape[1] * 4
-    fp, live, unsat = bwd_visits(inp, stops)
-    ops = 15 * fp + (12 + 4 * C) * live + 33 * unsat
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
-    return dict(footprint_visits=fp, live_visits=live, unsat_visits=unsat,
-                ops=ops, bytes=in_bytes + out_bytes,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    in_bytes = ((7 + C) * pairs + (C + 2) * pix + nbins * 4 + nbins + 1) * 4 \
+        + pairs * 8
+    out_bytes = inp["n"] * (6 + C) * 4
+    v = bwd_visits(inp, stops)
+    ops = 15 * v["footprint_visits"] + (12 + 4 * C) * v["live_visits"] \
+        + 33 * v["unsat_visits"] + (6 + C) * v["pair_subtiles"]
+    return _bound(in_bytes, out_bytes, ops, **v)
 
 
 def bwd_args(inp, fwd, seed):
-    """The backward's arguments for a forward kernel's (acc, trans, stops),
-    with cotangents drawn from a seeded generator on the card."""
+    """K3's arguments (`composite_bins_bwd_splats`) for a forward kernel's
+    (acc, trans, stops), with cotangents drawn from a seeded generator on
+    the card; and the per-pair plain function's
+    (`composite_bins_bwd_plain`) for the same inputs."""
     import torch
     acc, trans, stops = fwd
     gen = torch.Generator(device=acc.device).manual_seed(seed)
     g_acc = torch.randn(acc.shape, generator=gen, device=acc.device)
     g_trans = torch.randn(trans.shape, generator=gen, device=acc.device)
-    return (inp["data"], inp["bounds"], trans, stops, g_acc, g_trans,
-            inp["nbx"], inp["nby"], inp["C"], inp["W"], inp["H"])
+    geo = (inp["nbx"], inp["nby"], inp["C"], inp["W"], inp["H"])
+    return ((inp["data"], inp["bounds"], inp["sprim"], inp["n"], trans,
+             stops, g_acc, g_trans, *geo),
+            (inp["data"], inp["bounds"], trans, stops, g_acc, g_trans, *geo))
 
 
-def bwd_vs_plain(label, inp, fwd, seed):
-    """K3 against its plain version: per gradient row max |kernel − plain| /
-    max |plain|; columns outside every walked prefix exactly 0 in both."""
-    import torch
-    from comfy3d_tpu_torch.ops import gs_flat
-    args = bwd_args(inp, fwd, seed)
-    k = gs_flat.composite_bins_bwd(*args)
-    torch.cuda.synchronize()
-    p = gs_flat.composite_bins_bwd_plain(*args)
+def walked_pair_rows(inp, stops, cols):
+    """The per-pair plain columns [DG, P] of the pairs some in-image
+    sub-tile walked, as rows [S, 6 + C], and their splats [S]."""
     g, t, q = pair_bins(inp)
-    walked = torch.zeros(k.shape[1], dtype=torch.bool, device=k.device)
-    walked[g] = walked_subtiles(inp, fwd[2], t, q).any(-1)
-    nrow = 6 + inp["C"]
-    rel = [float((k[r] - p[r]).abs().max() / p[r].abs().max().clamp_min(
-        1e-30)) for r in range(nrow)]
+    g = g[walked_subtiles(inp, stops, t, q).any(-1)]
+    return cols[:6 + inp["C"], g].t(), inp["sprim"][g]
+
+
+def walked_slot_rows(inp, cols):
+    """The per-slot plain columns [T, D, M] of the valid slots below each
+    tile's count, as rows [S, 6 + C], and their splats [S]."""
+    import torch
+    m = cols.shape[2]
+    walked = inp["valid"] & (torch.arange(m, device=cols.device)[None, :]
+                             < inp["counts"][:, None])
+    return (cols.transpose(1, 2)[walked][:, :6 + inp["C"]],
+            inp["prim_idx"][walked])
+
+
+def splat_rows_vs_plain(label, k, p, rows, idx):
+    """A backward kernel's per-splat rows k [n, 6 + C] against its plain
+    version's p: per gradient row max |k − p| / max |p|; the rows of splats
+    that no walked slot holds (none of `idx`) exactly 0 in both; splat 0's
+    row against the sum of its own walked slots' plain `rows`, per row
+    relative to that row's max |p|."""
+    import torch
+    nrow = k.shape[1]
+    scale = p.abs().amax(0).clamp_min(1e-30)
+    rel = (((k - p).abs().amax(0)) / scale).tolist()
     worst = max(range(nrow), key=lambda r: rel[r])
-    outside_zero = (not bool(k[:, ~walked].any())
-                    and not bool(p[:, ~walked].any())
-                    and not bool(k[nrow:].any()))
+    held = torch.zeros(k.shape[0], dtype=torch.bool, device=k.device)
+    held[idx] = True
+    untouched_zero = not bool(k[~held].any()) and not bool(p[~held].any())
+    own = rows[idx == 0].sum(0)
+    row0_rel = float(((k[0] - own).abs() / scale).max())
     rec = dict(max_rel_err=rel[worst], worst_row=worst, rel_err_rows=rel,
                max_abs_err=float((k - p).abs().max()),
-               walked_columns=int(walked.sum()),
-               unwalked_zero=outside_zero)
-    log(f"bwd {label}: worst row {worst} rel err {rel[worst]:.3g}, "
-        f"max abs err {rec['max_abs_err']:.3g}, {rec['walked_columns']} "
-        f"walked columns, unwalked zero {outside_zero}")
+               splats_held=int(held.sum()), untouched_zero=untouched_zero,
+               splat0_slots=int((idx == 0).sum()), splat0_rel_err=row0_rel)
+    log(f"bwd {label}: worst row {worst} rel err {rel[worst]:.3g}, max abs "
+        f"err {rec['max_abs_err']:.3g}, {rec['splats_held']} splats held, "
+        f"untouched zero {untouched_zero}, splat 0 ({rec['splat0_slots']} "
+        f"slots) rel err {row0_rel:.3g}")
     check(bool(torch.isfinite(k).all()), f"bwd {label}: non-finite")
     check(rel[worst] <= TOL_BWD_REL,
           f"bwd {label}: row {worst} rel err {rel[worst]} > {TOL_BWD_REL}")
-    check(outside_zero, f"bwd {label}: unwalked columns are not 0")
+    check(untouched_zero, f"bwd {label}: rows of untouched splats are not 0")
+    check(row0_rel <= TOL_BWD_REL, f"bwd {label}: splat 0's row is not the "
+          f"sum of its slots (rel err {row0_rel})")
     return rec
+
+
+def bwd_vs_plain(label, inp, fwd, seed):
+    """K3 against its plain version (`splat_rows_vs_plain`)."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_flat
+    args, pair_args = bwd_args(inp, fwd, seed)
+    k = gs_flat.composite_bins_bwd_splats(*args)
+    torch.cuda.synchronize()
+    p = gs_flat.composite_bins_bwd_splats_plain(*args)
+    rows, idx = walked_pair_rows(
+        inp, fwd[2], gs_flat.composite_bins_bwd_plain(*pair_args))
+    return splat_rows_vs_plain(label, k, p, rows, idx)
 
 
 def synthetic_views(dev, size, n_views=4):
@@ -451,17 +523,18 @@ def pad_dead(splat, extra):
 def reset_launches():
     """Every kernel wrapper's launch count to 0."""
     from comfy3d_tpu_torch.ops import gs_flat, gs_tile
-    for fn in (gs_flat.composite_bins_fwd, gs_flat.composite_bins_bwd,
-               gs_tile.composite_tiles_fwd, gs_tile.composite_tiles_bwd):
+    for fn in (gs_flat.composite_bins_fwd, gs_flat.composite_bins_bwd_splats,
+               gs_tile.composite_tiles_fwd,
+               gs_tile.composite_tiles_bwd_splats):
         fn.launches = 0
 
 
 def read_launches():
     from comfy3d_tpu_torch.ops import gs_flat, gs_tile
     return {"gs_flat_fwd": gs_flat.composite_bins_fwd.launches,
-            "gs_flat_bwd": gs_flat.composite_bins_bwd.launches,
+            "gs_flat_bwd": gs_flat.composite_bins_bwd_splats.launches,
             "gs_tile_fwd": gs_tile.composite_tiles_fwd.launches,
-            "gs_tile_bwd": gs_tile.composite_tiles_bwd.launches}
+            "gs_tile_bwd": gs_tile.composite_tiles_bwd_splats.launches}
 
 
 def expect_launches(launches, backend, fwd, bwd, what):
@@ -472,7 +545,7 @@ def expect_launches(launches, backend, fwd, bwd, what):
 
 
 def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
-                     n_views=4):
+                     n_views=4, clock_mhz=1980.0):
     """Phase 7 (and 10, with backend "tile"): bench.py's gs_train_step
     set-up on the card."""
     import numpy as np
@@ -523,6 +596,8 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
         / times["train_step_ms"]
     log(f"train step ({backend}) {times['train_step_ms']:.2f} ms; profile "
         f"{prof}")
+    check(prof["index_add_launches"] == 0, f"the {backend} train step still "
+          f"scatters with index_add_ ({prof['index_add_ms']:.3f} ms)")
 
     # the backward kernel alone, on the trained splat's compositor inputs
     # for view 0; its launches here are not the path's
@@ -534,23 +609,48 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
         fwd = gs_flat.composite_bins_fwd(inp["data"], inp["bounds"],
                                          inp["nbx"], inp["nby"], inp["C"],
                                          size, size)
-        args = bwd_args(inp, fwd, 11)
-        kernel, plain = gs_flat.composite_bins_bwd, \
-            gs_flat.composite_bins_bwd_plain
+        args, pair_args = bwd_args(inp, fwd, 11)
+        kernel, plain = gs_flat.composite_bins_bwd_splats, \
+            gs_flat.composite_bins_bwd_splats_plain
         bound = bwd_bound(inp, fwd[2])
+        in_img = subtiles_in_image(inp)
+        stops = torch.where(in_img, fwd[2], torch.zeros_like(fwd[2]))
+        old = old_design(bound["pair_warps_live"], inp["C"],
+                         stops.amax(-1), clock_mhz)
+        new_walks = stops[in_img].float()
+        cols = gs_flat.composite_bins_bwd_plain(*pair_args)
+        rows, idx = cols[:, :inp["sprim"].numel()].t(), inp["sprim"]
     else:
         inp = tile_inputs(trained, cam0, cfg.max_per_tile)
         fwd = gs_tile.composite_tiles_fwd(inp["data"], inp["counts"],
                                           inp["grid_w"], inp["C"])
-        args = tile_bwd_args(inp, fwd, 11)
-        kernel, plain = gs_tile.composite_tiles_bwd, \
-            gs_tile.composite_tiles_bwd_plain
+        args, slot_args = tile_bwd_args(inp, fwd, 11)
+        kernel, plain = gs_tile.composite_tiles_bwd_splats, \
+            gs_tile.composite_tiles_bwd_splats_plain
         bound = tile_bwd_bound(inp)
+        walks = torch.div(inp["counts"] + 127, 128, rounding_mode="floor")
+        old = old_design(bound["slot_warps_live"], inp["C"], walks,
+                         clock_mhz)
+        new_walks = walks.float()
+        cols = gs_tile.composite_tiles_bwd_plain(*slot_args)
+        rows = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+        idx = inp["prim_idx"].reshape(-1)
+    old.update(new_walk_chunks_max=int(new_walks.max()),
+               new_walk_chunks_mean=float(new_walks.mean()),
+               new_ctas=new_walks.numel())
     times["kernel_bwd_ms"] = cuda_ms(lambda: kernel(*args), 20)
     times["plain_bwd_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
+    # the old design's per-step scatter, on the plain per-slot columns
+    times["old_scatter_ms"] = cuda_ms(
+        lambda: scatter_columns(rows, idx, inp["n"], inp["C"]), 20)
+    old["scatter_device_ms"] = profile_frames(
+        lambda: scatter_columns(rows, idx, inp["n"], inp["C"]),
+        3)["device_busy_ms"]
     log(f"{'K3' if backend == 'flat' else 'K5'} at {size}²/{n}: kernel "
         f"{times['kernel_bwd_ms']:.3f} ms, plain "
-        f"{times['plain_bwd_ms']:.1f} ms, bound {bound}")
+        f"{times['plain_bwd_ms']:.1f} ms, old scatter "
+        f"{times['old_scatter_ms']:.3f} ms, bound {bound}, old design {old}")
+    del cols, rows
 
     # densify and prune, opacity reset, GS-PLY round trip
     cap = splat.num_capacity
@@ -575,7 +675,7 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
                launches=launches, losses=losses,
                first_10_steps_s=first10_s,
                alive_after_densify=int(state.alive.sum()),
-               ply_splats=back.num_capacity)
+               ply_splats=back.num_capacity, old_design=old)
     return rec, times, prof, bound
 
 
@@ -604,6 +704,7 @@ def tile_inputs(splat, cam, max_per_tile):
                    bins.prim_idx, bins.valid)
     data = G._build_tile_data(*gather_args)
     return dict(data=data, counts=torch.clamp_max(bins.count, max_per_tile),
+                prim_idx=bins.prim_idx, valid=bins.valid, n=means2d.shape[0],
                 grid_w=grid_w, grid_h=grid_h, W=W, H=H, C=chans.shape[-1],
                 overflow=bool(bins.overflow), bin_args=bin_args,
                 gather_args=gather_args)
@@ -621,7 +722,9 @@ def tile_visits(inp, block=8192):
     """The walked slot-pixel visits of this input (slots below each tile's
     count × 256 pixels), of those the live ones (power ≤ 0, op·G ≥ 1/255)
     and of those the unsaturated ones (op·G < 0.99), evaluated with the
-    kernels' operations; and the walked slots."""
+    kernels' operations; the walked slots; and slot_warps_live, the per-slot
+    tile backward's warp reductions (walked slots × the 8 warps of 32
+    pixels with a live lane)."""
     import torch
     from comfy3d_tpu_torch.ops.gs_tile import ALPHA_MAX, ALPHA_MIN, TILE
     data, counts = inp["data"], inp["counts"]
@@ -630,7 +733,7 @@ def tile_visits(inp, block=8192):
     t, slot = (torch.arange(m, device=dev)[None, :]
                < counts[:, None]).nonzero(as_tuple=True)
     p = torch.arange(TILE * TILE, device=dev)
-    live = unsat = 0
+    live = unsat = warps_live = 0
     for lo in range(0, t.numel(), block):
         tt, ss = t[lo:lo + block], slot[lo:lo + block]
         cols = data[tt, :, ss]                          # [b, D]
@@ -647,8 +750,9 @@ def tile_visits(inp, block=8192):
         hit = (power <= 0.0) & (raw >= ALPHA_MIN)
         live += int(hit.sum())
         unsat += int((hit & (raw < ALPHA_MAX)).sum())
+        warps_live += int(hit.reshape(-1, 8, 32).any(-1).sum())
     return dict(slots=t.numel(), visits=t.numel() * TILE * TILE, live=live,
-                unsat=unsat)
+                unsat=unsat, slot_warps_live=warps_live)
 
 
 def _bound(in_bytes, out_bytes, ops, **counts):
@@ -672,19 +776,46 @@ def tile_fwd_bound(inp):
 
 
 def tile_bwd_bound(inp):
-    """K5's least time on this input: bytes (the walked slots' 6 + C rows,
-    counts, trans, g_acc and g_trans read, the [T, D, M] columns written,
-    each once) against f32 operations counted from csrc/gs_tile_bwd.cu:
-    17 per visit, 11 + 4C more per live one (one_m, log1p, log T, clamp,
-    exp, α·T, chan·g, d chan and its sum, S), 35 more per unsaturated one
-    (dα, d power, d μ, d conic, d op and their sums)."""
-    data, C = inp["data"], inp["C"]
-    ntiles = data.shape[0]
+    """The least time of K5's function, the tile backward with its
+    per-splat scatter, on this input: bytes (the walked slots' 6 + C rows,
+    splat indices and valid flags, counts, trans, g_acc and g_trans read,
+    the [n, 6 + C] per-splat rows written, each once) against f32
+    operations counted from the kernel's arithmetic: 17 per visit, 11 + 4C
+    more per live one (one_m, log1p, log T, clamp, exp, α·T, chan·g, d chan
+    and its sum, S), 35 more per unsaturated one (dα, d power, d μ, d conic,
+    d op and their sums), and 6 + C adds per walked slot."""
+    C = inp["C"]
+    ntiles = inp["data"].shape[0]
     v = tile_visits(inp)
-    return _bound(v["slots"] * (6 + C) * 4 + ntiles * 4
-                  + ntiles * (C + 2) * 256 * 4, data.numel() * 4,
+    return _bound(v["slots"] * ((6 + C) * 4 + 8 + 1) + ntiles * 4
+                  + ntiles * (C + 2) * 256 * 4, inp["n"] * (6 + C) * 4,
                   17 * v["visits"] + (11 + 4 * C) * v["live"]
-                  + 35 * v["unsat"], **v)
+                  + 35 * v["unsat"] + (6 + C) * v["slots"], **v)
+
+
+def old_design(reductions, nchan, walks, clock_mhz):
+    """The per-slot design's backward kernels reduce each slot's 6 + C
+    sums per warp with 5 warp shuffles each: their shuffles on this input
+    and the least time the card takes to issue them (one shuffle per clock
+    per SM, 132 SMs, at `clock_mhz`, nvidia-smi's clocks.max.sm), beside
+    the CTAs' walk lengths in 128-slot chunks."""
+    shuffles = reductions * (6 + nchan) * 5
+    walks = walks.float()
+    return dict(warp_reductions=reductions, shuffles=shuffles,
+                shuffle_bound_ms=shuffles / (132 * clock_mhz * 1e6) * 1e3,
+                sm_clock_max_mhz=clock_mhz, ctas=walks.numel(),
+                walk_chunks_max=int(walks.max()),
+                walk_chunks_mean=float(walks.mean()))
+
+
+def scatter_columns(rows, idx, n, nchan):
+    """The per-slot design's per-step scatter: per-slot (or per-pair) rows
+    [S, D] added per splat by four `index_add_`s, as `_CompositeTiles` /
+    `_CompositeFlat.backward` did."""
+    def one(r):
+        return r.new_zeros((n,) + r.shape[1:]).index_add_(0, idx, r)
+    return (one(rows[:, 0:2]), one(rows[:, 2:5]), one(rows[:, 5]),
+            one(rows[:, 6:6 + nchan]))
 
 
 def tile_kernel_vs_plain(label, inp):
@@ -715,47 +846,32 @@ def tile_kernel_vs_plain(label, inp):
 
 
 def tile_bwd_args(inp, fwd, seed):
-    """The tile backward's arguments for a forward kernel's (acc, trans),
-    with cotangents drawn from a seeded generator on the card."""
+    """K5's arguments (`composite_tiles_bwd_splats`) for a forward kernel's
+    (acc, trans), with cotangents drawn from a seeded generator on the
+    card; and the per-slot plain function's (`composite_tiles_bwd_plain`)
+    for the same inputs."""
     import torch
     acc, trans = fwd
     gen = torch.Generator(device=acc.device).manual_seed(seed)
     g_acc = torch.randn(acc.shape, generator=gen, device=acc.device)
     g_trans = torch.randn(trans.shape, generator=gen, device=acc.device)
-    return (inp["data"], inp["counts"], inp["grid_w"], trans, g_acc, g_trans,
-            inp["C"])
+    return ((inp["data"], inp["counts"], inp["prim_idx"], inp["valid"],
+             inp["n"], inp["grid_w"], trans, g_acc, g_trans, inp["C"]),
+            (inp["data"], inp["counts"], inp["grid_w"], trans, g_acc,
+             g_trans, inp["C"]))
 
 
 def tile_bwd_vs_plain(label, inp, fwd, seed):
-    """K5 against its plain version: per gradient row max |kernel − plain| /
-    max |plain|; padding rows and slots past each count exactly 0 in both."""
+    """K5 against its plain version (`splat_rows_vs_plain`)."""
     import torch
     from comfy3d_tpu_torch.ops import gs_tile
-    args = tile_bwd_args(inp, fwd, seed)
-    k = gs_tile.composite_tiles_bwd(*args)
+    args, slot_args = tile_bwd_args(inp, fwd, seed)
+    k = gs_tile.composite_tiles_bwd_splats(*args)
     torch.cuda.synchronize()
-    p = gs_tile.composite_tiles_bwd_plain(*args)
-    nrow = 6 + inp["C"]
-    rel = [float((k[:, r] - p[:, r]).abs().max()
-                 / p[:, r].abs().max().clamp_min(1e-30)) for r in range(nrow)]
-    worst = max(range(nrow), key=lambda r: rel[r])
-    past = torch.arange(k.shape[2], device=k.device)[None, :] \
-        >= inp["counts"][:, None]
-    outside_zero = all(not bool(x[:, nrow:].any())
-                       and not bool(x.transpose(1, 2)[past].any())
-                       for x in (k, p))
-    rec = dict(max_rel_err=rel[worst], worst_row=worst, rel_err_rows=rel,
-               max_abs_err=float((k - p).abs().max()),
-               unwalked_zero=outside_zero)
-    log(f"tile bwd {label}: worst row {worst} rel err {rel[worst]:.3g}, "
-        f"max abs err {rec['max_abs_err']:.3g}, unwalked zero "
-        f"{outside_zero}")
-    check(bool(torch.isfinite(k).all()), f"tile bwd {label}: non-finite")
-    check(rel[worst] <= TOL_BWD_REL, f"tile bwd {label}: row {worst} rel "
-          f"err {rel[worst]} > {TOL_BWD_REL}")
-    check(outside_zero, f"tile bwd {label}: unwalked slots or pad rows "
-          f"are not 0")
-    return rec
+    p = gs_tile.composite_tiles_bwd_splats_plain(*args)
+    rows, idx = walked_slot_rows(
+        inp, gs_tile.composite_tiles_bwd_plain(*slot_args))
+    return splat_rows_vs_plain(f"tile {label}", k, p, rows, idx)
 
 
 def tile_render_path(dev, splat, cams, cam0, flat_imgs, parity_scene):
@@ -843,13 +959,12 @@ def main(out_path=None) -> int:
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(f"device {name} | nvidia-smi: {smi} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
-    record["device"] = dict(name=name, nvidia_smi=smi,
+    smi_line = smi("name,power.limit")
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    log(f"device {name} | nvidia-smi: {smi_line}, SM clock max {clock_mhz} "
+        f"MHz | torch {torch.__version__} cuda {torch.version.cuda}")
+    record["device"] = dict(name=name, nvidia_smi=smi_line,
+                            sm_clock_max_mhz=clock_mhz,
                             torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build
@@ -857,11 +972,14 @@ def main(out_path=None) -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     log(f"built {_build.sources()} in {build_s:.1f} s")
+    ptxas = {}
     for src, out in _build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
-    record["build_s"] = build_s
+        ptxas[src] = [line.strip() for line in out.splitlines()
+                      if any(k in line for k in ("entry function",
+                                                 "registers", "spill"))]
+        for line in ptxas[src]:
+            log(f"  {src}: {line}")
+    record.update(build_s=build_s, ptxas=ptxas)
 
     # 3. kernel vs plain on the card
     poses = compose_orbit_camposes(
@@ -1021,7 +1139,7 @@ def main(out_path=None) -> int:
     # 6. the trainer learns; 7. the training path at full width
     record["trainer_learns"] = trainer_learns(dev)
     train_rec, train_times, train_prof, bwd_bound_rec = train_full_width(
-        dev, asset_dir)
+        dev, asset_dir, clock_mhz=clock_mhz)
     record.update(train_path=train_rec, train_times=train_times,
                   train_profile=train_prof, bwd_bound=bwd_bound_rec)
     torch.cuda.empty_cache()
@@ -1046,7 +1164,8 @@ def main(out_path=None) -> int:
     torch.cuda.empty_cache()
     record["tile_trainer_learns"] = trainer_learns(dev, backend="tile")
     (tile_train_rec, tile_train_times, tile_train_prof,
-     tile_bwd_bound_rec) = train_full_width(dev, asset_dir, backend="tile")
+     tile_bwd_bound_rec) = train_full_width(dev, asset_dir, backend="tile",
+                                            clock_mhz=clock_mhz)
     record.update(tile_train_path=tile_train_rec,
                   tile_train_times=tile_train_times,
                   tile_train_profile=tile_train_prof,
@@ -1073,6 +1192,9 @@ def main(out_path=None) -> int:
         "bound_ms": bwd_bound_rec["bound_ms"],
         "bound_by": bwd_bound_rec["bound_by"],
         "library_ms": None,
+        "computes": "backward + per-splat scatter",
+        "old_scatter_ms": train_times["old_scatter_ms"],
+        "old_design": train_rec["old_design"],
     }
     kernel_tile_fwd = {
         "name": "gs_tile_fwd", "route": "cuda",
@@ -1103,6 +1225,9 @@ def main(out_path=None) -> int:
         "bound_ms": tile_bwd_bound_rec["bound_ms"],
         "bound_by": tile_bwd_bound_rec["bound_by"],
         "library_ms": None,
+        "computes": "backward + per-splat scatter",
+        "old_scatter_ms": tile_train_times["old_scatter_ms"],
+        "old_design": tile_train_rec["old_design"],
     }
     record["kernels"] = [kernel, kernel_bwd, kernel_tile_fwd, kernel_tile_bwd]
     if out_path:
@@ -1127,7 +1252,7 @@ def main(out_path=None) -> int:
                           if k != "top"},
                       "tile_trainer_learns": record["tile_trainer_learns"]}))
     print(json.dumps({"kernels": record["kernels"]}))
-    print(smi)
+    print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

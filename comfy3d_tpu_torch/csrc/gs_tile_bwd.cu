@@ -1,8 +1,11 @@
-// Per-16-px-tile 3DGS compositor, backward, for Hopper (sm_90a).
+// Per-16-px-tile 3DGS compositor, backward with its per-splat scatter, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel comfy3d_tpu/ops/pallas/gs_tile.py::_bwd_kernel
-// (:127, reached through composite_tiles_bwd :240). The Python wrapper and
-// the plain PyTorch version are comfy3d_tpu_torch/ops/gs_tile.py.
+// (:127, reached through composite_tiles_bwd :240) together with the XLA
+// scatter that follows it (comfy3d_tpu/ops/gs_render.py:534-537). The
+// Python wrapper and the plain PyTorch version are
+// comfy3d_tpu_torch/ops/gs_tile.py::composite_tiles_bwd_splats.
 //
 // What it computes, for tile t: the forward (gs_tile_fwd.cu) walked the
 // first n = min(counts[t], M) slots of data[t] front to back. Here they are
@@ -20,10 +23,10 @@
 //   S    += chan.g_acc a T_i
 //   d power = d a op G; d mu, d conic from the power's derivatives in
 //   mx = mu - px, my = mu - py; d op += d a G; d chan_k += a T_i g_acc_k.
-// The per-pixel values are summed over the tile's 256 pixels into the
-// slot's column of out[t] ([D, M], tile data's layout): rows d mu_x, d mu_y,
-// d a, d b, d c, d op, d chan_0..C-1. Every other entry of out[t] (rows
-// >= 6 + C, slots >= n) is written 0.
+// The per-pixel values are summed over the tile's 256 pixels, and each
+// walked, valid slot's sums are added into its splat's row prim_idx[t, j]
+// of g [n, 6 + C]: d mu_x, d mu_y, d a, d b, d c, d op, d chan_0..C-1.
+// Invalid slots and slots past the count add nothing.
 //
 // Hazard, shared with the reference and kept for parity (ROADMAP §C): where
 // T underflows below e^-80 within a chunk, the rebuild from the floored
@@ -32,79 +35,74 @@
 //
 // Bound: operations (~17 f32 operations and one exp per slot-pixel visit,
 // ~10 + 4C more, one log1p and one exp per live one, ~34 more per
-// unsaturated one), not bytes (a slot's columns are shared by 256 pixels).
-// Design: one CTA per tile, one thread per pixel (L, S, T_fin, g_T and
-// g_acc in registers). Each chunk is staged in shared memory as the forward
-// stages it. Each slot's 6 + C sums are reduced by warp shuffles into one
-// shared-memory slot per warp (a warp whose lanes have nothing writes zeros
-// without shuffling), then summed over the 8 warps after the chunk and
-// written by slot index: a slot belongs to one tile, so no atomics, and the
-// sums are deterministic.
+// unsaturated one), not bytes (a slot's 6 + C values are shared by 256
+// pixels, and the output is one row per splat).
+// Design: one CTA per tile, one thread per pixel, each chunk staged in
+// shared memory (one 16-byte aligned row per slot) and cut into sub-chunks
+// of 16 slots, each in two phases (gs_bwd_common.cuh): A, the pixel-major
+// walk above, writes dG = d a G and wc = a T_i per (slot, pixel) to shared
+// memory; B, slot-major, gives each half-warp lane one slot and each warp
+// 32 pixels, so a slot's 6 + C sums cost one pass over shared memory and a
+// sum of the 8 warps' partials, not the up to 8 x 5 (6 + C) warp shuffles
+// and the cross-warp pass per slot of a per-slot design. The sums go
+// straight into the splat rows with atomicAdd: a splat sits in ~6 tiles,
+// so contention is low, and no [T, D, M] columns are written, zero-filled
+// or scattered. The atomics' order varies, so the rows vary from run to run
+// in their last bits. ~50 KB of shared memory per CTA (C = 4) leaves room
+// for 4 CTAs per SM.
 //
 // Built with -fmad=false, as the forward is: the power and alpha round as
 // the forward's do, so the 1/255 and 0.99 cuts fall on the same visits.
+// Only those decisions must round as the forward's: d a is formed with one
+// correctly rounded reciprocal of one_m, not two divisions.
 
 #include <cuda_runtime.h>
 
+#include "gs_bwd_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;   // threads per CTA
-constexpr int NWARP = NPIX / 32;
-constexpr int CHUNK = 128;          // slots per staged chunk
-// f32 roundings of the same double constants the plain version uses
-constexpr float ALPHA_MAX = (float)0.99;
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float ONE_M_MIN = (float)(1.0 - 0.99);
-constexpr float LOG_FLOOR = -80.f;
-constexpr float T_FLOOR = (float)1.8048513878454153e-35;   // e^-80
+using namespace gs_bwd;
 
 template <int C>
-constexpr int smem_bytes() {
-  // s_dat [6 + C][CHUNK], s_red [NWARP][6 + C][CHUNK]
-  return (int)(sizeof(float) * (6 + C) * CHUNK * (1 + NWARP));
-}
-
-template <int C>
-__global__ void __launch_bounds__(NPIX)
+__global__ void __launch_bounds__(NPIX, 4)
 gs_tile_bwd_kernel(const float* __restrict__ data,
                    const int* __restrict__ counts,
+                   const long long* __restrict__ prim_idx,
+                   const unsigned char* __restrict__ valid,
                    const float* __restrict__ trans,
                    const float* __restrict__ g_acc,
                    const float* __restrict__ g_trans, int d, int m,
-                   int grid_w, float* __restrict__ out) {
-  constexpr int NF = 6 + C;   // staged and reduced rows
-  extern __shared__ float smem[];
-  float* s_dat = smem;                                  // [NF][CHUNK]
-  float* s_red = smem + NF * CHUNK;                     // [NWARP][NF][CHUNK]
+                   int grid_w, long long n_rows, float* __restrict__ g) {
+  using L = Smem<C>;
+  constexpr int NF = L::NF;
+  extern __shared__ __align__(16) float smem[];
+  float* s_dat = smem + L::DAT;                          // [CHUNK][NFS]
+  int* s_row = reinterpret_cast<int*>(smem + L::ROW);    // [CHUNK]
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int count = min(max(counts[t], 0), m);
   const int nsteps = (count + CHUNK - 1) / CHUNK;
-  const float ox = (float)((t % grid_w) * TILE);
-  const float oy = (float)((t / grid_w) * TILE);
-  const float px = ((float)(tid % TILE) + 0.5f) + ox;
-  const float py = ((float)(tid / TILE) + 0.5f) + oy;
+  if (nsteps == 0) return;   // uniform: an empty tile adds nothing
+  const float ox = (float)((t % grid_w) * TILE) + 0.5f;
+  const float oy = (float)((t / grid_w) * TILE) + 0.5f;
+  const float px = (float)(tid % TILE) + ox;
+  const float py = (float)(tid / TILE) + oy;
   const float* tile = data + (long long)t * d * m;
-  float* gtile = out + (long long)t * d * m;
 
   const float tfin = trans[(long long)t * NPIX + tid];
   const float gT = g_trans[(long long)t * NPIX + tid];
   float gA[C];
 #pragma unroll
-  for (int k = 0; k < C; ++k) gA[k] = g_acc[((long long)t * C + k) * NPIX + tid];
-  float L = logf(fmaxf(tfin, T_FLOOR));
+  for (int k = 0; k < C; ++k) {
+    gA[k] = g_acc[((long long)t * C + k) * NPIX + tid];
+    smem[L::GA + k * NPIX + tid] = gA[k];
+  }
+  float Lg = logf(fmaxf(tfin, T_FLOOR));
   float S = 0.f;
-
-  // rows past 6 + C, and the slots of chunks the forward never walked
-  for (long long i = tid; i < (long long)(d - NF) * m; i += NPIX)
-    gtile[(long long)NF * m + i] = 0.f;
-  for (int f = 0; f < NF; ++f)
-    for (int j = nsteps * CHUNK + tid; j < m; j += NPIX)
-      gtile[(long long)f * m + j] = 0.f;
+  float* my_dg = smem + L::DG + tid * SPAD;
+  float* my_wc = smem + L::WC + tid * SPAD;
 
   for (int q = nsteps - 1; q >= 0; --q) {
     const int off = q * CHUNK;
@@ -112,116 +110,99 @@ gs_tile_bwd_kernel(const float* __restrict__ data,
     for (int i = tid; i < NF * CHUNK; i += NPIX) {
       const int f = i / CHUNK;
       const int j = i % CHUNK;
-      s_dat[f * CHUNK + j] = tile[(long long)f * m + off + j];
+      s_dat[j * L::NFS + f] = tile[(long long)f * m + off + j];
+    }
+    if (tid < CHUNK) {
+      const long long e = (long long)t * m + off + tid;
+      const long long row = prim_idx[e];
+      s_row[tid] = (off + tid < count && valid[e] && row >= 0 && row < n_rows)
+                       ? (int)row : -1;
     }
     __syncthreads();
 
     const int n = min(CHUNK, count - off);
-    for (int j = CHUNK - 1; j >= 0; --j) {
-      float gr[NF];
-#pragma unroll
-      for (int f = 0; f < NF; ++f) gr[f] = 0.f;
-      bool live = false;
-      if (j < n) {   // uniform across the CTA
-        const float mx = s_dat[0 * CHUNK + j] - px;
-        const float my = s_dat[1 * CHUNK + j] - py;
-        const float a = s_dat[2 * CHUNK + j];
-        const float b = s_dat[3 * CHUNK + j];
-        const float c = s_dat[4 * CHUNK + j];
-        const float op = s_dat[5 * CHUNK + j];
-        const float power = -0.5f * (a * mx * mx + c * my * my) - b * mx * my;
+    for (int j0 = ((n - 1) / SUB) * SUB; j0 >= 0; j0 -= SUB) {
+      const int jn = min(SUB, n - j0);
+      // A: this pixel's walk over the sub-chunk, back to front
+      for (int jl = jn - 1; jl >= 0; --jl) {
+        const int j = j0 + jl;
+        float4 v0, v1;   // mu_x, mu_y, a, b; c, op, chan_0, chan_1
+        slot_head<C>(smem, j, v0, v1);
+        const float mx = v0.x - px;
+        const float my = v0.y - py;
+        const float a = v0.z, b = v0.w, c = v1.x, op = v1.y;
+        const float power = power_of(a, b, c, mx, my);
         const float G = expf(fminf(power, 0.f));
         const float raw = op * G;
-        live = power <= 0.f && raw >= ALPHA_MIN;
-        if (live) {
+        float dg = 0.f, wc = 0.f;
+        if (power <= 0.f && raw >= ALPHA_MIN) {
           const float alpha = fminf(raw, ALPHA_MAX);
           const float one_m = fmaxf(1.f - alpha, ONE_M_MIN);
-          L = L - log1pf(-alpha);
-          const float ti = expf(fminf(fmaxf(L, LOG_FLOOR), 0.f));
-          const float wc = alpha * ti;
+          Lg = Lg - log1pf(-alpha);
+          const float ti = expf(fminf(fmaxf(Lg, LOG_FLOOR), 0.f));
+          wc = alpha * ti;
           float cg = 0.f;
 #pragma unroll
-          for (int k = 0; k < C; ++k) cg += s_dat[(6 + k) * CHUNK + j] * gA[k];
+          for (int k = 0; k < C; ++k) cg += slot_chan<C>(smem, j, v1, k) * gA[k];
           if (raw < ALPHA_MAX) {
-            const float da = (cg * ti - S / one_m) + -gT * (tfin / one_m);
-            const float dp = da * op * G;
-            gr[0] = dp * (-(a * mx + b * my));
-            gr[1] = dp * (-(c * my + b * mx));
-            gr[2] = -0.5f * mx * mx * dp;
-            gr[3] = -mx * my * dp;
-            gr[4] = -0.5f * my * my * dp;
-            gr[5] = da * G;
+            const float r = __frcp_rn(one_m);
+            const float da = cg * ti - (S + gT * tfin) * r;
+            dg = da * G;
           }
-#pragma unroll
-          for (int k = 0; k < C; ++k) gr[6 + k] = wc * gA[k];
           S += cg * wc;
         }
+        my_dg[jl] = dg;
+        my_wc[jl] = wc;
       }
-      if (__any_sync(0xffffffffu, live)) {
-#pragma unroll
-        for (int f = 0; f < NF; ++f) {
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            gr[f] += __shfl_down_sync(0xffffffffu, gr[f], o);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int f = 0; f < NF; ++f) s_red[(warp * NF + f) * CHUNK + j] = gr[f];
-      }
+      __syncthreads();
+      // B: the sub-chunk's sums, slot-major
+      slot_sums<C>(smem, j0, jn, ox, oy);
+      __syncthreads();
+      add_rows<C>(smem, j0, jn, g);
     }
     // the carry to the chunk before: max(log T before this chunk, -80)
-    L = fmaxf(L, LOG_FLOOR);
-    __syncthreads();
-
-    // sum the warps' partials; write the chunk's columns by slot index
-    for (int i = tid; i < NF * CHUNK; i += NPIX) {
-      const int f = i / CHUNK;
-      const int j = i % CHUNK;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < NWARP; ++w) sum += s_red[(w * NF + f) * CHUNK + j];
-      gtile[(long long)f * m + off + j] = sum;
-    }
+    Lg = fmaxf(Lg, LOG_FLOOR);
   }
 }
 
 template <int C>
-cudaError_t launch(const float* data, const int* counts, const float* trans,
-                   const float* g_acc, const float* g_trans, int ntiles,
-                   int d, int m, int grid_w, float* out,
-                   cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<C>();
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gs_tile_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-  }
+cudaError_t launch(const float* data, const int* counts,
+                   const long long* prim_idx, const unsigned char* valid,
+                   const float* trans, const float* g_acc,
+                   const float* g_trans, int ntiles, int d, int m, int grid_w,
+                   long long n_rows, float* g, cudaStream_t stream) {
+  constexpr int bytes = Smem<C>::BYTES;
+  const cudaError_t e = allow_smem(gs_tile_bwd_kernel<C>, bytes);
+  if (e != cudaSuccess) return e;
   gs_tile_bwd_kernel<C><<<ntiles, NPIX, bytes, stream>>>(
-      data, counts, trans, g_acc, g_trans, d, m, grid_w, out);
+      data, counts, prim_idx, valid, trans, g_acc, g_trans, d, m, grid_w,
+      n_rows, g);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// data, out [ntiles, d, m] f32 row-major (m a multiple of 128,
-// d >= 6 + nchan); counts [ntiles] i32; trans, g_trans [ntiles, 1, 256] and
-// g_acc [ntiles, nchan, 256] f32. Every entry of out is written.
+// data [ntiles, d, m] f32 row-major (m a multiple of 128, d >= 6 + nchan);
+// counts [ntiles] i32; prim_idx [ntiles, m] i64 and valid [ntiles, m] bool
+// (1 byte); trans, g_trans [ntiles, 1, 256] and g_acc [ntiles, nchan, 256]
+// f32; g [n_rows, 6 + nchan] f32, zeroed by the caller, which the walked,
+// valid slots' sums are added into.
 extern "C" int gs_tile_bwd(const float* data, const int* counts,
-                           const float* trans, const float* g_acc,
-                           const float* g_trans, int ntiles, int d, int m,
-                           int grid_w, int nchan, float* out, void* stream) {
+                           const long long* prim_idx,
+                           const unsigned char* valid, const float* trans,
+                           const float* g_acc, const float* g_trans,
+                           int ntiles, int d, int m, int grid_w, int nchan,
+                           long long n_rows, float* g, void* stream) {
   if (ntiles <= 0 || grid_w <= 0 || m <= 0 || m % CHUNK != 0 ||
-      d < 6 + nchan)
+      d < 6 + nchan || n_rows <= 0 || n_rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nchan) {
 #define GS_TILE_BWD_CASE(C)                                                 \
   case C:                                                                   \
-    return (int)launch<C>(data, counts, trans, g_acc, g_trans, ntiles, d,   \
-                          m, grid_w, out, s);
+    return (int)launch<C>(data, counts, prim_idx, valid, trans, g_acc,      \
+                          g_trans, ntiles, d, m, grid_w, n_rows, g, s);
     GS_TILE_BWD_CASE(1)
     GS_TILE_BWD_CASE(2)
     GS_TILE_BWD_CASE(3)

@@ -1,11 +1,13 @@
 """Build the port's CUDA sources (`csrc/*.cu`) with nvcc, load them with ctypes.
 
 Each source is compiled on its own into a shared library with a plain C
-interface, for `sm_90a` (Hopper). Libraries go to `comfy3d_tpu_torch/_build/`
-(listed in `.gitignore`), named after a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is reused. Nothing is compiled
-when the package is imported; a kernel's first call builds it. Where `nvcc` is
-missing or the build fails, the call raises with the compiler's message.
+interface, for `sm_90a` (Hopper); headers (`csrc/*.cuh`) are included by
+the sources that need them. Libraries go to `comfy3d_tpu_torch/_build/`
+(listed in `.gitignore`), named after a hash of the source, the headers and
+the flags, so a changed source or header is rebuilt and an unchanged one is
+reused. Nothing is compiled when the package is imported; a kernel's first
+call builds it. Where `nvcc` is missing or the build fails, the call raises
+with the compiler's message.
 """
 
 from __future__ import annotations
@@ -54,9 +56,14 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        src = fh.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the source and every header beside it: a changed header rebuilds too
+    files = [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                    if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 

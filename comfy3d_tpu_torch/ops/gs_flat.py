@@ -33,20 +33,28 @@ computed once at staging, so a pair that misses a sub-tile costs its 256
 threads one uniform branch; the saturation exit is a block-wide
 `__syncthreads_or` vote per chunk (per sub-tile in per-sub-tile mode).
 
-Backward. Replaces `comfy3d_tpu/ops/pallas/gs_flat.py::_bwd_kernel` (:552,
-reached through `composite_bins_bwd` :730). The kernel is
+Backward with its per-splat scatter. Replaces
+`comfy3d_tpu/ops/pallas/gs_flat.py::_bwd_kernel` (:552, reached through
+`composite_bins_bwd` :730) and the XLA scatter after it
+(`comfy3d_tpu/ops/gs_render.py:641-644`). The kernel is
 `csrc/gs_flat_bwd.cu`. Per in-image sub-tile it walks the composited prefix
 (chunks below `stops`) back to front, rebuilding T in log space from the
 forward's final T (floored at e^-80: within the last chunk T can underflow
-to 0) and carrying S = Σ_later chan·g_acc·α·T, and emits per-pair gradient
-columns [DG, P]: rows d μx, d μy, d conic a, b, c, d opacity, d chan_0..C-1,
-zero pad to a multiple of 8. The visit decisions (footprint bit, α ≥ 1/255,
-α < 0.99, power ≤ 0) are re-derived with the forward's operations, so they
-equal the forward's. Bounded by operations as the forward is (~75 per live
-visit); one CTA per bin, one thread per pixel of each sub-tile, each pair's
-6+C sums reduced over the CTA by warp shuffles and a shared-memory pass over
-the 8 warps, and written by pair index: every pair belongs to one bin, so no
-two CTAs write one column and no atomics are needed.
+to 0) and carrying S = Σ_later chan·g_acc·α·T, sums each pair's gradient
+(d μx, d μy, d conic a, b, c, d opacity, d chan_0..C-1) over the
+sub-tile's pixels and adds it into the pair's splat row `sprim[g]` of
+g [n, 6 + C]. The visit decisions (footprint bit, α ≥ 1/255, α < 0.99,
+power ≤ 0) are re-derived with the forward's operations, so they equal the
+forward's. Bounded by operations as the forward is (~75 per live visit);
+one CTA per 16-px sub-tile, one thread per pixel, each chunk compacted to
+the sub-tile's footprint pairs and walked in 16-pair sub-chunks, pixel-major
+(phase A, per-(pair, pixel) scalars into shared memory) and then slot-major
+(phase B, one half-warp lane per pair), each pair's sums added into its
+splat's row with atomics. The plain version
+(`composite_bins_bwd_splats_plain`) is the per-pair plain function
+`composite_bins_bwd_plain`, which keeps the TPU kernel's per-pair columns
+[DG, P] and is held against it, followed by one `index_add_` of the walked
+pairs.
 """
 
 from __future__ import annotations
@@ -90,10 +98,11 @@ def _lib(name):
             # data, ppad, dpay, bounds, nbins, nbins_x, nchan, sub_n, width,
             # height, merged, acc, trans, stops, stream
             "gs_flat_fwd": [vp, i64, i32, vp] + [i32] * 7 + [vp] * 4,
-            # data, ppad, dpay, bounds, trans, stops, g_acc, g_trans, nbins,
-            # nbins_x, nchan, sub_n, width, height, out, dg, stream
-            "gs_flat_bwd": [vp, i64, i32] + [vp] * 5 + [i32] * 6
-            + [vp, i32, vp],
+            # data, ppad, dpay, bounds, sprim, nsprim, trans, stops, g_acc,
+            # g_trans, nbins, nbins_x, nchan, sub_n, width, height, n_rows,
+            # g, stream
+            "gs_flat_bwd": [vp, i64, i32, vp, vp, i64] + [vp] * 4
+            + [i32] * 6 + [i64, vp, vp],
         }[name]
         fn.restype = i32
         err = getattr(lib, name + "_error_string")
@@ -141,6 +150,16 @@ def _check_bwd(data, trans, stops, g_acc, g_trans, nbins, nchan, bin_px):
             raise ValueError(f"{name} on {x.device}, data on {data.device}")
 
 
+def _check_pairs(data, sprim, n):
+    if sprim.dtype != torch.int64 or sprim.dim() != 1:
+        raise ValueError(f"sprim must be a 1-D int64 tensor, got "
+                         f"{sprim.dtype} {tuple(sprim.shape)}")
+    if sprim.device != data.device:
+        raise ValueError(f"sprim on {sprim.device}, data on {data.device}")
+    if not 0 <= n < 2 ** 31:
+        raise ValueError(f"n (splats) must be in 0..2^31-1, got {n}")
+
+
 def composite_bins_fwd(data, bounds, nbins_x: int, nbins_y: int, nchan: int,
                        width: int, height: int, bin_px: int = DEFAULT_BIN,
                        merged: bool | None = None):
@@ -186,47 +205,52 @@ def composite_bins_fwd(data, bounds, nbins_x: int, nbins_y: int, nchan: int,
 composite_bins_fwd.launches = 0     # kernel launches since the last reset
 
 
-def composite_bins_bwd(data, bounds, trans, stops, g_acc, g_trans,
-                       nbins_x: int, nbins_y: int, nchan: int, width: int,
-                       height: int, bin_px: int = DEFAULT_BIN):
-    """Backward of `composite_bins_fwd`: `trans`/`stops` are its outputs,
-    `g_acc`/`g_trans` the cotangents of acc/trans.
+def composite_bins_bwd_splats(data, bounds, sprim, n: int, trans, stops,
+                              g_acc, g_trans, nbins_x: int, nbins_y: int,
+                              nchan: int, width: int, height: int,
+                              bin_px: int = DEFAULT_BIN):
+    """Backward of `composite_bins_fwd` with its per-splat scatter:
+    `trans`/`stops` are its outputs, `g_acc`/`g_trans` the cotangents of
+    acc/trans, `sprim` [≥ P] i64 the splat (of n) of each pair.
 
-    Returns per-pair gradient columns [DG, P] f32 (rows d μx, d μy, d a,
-    d b, d c, d op, d chan_0..C-1, zero pad); columns of pairs no sub-tile
-    walked are 0. On a CUDA tensor it launches the kernel; on a CPU tensor
-    it runs `composite_bins_bwd_plain`; any other device raises."""
+    Returns g [n, 6 + C] f32, one row per splat: d μx, d μy, d a, d b, d c,
+    d op, d chan_0..C-1, summed over the splat's pairs that a sub-tile
+    walked. On a CUDA tensor it launches the kernel (the atomics' order
+    varies, so the rows vary in their last bits); on a CPU tensor it runs
+    `composite_bins_bwd_splats_plain`; any other device raises."""
     _check(data, bounds, nbins_x, nbins_y, nchan, bin_px)
     nbins = nbins_x * nbins_y
     _check_bwd(data, trans, stops, g_acc, g_trans, nbins, nchan, bin_px)
+    _check_pairs(data, sprim, n)
     if data.device.type == "cpu":
-        return composite_bins_bwd_plain(data, bounds, trans, stops, g_acc,
-                                        g_trans, nbins_x, nbins_y, nchan,
-                                        width, height, bin_px)
+        return composite_bins_bwd_splats_plain(
+            data, bounds, sprim, n, trans, stops, g_acc, g_trans, nbins_x,
+            nbins_y, nchan, width, height, bin_px)
     if data.device.type != "cuda":
-        raise ValueError(f"composite_bins_bwd runs on cuda (kernel) or cpu "
-                         f"(plain version), not {data.device}")
-    ins = (data, bounds, trans, stops, g_acc, g_trans)
+        raise ValueError(f"composite_bins_bwd_splats runs on cuda (kernel) "
+                         f"or cpu (plain version), not {data.device}")
+    ins = (data, bounds, sprim, trans, stops, g_acc, g_trans)
     if not all(x.is_contiguous() for x in ins):
-        raise ValueError("composite_bins_bwd needs contiguous inputs")
-    dg = grad_rows(nchan)
-    out = torch.zeros((dg, data.shape[1]), dtype=torch.float32,
-                      device=data.device)
+        raise ValueError("composite_bins_bwd_splats needs contiguous inputs")
+    g = torch.zeros((n, 6 + nchan), dtype=torch.float32, device=data.device)
+    if n == 0:
+        return g
     lib = _lib("gs_flat_bwd")
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = lib.gs_flat_bwd(data.data_ptr(), data.shape[1], data.shape[0],
-                              bounds.data_ptr(), trans.data_ptr(),
+                              bounds.data_ptr(), sprim.data_ptr(),
+                              sprim.numel(), trans.data_ptr(),
                               stops.data_ptr(), g_acc.data_ptr(),
                               g_trans.data_ptr(), nbins, nbins_x, nchan,
-                              bin_px // TILE, width, height, out.data_ptr(),
-                              dg, stream)
+                              bin_px // TILE, width, height, n, g.data_ptr(),
+                              stream)
     _raise_on(err, lib, "gs_flat_bwd")
-    composite_bins_bwd.launches += 1
-    return out
+    composite_bins_bwd_splats.launches += 1
+    return g
 
 
-composite_bins_bwd.launches = 0     # kernel launches since the last reset
+composite_bins_bwd_splats.launches = 0   # kernel launches since the last reset
 
 
 # ------------------------------------------------------------------ #
@@ -351,11 +375,41 @@ def composite_bins_fwd_plain(data, bounds, nbins_x: int, nbins_y: int,
     return acc, T[:, :, None, :], stops
 
 
+def composite_bins_bwd_splats_plain(data, bounds, sprim, n: int, trans,
+                                    stops, g_acc, g_trans, nbins_x: int,
+                                    nbins_y: int, nchan: int, width: int,
+                                    height: int, bin_px: int = DEFAULT_BIN):
+    """Plain PyTorch version of `composite_bins_bwd_splats` (same
+    contract): the per-pair columns of `composite_bins_bwd_plain`, then one
+    `index_add_` of the pairs that some in-image sub-tile walked (pair g of
+    bin t, in chunk q of the bin's walk, below that sub-tile's stop)."""
+    _check_pairs(data, sprim, n)
+    cols = composite_bins_bwd_plain(data, bounds, trans, stops, g_acc,
+                                    g_trans, nbins_x, nbins_y, nchan, width,
+                                    height, bin_px)            # [DG, P]
+    geo = _bin_geometry(bounds, nbins_x, nbins_y, width, height, bin_px,
+                        data.device)
+    npair = min(int(geo["b1"][-1]) if geo["nbins"] else 0, sprim.numel(),
+                data.shape[1])
+    g = torch.arange(npair, device=data.device)
+    t = torch.searchsorted(geo["b1"], g, right=True)       # b0[t] ≤ g < b1[t]
+    q = torch.div(g - geo["b0_al"][t], CHUNK, rounding_mode="floor")
+    last = torch.where(geo["in_img"], stops.to(torch.int64),
+                       torch.zeros_like(stops, dtype=torch.int64))
+    walked = q < last.amax(-1)[t]
+    rows = cols[:6 + nchan, :npair].t()[walked]
+    return cols.new_zeros((n, 6 + nchan)).index_add_(0, sprim[:npair][walked],
+                                                     rows)
+
+
 def composite_bins_bwd_plain(data, bounds, trans, stops, g_acc, g_trans,
                              nbins_x: int, nbins_y: int, nchan: int,
                              width: int, height: int,
                              bin_px: int = DEFAULT_BIN):
-    """Plain PyTorch version of `composite_bins_bwd` (same contract).
+    """The TPU kernel's function (`gs_flat.py::composite_bins_bwd`), in
+    plain PyTorch: per-pair gradient columns [DG, P] f32 (rows d μx, d μy,
+    d a, d b, d c, d op, d chan_0..C-1, zero pad); columns of pairs no
+    sub-tile walked are 0.
 
     Vectorised over bins, a Python loop over the chunk index from the last
     walked chunk to the first; inside a chunk, `cumsum` of log(1−α) rebuilds

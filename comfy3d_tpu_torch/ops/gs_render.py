@@ -173,9 +173,10 @@ class _CompositeFlat(torch.autograd.Function):
 
     The payload is packed inside `forward`, where autograd is off, so
     `backward` returns the gradients of means2d, conic, opacity and chans
-    itself: the per-pair columns of `gs_flat.composite_bins_bwd`
-    scatter-added per splat (`index_add_`, atomics on the card, so the sums
-    vary in their last bits from run to run). The radius row has none."""
+    itself: the per-splat rows of `gs_flat.composite_bins_bwd_splats`,
+    which sums each walked pair's gradient into its splat's row (atomics on
+    the card, so the sums vary in their last bits from run to run), split
+    into the four inputs. The radius row has none."""
 
     @staticmethod
     def forward(ctx, means2d, conic, opacity, chans, radii, sprim, bounds,
@@ -196,18 +197,10 @@ class _CompositeFlat(torch.autograd.Function):
         # the cotangents strided
         data, bounds, trans, stops, sprim = ctx.saved_tensors
         nbx, nby, c, width, height, bin_px, n = ctx.geometry
-        gflat = gs_flat.composite_bins_bwd(
-            data, bounds, trans, stops, g_acc.contiguous(),
+        g = gs_flat.composite_bins_bwd_splats(
+            data, bounds, sprim, n, trans, stops, g_acc.contiguous(),
             g_trans.contiguous(), nbx, nby, c, width, height, bin_px=bin_px)
-        g_rows = gflat[:, :sprim.numel()].t()                # [P, DG]
-
-        def scatter(rows):
-            return rows.new_zeros((n,) + rows.shape[1:]).index_add_(
-                0, sprim, rows)
-
-        return (scatter(g_rows[:, 0:2]), scatter(g_rows[:, 2:5]),
-                scatter(g_rows[:, 5]), scatter(g_rows[:, 6:6 + c]),
-                *[None] * 8)
+        return (g[:, 0:2], g[:, 2:5], g[:, 5], g[:, 6:6 + c], *[None] * 8)
 
 
 def render_flat(means2d, conic, opacity, chans, depth, active, radii,
@@ -261,10 +254,10 @@ class _CompositeTiles(torch.autograd.Function):
 
     The tile data is gathered inside `forward`, where autograd is off, so
     `backward` returns the gradients of means2d, conic, opacity and chans
-    itself: `gs_tile.composite_tiles_bwd`'s per-slot columns scatter-added
-    per splat (`index_add_`, atomics on the card, so the sums vary in their
-    last bits from run to run). Invalid slots point at splat 0 with zero
-    columns."""
+    itself: the per-splat rows of `gs_tile.composite_tiles_bwd_splats`,
+    which sums each valid slot's gradient into its splat's row (atomics on
+    the card, so the sums vary in their last bits from run to run), split
+    into the four inputs."""
 
     @staticmethod
     def forward(ctx, means2d, conic, opacity, chans, prim_idx, valid, counts,
@@ -273,27 +266,18 @@ class _CompositeTiles(torch.autograd.Function):
                                 valid)
         acc, trans = gs_tile.composite_tiles_fwd(data, counts, grid_w,
                                                  chans.shape[-1])
-        ctx.save_for_backward(data, counts, trans, prim_idx)
+        ctx.save_for_backward(data, counts, trans, prim_idx, valid)
         ctx.geometry = (grid_w, chans.shape[-1], means2d.shape[0])
         return acc, trans
 
     @staticmethod
     def backward(ctx, g_acc, g_trans):
-        data, counts, trans, prim_idx = ctx.saved_tensors
+        data, counts, trans, prim_idx, valid = ctx.saved_tensors
         grid_w, c, n = ctx.geometry
-        gdata = gs_tile.composite_tiles_bwd(
-            data, counts, grid_w, trans, g_acc.contiguous(),
-            g_trans.contiguous(), c)                     # [T, D, M]
-        g_rows = gdata.transpose(1, 2).reshape(-1, data.shape[1])
-        flat_idx = prim_idx.reshape(-1)
-
-        def scatter(rows):
-            return rows.new_zeros((n,) + rows.shape[1:]).index_add_(
-                0, flat_idx, rows)
-
-        return (scatter(g_rows[:, 0:2]), scatter(g_rows[:, 2:5]),
-                scatter(g_rows[:, 5]), scatter(g_rows[:, 6:6 + c]),
-                *[None] * 4)
+        g = gs_tile.composite_tiles_bwd_splats(
+            data, counts, prim_idx, valid, n, grid_w, trans,
+            g_acc.contiguous(), g_trans.contiguous(), c)
+        return (g[:, 0:2], g[:, 2:5], g[:, 5], g[:, 6:6 + c], *[None] * 4)
 
 
 def render_tiles(means2d, conic, opacity, chans, depth, active, radii,

@@ -27,18 +27,25 @@ What the design does about it: one CTA per tile, one thread per pixel, so
 a slot's columns are read from device memory once per tile, staged in
 shared memory one 128-slot chunk at a time.
 
-Backward. Replaces `gs_tile.py::_bwd_kernel` (:127, reached through
-`composite_tiles_bwd` :240). The kernel is `csrc/gs_tile_bwd.cu`. Per tile
-it walks the counted slots back to front, rebuilding T in log space from
-log max(T_fin, e^-80) and carrying S·g = Σ_later chan·g_acc·α·T, and emits
-per-slot gradient columns [T, D, M] in `tile_data`'s layout: rows d μx,
-d μy, d a, d b, d c, d op, d chan_0..C-1, zero rows after; slots past the
-count are 0. Where T underflows within a chunk the log rebuild overstates
-T_i there (ROADMAP §C, shared with the reference and kept for parity).
-Bounded by operations as the forward is; one CTA per tile, one thread per
-pixel, each slot's 6 + C sums reduced over the CTA by warp shuffles and a
-shared-memory pass over the 8 warps. A slot belongs to one tile, so the
-columns are written without atomics; the caller scatters them per splat.
+Backward with its per-splat scatter. Replaces `gs_tile.py::_bwd_kernel`
+(:127, reached through `composite_tiles_bwd` :240) and the XLA scatter
+after it (`comfy3d_tpu/ops/gs_render.py:534-537`). The kernel is
+`csrc/gs_tile_bwd.cu`. Per tile it walks the counted slots back to front,
+rebuilding T in log space from log max(T_fin, e^-80) and carrying
+S·g = Σ_later chan·g_acc·α·T, sums each slot's gradient (d μx, d μy, d a,
+d b, d c, d op, d chan_0..C-1) over the tile's pixels and adds it into
+the slot's splat row `prim_idx[t, j]` of g [n, 6 + C]; invalid slots and
+slots past the count add nothing. Where T underflows within a chunk the
+log rebuild overstates T_i there (ROADMAP §C, shared with the reference and
+kept for parity). Bounded by operations as the forward is; one CTA per
+tile, one thread per pixel, each 16-slot sub-chunk walked pixel-major
+(phase A, per-(slot, pixel) scalars into shared memory) and then summed
+slot-major (phase B, one half-warp lane per slot), each slot's sums added
+into its splat's row with atomics. The plain version
+(`composite_tiles_bwd_splats_plain`) is the per-slot plain function
+`composite_tiles_bwd_plain`, which keeps the TPU kernel's per-slot
+columns [T, D, M] and is held against it, followed by one `index_add_` of
+the valid, walked slots.
 """
 
 from __future__ import annotations
@@ -63,14 +70,14 @@ TILE_BLOCK = 256           # tiles per step of the plain versions
 def _lib(name):
     lib = _build.load(name)
     if not getattr(lib, "_argtypes_set", False):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn = getattr(lib, name)
         fn.argtypes = {
             # data, counts, ntiles, d, m, grid_w, nchan, acc, trans, stream
             "gs_tile_fwd": [vp, vp] + [i32] * 5 + [vp] * 3,
-            # data, counts, trans, g_acc, g_trans, ntiles, d, m, grid_w,
-            # nchan, out, stream
-            "gs_tile_bwd": [vp] * 5 + [i32] * 5 + [vp] * 2,
+            # data, counts, prim_idx, valid, trans, g_acc, g_trans, ntiles,
+            # d, m, grid_w, nchan, n_rows, g, stream
+            "gs_tile_bwd": [vp] * 7 + [i32] * 5 + [i64] + [vp] * 2,
         }[name]
         fn.restype = i32
         err = getattr(lib, name + "_error_string")
@@ -120,6 +127,20 @@ def _check_bwd(tile_data, trans, g_acc, g_trans, nchan):
                              f"{tile_data.device}")
 
 
+def _check_slots(tile_data, prim_idx, valid, n):
+    t, _, m = tile_data.shape
+    want = {"prim_idx": (prim_idx, torch.int64), "valid": (valid, torch.bool)}
+    for name, (x, dtype) in want.items():
+        if x.dtype != dtype or tuple(x.shape) != (t, m):
+            raise ValueError(f"{name} must be {dtype} {(t, m)}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != tile_data.device:
+            raise ValueError(f"{name} on {x.device}, tile_data on "
+                             f"{tile_data.device}")
+    if not 0 <= n < 2 ** 31:
+        raise ValueError(f"n (splats) must be in 0..2^31-1, got {n}")
+
+
 def _device_kind(x, fn):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn} runs on cuda (kernel) or cpu (plain "
@@ -159,41 +180,48 @@ def composite_tiles_fwd(tile_data, counts, grid_w: int, nchan: int):
 composite_tiles_fwd.launches = 0    # kernel launches since the last reset
 
 
-def composite_tiles_bwd(tile_data, counts, grid_w: int, trans, g_acc,
-                        g_trans, nchan: int):
-    """Backward of `composite_tiles_fwd`: `trans` is its output, `g_acc`
-    [T, C, 256] and `g_trans` [T, 1, 256] the cotangents of acc and trans.
+def composite_tiles_bwd_splats(tile_data, counts, prim_idx, valid, n: int,
+                               grid_w: int, trans, g_acc, g_trans,
+                               nchan: int):
+    """Backward of `composite_tiles_fwd` with its per-splat scatter:
+    `trans` is its output, `g_acc` [T, C, 256] and `g_trans` [T, 1, 256]
+    the cotangents of acc and trans; `prim_idx` [T, M] i64 and `valid`
+    [T, M] bool say which of the n splats each slot holds.
 
-    Returns per-slot gradient columns [T, D, M] f32 in `tile_data`'s layout
-    (rows d μx, d μy, d a, d b, d c, d op, d chan_0..C-1, zero rows after;
-    slots past min(count, M) are 0). On a CUDA tensor it launches the
-    kernel; on a CPU tensor it runs `composite_tiles_bwd_plain`; any other
-    device raises."""
+    Returns g [n, 6 + C] f32, one row per splat: d μx, d μy, d a, d b, d c,
+    d op, d chan_0..C-1, summed over the splat's valid slots below each
+    tile's count. On a CUDA tensor it launches the kernel (the atomics'
+    order varies, so the rows vary in their last bits); on a CPU tensor it
+    runs `composite_tiles_bwd_splats_plain`; any other device raises."""
     _check(tile_data, counts, grid_w, nchan)
     _check_bwd(tile_data, trans, g_acc, g_trans, nchan)
-    if _device_kind(tile_data, "composite_tiles_bwd") == "cpu":
-        return composite_tiles_bwd_plain(tile_data, counts, grid_w, trans,
-                                         g_acc, g_trans, nchan)
-    ins = (tile_data, counts, trans, g_acc, g_trans)
+    _check_slots(tile_data, prim_idx, valid, n)
+    if _device_kind(tile_data, "composite_tiles_bwd_splats") == "cpu":
+        return composite_tiles_bwd_splats_plain(
+            tile_data, counts, prim_idx, valid, n, grid_w, trans, g_acc,
+            g_trans, nchan)
+    ins = (tile_data, counts, prim_idx, valid, trans, g_acc, g_trans)
     if not all(x.is_contiguous() for x in ins):
-        raise ValueError("composite_tiles_bwd needs contiguous inputs")
+        raise ValueError("composite_tiles_bwd_splats needs contiguous inputs")
     t, d, m = tile_data.shape
-    out = torch.empty_like(tile_data)
-    if t == 0:
-        return out
+    g = torch.zeros((n, 6 + nchan), dtype=torch.float32,
+                    device=tile_data.device)
+    if t == 0 or n == 0:
+        return g
     lib = _lib("gs_tile_bwd")
     with torch.cuda.device(tile_data.device):
         stream = torch.cuda.current_stream(tile_data.device).cuda_stream
         err = lib.gs_tile_bwd(tile_data.data_ptr(), counts.data_ptr(),
+                              prim_idx.data_ptr(), valid.data_ptr(),
                               trans.data_ptr(), g_acc.data_ptr(),
-                              g_trans.data_ptr(), t, d, m, grid_w, nchan,
-                              out.data_ptr(), stream)
+                              g_trans.data_ptr(), t, d, m, grid_w, nchan, n,
+                              g.data_ptr(), stream)
     _raise_on(err, lib, "gs_tile_bwd")
-    composite_tiles_bwd.launches += 1
-    return out
+    composite_tiles_bwd_splats.launches += 1
+    return g
 
 
-composite_tiles_bwd.launches = 0    # kernel launches since the last reset
+composite_tiles_bwd_splats.launches = 0   # kernel launches since the last reset
 
 
 # ------------------------------------------------------------------ #
@@ -278,10 +306,30 @@ def composite_tiles_fwd_plain(tile_data, counts, grid_w: int, nchan: int,
     return acc, trans
 
 
+def composite_tiles_bwd_splats_plain(tile_data, counts, prim_idx, valid,
+                                     n: int, grid_w: int, trans, g_acc,
+                                     g_trans, nchan: int):
+    """Plain PyTorch version of `composite_tiles_bwd_splats` (same
+    contract): the per-slot columns of `composite_tiles_bwd_plain`, then
+    one `index_add_` of the valid slots below each tile's count."""
+    _check_slots(tile_data, prim_idx, valid, n)
+    cols = composite_tiles_bwd_plain(tile_data, counts, grid_w, trans, g_acc,
+                                     g_trans, nchan)        # [T, D, M]
+    m = tile_data.shape[2]
+    walked = valid & (torch.arange(m, device=valid.device)[None, :]
+                      < counts.to(torch.int64)[:, None])
+    rows = cols.transpose(1, 2)[walked][:, :6 + nchan]
+    return cols.new_zeros((n, 6 + nchan)).index_add_(0, prim_idx[walked],
+                                                     rows)
+
+
 def composite_tiles_bwd_plain(tile_data, counts, grid_w: int, trans, g_acc,
                               g_trans, nchan: int,
                               tile_block: int = TILE_BLOCK):
-    """Plain PyTorch version of `composite_tiles_bwd` (same contract).
+    """The TPU kernel's function (`gs_tile.py::composite_tiles_bwd`), in
+    plain PyTorch: per-slot gradient columns [T, D, M] f32 in `tile_data`'s
+    layout (rows d μx, d μy, d a, d b, d c, d op, d chan_0..C-1, zero rows
+    after; slots past min(count, M) are 0).
 
     Blocks of `tile_block` tiles, a Python loop over the chunk index from
     each tile's last chunk to its first; inside a chunk the TPU kernel's

@@ -151,6 +151,61 @@ def test_tile_plain_matches_sequential_compositor(case):
     np.testing.assert_allclose(tr.numpy(), r_tr, atol=1e-5, rtol=0)
 
 
+def stray_slots_case(seed=4):
+    """The "two_chunks" tile case with slots that must add nothing: past
+    each tile's count, copies of live splats (opacity 0.9) marked valid and
+    held by splat 0; within the count, every fifth slot marked invalid
+    while its splat's columns stay. Returns (tile_data, counts, prim_idx,
+    valid, n, grid_w, nchan, g_acc, g_trans), the cotangents seeded, on the
+    CPU."""
+    data, counts, grid_w, nchan, splats, bins = make_tiles_case(
+        **TILE_CASES["two_chunks"])
+    t, _, m = data.shape
+    slot = torch.arange(m)[None, :]
+    past = slot >= counts[:, None]
+    src = data[:, :, :1].expand(-1, -1, m)       # each tile's first slot
+    data = torch.where(past[:, None, :], src, data)
+    data[:, 5][past] = 0.9
+    prim_idx = torch.where(past, torch.zeros_like(bins.prim_idx),
+                           bins.prim_idx)
+    valid = past | (bins.valid & (slot % 5 != 3))
+    assert past.any() and (bins.valid & ~valid).any()
+    acc, tr = gs_tile.composite_tiles_fwd_plain(data, counts, grid_w, nchan)
+    rng = np.random.RandomState(seed)
+    g_acc = torch.as_tensor(rng.randn(*acc.shape).astype(np.float32))
+    g_tr = torch.as_tensor(rng.randn(*tr.shape).astype(np.float32))
+    return (data, counts, prim_idx, valid, len(splats[0]), grid_w, nchan,
+            tr, g_acc, g_tr)
+
+
+def test_bwd_splats_add_only_valid_slots_below_the_count():
+    """Invalid slots and slots past the count add nothing; splat 0's row is
+    the sum of its own valid slots' columns (the rows every invalid slot
+    pointed at before the scatter moved into the kernel)."""
+    (data, counts, prim_idx, valid, n, grid_w, nchan, tr, g_acc,
+     g_tr) = stray_slots_case()
+    g = gs_tile.composite_tiles_bwd_splats(data, counts, prim_idx, valid, n,
+                                           grid_w, tr, g_acc, g_tr, nchan)
+    cols = gs_tile.composite_tiles_bwd_plain(data, counts, grid_w, tr, g_acc,
+                                             g_tr, nchan).numpy()
+    in_count = torch.arange(data.shape[2])[None, :] < counts[:, None]
+    stray = (in_count & ~valid).numpy()
+    assert np.abs(cols.transpose(0, 2, 1)[stray]).max() > 0   # they'd add
+    ref = np.zeros((n, 6 + nchan))
+    held = np.zeros(n, bool)
+    for t in range(data.shape[0]):
+        for j in range(int(counts[t])):
+            if valid[t, j]:
+                i = int(prim_idx[t, j])
+                ref[i] += cols[t, :6 + nchan, j]
+                held[i] = True
+    out = g.numpy()
+    assert held[0] and not held.all()
+    scale = np.abs(ref).max(0)
+    np.testing.assert_allclose(out / scale, ref / scale, atol=1e-5, rtol=0)
+    assert not out[~held].any()
+
+
 def deep_bin_case(nchan=4, n=300):
     """One 32-px bin under 300 wide, nearly opaque splats: within its first
     chunk every pixel's T falls below e^-80 and underflows to 0."""
@@ -222,7 +277,7 @@ def sequential_gradients(data, bounds, nbx, nby, nchan, W, H, bin_px,
                          stops, g_acc, g_trans):
     """Float64 autograd of Σ acc·g_acc + Σ T·g_trans through a per-pixel
     compositor that walks each in-image sub-tile's first `stops` chunks one
-    pair at a time: the gradient `composite_bins_bwd` computes. Which
+    pair at a time: the gradient `composite_bins_bwd_plain` computes. Which
     pair-pixel terms are live is decided in float32 with the plain
     version's operations, so both keep the same terms."""
     d = torch.tensor(data, dtype=torch.float64, requires_grad=True)
@@ -385,6 +440,12 @@ def _bwd_case(case):
     return (*make_bins_case(0, **cfg), cfg)
 
 
+def pair_splats(data, n=37, seed=5):
+    """A splat index (of n) for every payload column: pairs of several bins
+    share splats, so the backward's per-splat sums add up across bins."""
+    return np.random.RandomState(seed).randint(0, n, data.shape[1]), n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES) + ["deep"])
 @pytest.mark.parametrize("merged", [True, False])
@@ -393,6 +454,8 @@ def test_bwd_kernel_matches_plain_on_the_card(case, merged):
     data, bounds, nbx, nby, cfg = _bwd_case(case)
     d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
                                                               device=dev)
+    sprim, n = pair_splats(data)
+    sprim = torch.as_tensor(sprim, device=dev)
     geo = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"])
     acc, tr, st = gs_flat.composite_bins_fwd(d, b, *geo, cfg["bin_px"],
                                              merged=merged)
@@ -401,19 +464,19 @@ def test_bwd_kernel_matches_plain_on_the_card(case, merged):
                             device=dev)
     g_tr = torch.as_tensor(rng.randn(*tr.shape).astype(np.float32),
                            device=dev)
-    args = (d, b, tr, st, g_acc, g_tr, *geo, cfg["bin_px"])
-    before = gs_flat.composite_bins_bwd.launches
-    out = gs_flat.composite_bins_bwd(*args)
+    args = (d, b, sprim, n, tr, st, g_acc, g_tr, *geo, cfg["bin_px"])
+    before = gs_flat.composite_bins_bwd_splats.launches
+    out = gs_flat.composite_bins_bwd_splats(*args)
     torch.cuda.synchronize()
-    assert gs_flat.composite_bins_bwd.launches == before + 1
-    ref = gs_flat.composite_bins_bwd_plain(*args)
-    assert out.shape == ref.shape
+    assert gs_flat.composite_bins_bwd_splats.launches == before + 1
+    ref = gs_flat.composite_bins_bwd_splats_plain(*args)
+    assert out.shape == ref.shape == (n, 6 + cfg["nchan"])
     for row in range(6 + cfg["nchan"]):
-        scale = float(ref[row].abs().max())
-        assert float((out[row] - ref[row]).abs().max()) <= 1e-3 * scale, row
-    # pad rows, and the columns after the last pair, stay 0
-    assert not out[6 + cfg["nchan"]:].any()
-    assert not out[:, int(bounds[-1]):].any()
+        scale = float(ref[:, row].abs().max())
+        assert float((out[:, row] - ref[:, row]).abs().max()) <= 1e-3 * scale
+    # splats no walked pair holds stay exactly 0
+    untouched = ~ref.any(1)
+    assert not out[untouched].any()
 
 
 @pytest.mark.cuda
@@ -422,18 +485,20 @@ def test_bwd_kernel_rejects_bad_inputs_before_launch():
     data, bounds, nbx, nby, cfg = _bwd_case("32px")
     d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
                                                               device=dev)
+    sprim, n = pair_splats(data)
+    sprim = torch.as_tensor(sprim, device=dev)
     acc, tr, st = gs_flat.composite_bins_fwd(d, b, nbx, nby, 4, 64, 40)
-    before = gs_flat.composite_bins_bwd.launches
-    with pytest.raises(ValueError):
-        gs_flat.composite_bins_bwd(d, b, tr, st, acc.double(), tr, nbx, nby,
-                                   4, 64, 40)
-    with pytest.raises(ValueError):
-        gs_flat.composite_bins_bwd(d, b, tr, st, acc.transpose(2, 3), tr,
-                                   nbx, nby, 4, 64, 40)
-    with pytest.raises(ValueError):
-        gs_flat.composite_bins_bwd(d, b, tr.cpu(), st, acc, tr, nbx, nby, 4,
-                                   64, 40)
-    assert gs_flat.composite_bins_bwd.launches == before
+    before = gs_flat.composite_bins_bwd_splats.launches
+    rest = (nbx, nby, 4, 64, 40)
+    for bad in [(sprim, n, tr, st, acc.double(), tr),
+                (sprim, n, tr, st, acc.transpose(2, 3), tr),
+                (sprim, n, tr.cpu(), st, acc, tr),
+                (sprim.int(), n, tr, st, acc, tr),
+                (sprim.cpu(), n, tr, st, acc, tr),
+                (sprim, -1, tr, st, acc, tr)]:
+        with pytest.raises(ValueError):
+            gs_flat.composite_bins_bwd_splats(d, b, *bad, *rest)
+    assert gs_flat.composite_bins_bwd_splats.launches == before
 
 
 # ------------------------------------------- tile compositor on the card
@@ -442,13 +507,20 @@ def _tile_case_on(case, dev):
     return data.to(dev), counts.to(dev), grid_w, nchan
 
 
+def _tile_slots_on(case, dev):
+    """The case's (prim_idx, valid, number of splats) on `dev`."""
+    _, _, _, _, splats, bins = make_tiles_case(**TILE_CASES[case])
+    return bins.prim_idx.to(dev), bins.valid.to(dev), len(splats[0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(TILE_CASES))
 def test_tile_kernels_match_plain_on_the_card(case):
     dev = _card()
     data, counts, grid_w, nchan = _tile_case_on(case, dev)
+    prim_idx, valid, n = _tile_slots_on(case, dev)
     fwd0 = gs_tile.composite_tiles_fwd.launches
-    bwd0 = gs_tile.composite_tiles_bwd.launches
+    bwd0 = gs_tile.composite_tiles_bwd_splats.launches
     acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
     torch.cuda.synchronize()
     assert gs_tile.composite_tiles_fwd.launches == fwd0 + 1
@@ -462,19 +534,36 @@ def test_tile_kernels_match_plain_on_the_card(case):
                             device=dev)
     g_tr = torch.as_tensor(rng.randn(*tr.shape).astype(np.float32),
                            device=dev)
-    args = (data, counts, grid_w, tr, g_acc, g_tr, nchan)
-    out = gs_tile.composite_tiles_bwd(*args)
+    args = (data, counts, prim_idx, valid, n, grid_w, tr, g_acc, g_tr, nchan)
+    out = gs_tile.composite_tiles_bwd_splats(*args)
     torch.cuda.synchronize()
-    assert gs_tile.composite_tiles_bwd.launches == bwd0 + 1
-    ref = gs_tile.composite_tiles_bwd_plain(*args)
+    assert gs_tile.composite_tiles_bwd_splats.launches == bwd0 + 1
+    ref = gs_tile.composite_tiles_bwd_splats_plain(*args)
+    assert out.shape == ref.shape == (n, 6 + nchan)
     for row in range(6 + nchan):
         scale = float(ref[:, row].abs().max())
         assert float((out[:, row] - ref[:, row]).abs().max()) <= 1e-3 * scale
-    # pad rows, and the slots past each tile's count, are exactly 0
-    assert not out[:, 6 + nchan:].any()
-    past = torch.arange(data.shape[2], device=dev)[None, :] \
-        >= counts[:, None]
-    assert not out.transpose(1, 2)[past].any()
+    # splats no valid slot holds stay exactly 0
+    held = torch.zeros(n, dtype=torch.bool, device=dev)
+    held[prim_idx[valid]] = True
+    assert held.any() and not out[~held].any()
+
+
+@pytest.mark.cuda
+def test_tile_bwd_kernel_adds_only_valid_slots_on_the_card():
+    dev = _card()
+    (data, counts, prim_idx, valid, n, grid_w, nchan, tr, g_acc,
+     g_tr) = stray_slots_case()
+    args = [x.to(dev) if torch.is_tensor(x) else x
+            for x in (data, counts, prim_idx, valid, n, grid_w, tr, g_acc,
+                      g_tr, nchan)]
+    out = gs_tile.composite_tiles_bwd_splats(*args)
+    torch.cuda.synchronize()
+    ref = gs_tile.composite_tiles_bwd_splats_plain(*args)
+    for row in range(6 + nchan):
+        scale = float(ref[:, row].abs().max())
+        assert float((out[:, row] - ref[:, row]).abs().max()) <= 1e-3 * scale
+    assert not out[~ref.any(1)].any()
 
 
 @pytest.mark.cuda
@@ -490,10 +579,19 @@ def test_tile_kernels_reject_bad_inputs_before_launch():
             gs_tile.composite_tiles_fwd(d, c, grid_w, nchan)
     assert gs_tile.composite_tiles_fwd.launches == fwd0
     acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
-    bwd0 = gs_tile.composite_tiles_bwd.launches
-    for g_acc, g_tr in [(acc.double(), tr), (acc.transpose(1, 2), tr),
-                        (acc, tr.cpu()), (acc[:, :1], tr)]:
+    prim_idx, valid, n = _tile_slots_on("over_m", dev)
+    bwd0 = gs_tile.composite_tiles_bwd_splats.launches
+    for g_acc, g_tr, idx, ok, rows in [
+            (acc.double(), tr, prim_idx, valid, n),
+            (acc.transpose(1, 2), tr, prim_idx, valid, n),
+            (acc, tr.cpu(), prim_idx, valid, n),
+            (acc[:, :1], tr, prim_idx, valid, n),
+            (acc, tr, prim_idx.int(), valid, n),
+            (acc, tr, prim_idx, valid.cpu(), n),
+            (acc, tr, prim_idx[:, :64].contiguous(), valid, n),
+            (acc, tr, prim_idx, valid, -1)]:
         with pytest.raises(ValueError):
-            gs_tile.composite_tiles_bwd(data, counts, grid_w, tr, g_acc,
-                                        g_tr, nchan)
-    assert gs_tile.composite_tiles_bwd.launches == bwd0
+            gs_tile.composite_tiles_bwd_splats(data, counts, idx, ok, rows,
+                                               grid_w, tr, g_acc, g_tr,
+                                               nchan)
+    assert gs_tile.composite_tiles_bwd_splats.launches == bwd0

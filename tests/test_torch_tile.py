@@ -105,6 +105,19 @@ def _pallas_case(case):
             np.array(trans), g_acc, g_trans, np.array(gdata))
 
 
+def jax_scatter(rows, idx, n, nchan):
+    """The JAX package's per-splat scatter of its Pallas backward's rows
+    [S, D] (`comfy3d_tpu/ops/gs_render.py:534-537`, `:641-644`), as one
+    [n, 6 + C] array."""
+    rows, idx = jnp.asarray(rows), jnp.asarray(idx)
+    gm = jnp.zeros((n, 2)).at[idx].add(rows[:, 0:2])
+    gc = jnp.zeros((n, 3)).at[idx].add(rows[:, 2:5])
+    go = jnp.zeros((n,)).at[idx].add(rows[:, 5])
+    gcol = jnp.zeros((n, nchan)).at[idx].add(rows[:, 6:6 + nchan])
+    return np.concatenate([np.asarray(gm), np.asarray(gc),
+                           np.asarray(go)[:, None], np.asarray(gcol)], -1)
+
+
 @pytest.mark.parametrize("case", sorted(TILE_CASES))
 def test_composite_tiles_fwd_plain_matches_pallas(case):
     data, counts, grid_w, nchan, bins, r_acc, r_tr, *_ = _pallas_case(case)
@@ -116,13 +129,32 @@ def test_composite_tiles_fwd_plain_matches_pallas(case):
     np.testing.assert_allclose(_np(tr), r_tr, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("form", ["slots", "splats"])
 @pytest.mark.parametrize("case", sorted(TILE_CASES))
-def test_composite_tiles_bwd_plain_matches_pallas(case):
-    (data, counts, grid_w, nchan, _, _, r_tr, g_acc, g_trans,
+def test_composite_tiles_bwd_plain_matches_pallas(case, form):
+    """Per-slot columns against the Pallas kernel; per-splat rows (the CPU
+    branch of `composite_tiles_bwd_splats`) against the Pallas kernel
+    followed by the JAX scatter."""
+    (data, counts, grid_w, nchan, bins, _, r_tr, g_acc, g_trans,
      ref) = _pallas_case(case)
-    out = _np(gs_tile.composite_tiles_bwd(
-        data, counts, grid_w, torch.as_tensor(r_tr), torch.as_tensor(g_acc),
-        torch.as_tensor(g_trans), nchan))
+    cot = (torch.as_tensor(r_tr), torch.as_tensor(g_acc),
+           torch.as_tensor(g_trans), nchan)
+    if form == "splats":
+        n = int(bins.prim_idx.max()) + 3          # two splats in no tile
+        out = _np(gs_tile.composite_tiles_bwd_splats(
+            data, counts, bins.prim_idx, bins.valid, n, grid_w, *cot))
+        r_g = jax_scatter(ref.transpose(0, 2, 1).reshape(-1, ref.shape[1]),
+                          _np(bins.prim_idx).reshape(-1), n, nchan)
+        assert out.shape == r_g.shape == (n, 6 + nchan)
+        for row in range(6 + nchan):
+            scale = np.abs(r_g[:, row]).max()
+            assert scale > 0, row
+            np.testing.assert_allclose(out[:, row] / scale,
+                                       r_g[:, row] / scale, atol=1e-5,
+                                       rtol=0, err_msg=f"row {row}")
+        assert not out[-2:].any() and not r_g[-2:].any()
+        return
+    out = _np(gs_tile.composite_tiles_bwd_plain(data, counts, grid_w, *cot))
     assert out.shape == ref.shape == tuple(data.shape)
     for row in range(6 + nchan):
         scale = np.abs(ref[:, row]).max()
@@ -211,17 +243,25 @@ def test_tile_backend_rejects_bad_arguments():
 
 
 def test_tile_wrappers_run_the_plain_version_only_on_the_cpu():
-    data, counts, grid_w, nchan, _, _ = make_tiles_case(**TILE_CASES["over_m"])
+    data, counts, grid_w, nchan, splats, bins = make_tiles_case(
+        **TILE_CASES["over_m"])
+    n = len(splats[0])
     acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
     with pytest.raises(ValueError, match="cuda"):
         gs_tile.composite_tiles_fwd(data.to("meta"), counts.to("meta"),
                                     grid_w, nchan)
+    meta = [x.to("meta") for x in (data, counts, bins.prim_idx, bins.valid,
+                                    tr, acc, tr)]
     with pytest.raises(ValueError, match="cuda"):
-        gs_tile.composite_tiles_bwd(*(x.to("meta") for x in (data, counts)),
-                                    grid_w, *(x.to("meta") for x in
-                                              (tr, acc, tr)), nchan)
+        gs_tile.composite_tiles_bwd_splats(*meta[:4], n, grid_w, *meta[4:],
+                                           nchan)
     with pytest.raises(ValueError, match="counts"):
         gs_tile.composite_tiles_fwd(data, counts.long(), grid_w, nchan)
+    slots = (bins.prim_idx, bins.valid, n, grid_w)
     with pytest.raises(ValueError, match="g_acc"):
-        gs_tile.composite_tiles_bwd(data, counts, grid_w, tr, acc[:, :1], tr,
-                                    nchan)
+        gs_tile.composite_tiles_bwd_splats(data, counts, *slots, tr,
+                                           acc[:, :1], tr, nchan)
+    with pytest.raises(ValueError, match="valid"):
+        gs_tile.composite_tiles_bwd_splats(
+            data, counts, bins.prim_idx, bins.valid.int(), n, grid_w, tr,
+            acc, tr, nchan)

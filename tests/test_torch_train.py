@@ -30,7 +30,8 @@ from comfy3d_tpu_torch.ops import gs_render as G
 from comfy3d_tpu_torch.ops import ssim as tssim
 
 from tests.test_torch_gs_render import _np, both_cameras, make_scene
-from tests.test_torch_kernels import CASES, _bwd_case
+from tests.test_torch_kernels import CASES, _bwd_case, pair_splats
+from tests.test_torch_tile import jax_scatter
 
 
 def _close_to_max(port, ref, atol, name=""):
@@ -44,29 +45,56 @@ def _close_to_max(port, ref, atol, name=""):
 
 
 # ------------------------------------------------- compositor backward
-@pytest.mark.parametrize("case", sorted(CASES) + ["deep"])
-@pytest.mark.parametrize("merged", [True, False])
-def test_composite_bwd_plain_matches_pallas(monkeypatch, case, merged):
+@functools.lru_cache(maxsize=None)
+def _pallas_bwd_case(case, merged):
+    """The case's inputs, the Pallas forward's trans/stops and backward
+    columns in interpret mode, and seeded cotangents (COMFY3D_GS_MERGED is
+    set by the caller to match `merged`)."""
     data, bounds, nbx, nby, cfg = _bwd_case(case)
-    W, H, bin_px, nchan = cfg["W"], cfg["H"], cfg["bin_px"], cfg["nchan"]
-    monkeypatch.setenv("COMFY3D_GS_MERGED", "1" if merged else "0")
-    geo = (nbx, nby, nchan, W, H)
+    geo = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"])
     acc, trans, stops = jflat.composite_bins_fwd(
-        jnp.asarray(data), jnp.asarray(bounds), *geo, bin_px=bin_px,
+        jnp.asarray(data), jnp.asarray(bounds), *geo, bin_px=cfg["bin_px"],
         interpret=True)
     rng = np.random.RandomState(1)
     g_acc = rng.randn(*acc.shape).astype(np.float32)
     g_trans = rng.randn(*trans.shape).astype(np.float32)
     ref = np.asarray(jflat.composite_bins_bwd(
         jnp.asarray(data), jnp.asarray(bounds), trans, stops,
-        jnp.asarray(g_acc), jnp.asarray(g_trans), *geo, bin_px=bin_px,
+        jnp.asarray(g_acc), jnp.asarray(g_trans), *geo, bin_px=cfg["bin_px"],
         interpret=True))
-    trans, stops = np.array(trans), np.array(stops)
-    port = _np(gs_flat.composite_bins_bwd(          # CPU → plain version
-        torch.as_tensor(data), torch.as_tensor(bounds),
-        torch.as_tensor(trans), torch.as_tensor(stops),
-        torch.as_tensor(g_acc), torch.as_tensor(g_trans), *geo,
-        bin_px=bin_px))
+    return (data, bounds, geo, cfg, np.array(trans), np.array(stops), g_acc,
+            g_trans, ref)
+
+
+@pytest.mark.parametrize("form", ["pairs", "splats"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["deep"])
+@pytest.mark.parametrize("merged", [True, False])
+def test_composite_bwd_plain_matches_pallas(monkeypatch, case, merged, form):
+    """Per-pair columns against the Pallas kernel; per-splat rows (the CPU
+    branch of `composite_bins_bwd_splats`) against the Pallas kernel
+    followed by the JAX scatter."""
+    monkeypatch.setenv("COMFY3D_GS_MERGED", "1" if merged else "0")
+    (data, bounds, geo, cfg, trans, stops, g_acc, g_trans,
+     ref) = _pallas_bwd_case(case, merged)
+    nchan, bin_px = cfg["nchan"], cfg["bin_px"]
+    ins = [torch.as_tensor(x) for x in (data, bounds, trans, stops, g_acc,
+                                        g_trans)]
+    if form == "splats":
+        sprim, n = pair_splats(data)
+        n += 2                                    # two splats in no bin
+        port = _np(gs_flat.composite_bins_bwd_splats(     # CPU → plain
+            *ins[:2], torch.as_tensor(sprim), n, *ins[2:], *geo,
+            bin_px=bin_px))
+        r_g = jax_scatter(ref.T, sprim, n, nchan)
+        assert port.shape == r_g.shape == (n, 6 + nchan)
+        # the per-pair plain columns sum in `cumsum`'s order, not the
+        # Pallas kernel's, and differ from its columns by up to ~6e-5 of a
+        # row's max on these cases; the per-splat sums inherit that
+        for row in range(6 + nchan):
+            _close_to_max(port[:, row], r_g[:, row], 1e-4, f"row {row}")
+        assert not port[-2:].any() and not r_g[-2:].any()
+        return
+    port = _np(gs_flat.composite_bins_bwd_plain(*ins, *geo, bin_px=bin_px))
     assert port.shape == ref.shape == (gs_flat.grad_rows(nchan),
                                        data.shape[1])
     p = int(bounds[-1])
@@ -74,7 +102,7 @@ def test_composite_bwd_plain_matches_pallas(monkeypatch, case, merged):
         _close_to_max(port[row, :p], ref[row, :p], 2e-3, f"row {row}")
     # columns of chunks no sub-tile walked, padding and sentinels: exactly 0
     walked = np.zeros(data.shape[1], bool)
-    for t in range(nbx * nby):
+    for t in range(geo[0] * geo[1]):
         b0, b1 = int(bounds[t]), int(bounds[t + 1])
         end = min(b1, b0 // 128 * 128 + 128 * int(stops[t].max()))
         walked[b0:max(b0, end)] = True
@@ -92,18 +120,22 @@ def test_composite_bwd_plain_matches_pallas(monkeypatch, case, merged):
 def test_bwd_wrapper_checks_its_inputs():
     data, bounds, nbx, nby, cfg = _bwd_case("32px")
     args = (torch.as_tensor(data), torch.as_tensor(bounds))
+    sprim, n = pair_splats(data)
+    sprim = torch.as_tensor(sprim)
     acc, trans, stops = gs_flat.composite_bins_fwd(*args, nbx, nby, 4, 64, 40)
     rest = (nbx, nby, 4, 64, 40)
     with pytest.raises(ValueError, match="g_acc"):
-        gs_flat.composite_bins_bwd(*args, trans, stops, acc[:, :, :3],
-                                   trans, *rest)
+        gs_flat.composite_bins_bwd_splats(*args, sprim, n, trans, stops,
+                                          acc[:, :, :3], trans, *rest)
     with pytest.raises(ValueError, match="stops"):
-        gs_flat.composite_bins_bwd(*args, trans, stops.long(), acc, trans,
-                                   *rest)
+        gs_flat.composite_bins_bwd_splats(*args, sprim, n, trans,
+                                          stops.long(), acc, trans, *rest)
+    with pytest.raises(ValueError, match="sprim"):
+        gs_flat.composite_bins_bwd_splats(*args, sprim.int(), n, trans,
+                                          stops, acc, trans, *rest)
+    meta = [x.to("meta") for x in (*args, sprim, trans, stops, acc, trans)]
     with pytest.raises(ValueError, match="cuda"):
-        gs_flat.composite_bins_bwd(*(x.to("meta") for x in
-                                     (*args, trans, stops, acc, trans)),
-                                   *rest)
+        gs_flat.composite_bins_bwd_splats(*meta[:3], n, *meta[3:], *rest)
 
 
 # -------------------------------------------------- render gradients

@@ -103,13 +103,12 @@ def main(out_path=None) -> int:
     splat = S.pad_dead(S.make_splat(100_000, 0.01, 5, dev), S.DEAD_SLOTS)
     cam = Camera.from_orbit(0.0, 0.0, 2.2, width=800, height=800, device=dev)
     t_inp = S.tile_inputs(splat, cam, 512)
-    t_fwd = gs_tile.composite_tiles_fwd(t_inp["data"], t_inp["counts"],
-                                        t_inp["grid_w"], t_inp["C"])
+    t_fwd = gs_tile.composite_tiles_fwd_rows(*S.tile_kernel_args(t_inp,
+                                                                 True))
     t_args, _ = S.tile_bwd_args(t_inp, t_fwd, 11)
     f_inp = S.flat_inputs(splat, cam)
-    f_fwd = gs_flat.composite_bins_fwd(f_inp["data"], f_inp["bounds"],
-                                       f_inp["nbx"], f_inp["nby"],
-                                       f_inp["C"], 800, 800)
+    f_fwd = gs_flat.composite_bins_fwd_rows(*S.flat_kernel_args(f_inp,
+                                                                True)[0])
     f_args, _ = S.bwd_args(f_inp, f_fwd, 11)
 
     fns = build_all(_build)

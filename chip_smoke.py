@@ -7,14 +7,18 @@ Phases, in order; the first failure ends the run with a non-zero exit:
   1. the card: its name, and `nvidia-smi`'s name and power limit;
   2. build every CUDA source under comfy3d_tpu_torch/csrc with nvcc, all
      at once;
-  3. the compositor forward (`gs_flat_fwd`) against its plain PyTorch
-     version on the card, on the same inputs, in merged and per-sub-tile
-     mode at 20k splats / 256² and 100k splats / 800²;
+  3. the coarse-bin forward (`gs_flat_fwd`, K1′/K2′: splat rows read by
+     index) against its plain version on the gathered payload, on the same
+     inputs, in merged and per-sub-tile mode at 20k splats / 256² and 100k
+     splats / 800², and with 48- and 64-px bins (clusters of 9 and 16
+     CTAs) at 20k / 256²;
   4. the render path — a 100k-splat GS-PLY written with `save_gs_ply`,
      read back with `load_gs_ply(device="cuda")`, rendered from 8 orbit
      views at 800² with `render` — with every kernel's launch count reset
      just before and read just after; then times of a frame, the kernel,
-     its plain version and the coarse sort, with CUDA events;
+     its plain version, the coarse sort and the gather the kernel took in,
+     with CUDA events; a profile of one frame, which must gather no pair
+     rows; the per-splat box on view 0 (no live visit outside it);
   5. the compositor backward with its per-splat scatter (`gs_flat_bwd`)
      against its plain version on the same scenes and modes, from the
      forward kernel's trans/stops and seeded random cotangents: each
@@ -28,24 +32,30 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      set-up: 100k splats, 800², 4 orbit views, batch 1, `GSTrainConfig`
      defaults) — 10 steps with the launch counts reset just before and read
      just after, step and kernel times, a profile of one step (which must
-     hold no `index_add_`), one densify and one opacity reset, and the
-     trained splat through GS-PLY and back; beside the backward kernel, the
-     counts of the per-slot design on the same input (warp
-     reductions, their shuffle bound, walk lengths) and the time of its
-     per-step scatter (`index_add_` × 4 of the plain per-slot columns);
-  8. the tile compositor forward and backward (`gs_tile_fwd`, `gs_tile_bwd`)
+     hold no `index_add_`, and gather the payload rows once, for the
+     backward), one densify and one opacity reset, and the trained splat
+     through GS-PLY and back; on the trained splat's view 0 the forward
+     and backward kernels' times and bounds and the per-splat box; beside
+     the backward kernel, the counts of the per-slot design on the same
+     input (warp reductions, their shuffle bound, walk lengths) and the
+     time of its per-step scatter (`index_add_` × 4 of the plain per-slot
+     columns);
+  8. the tile compositor forward and backward (`gs_tile_fwd`, K4′: splat
+     rows read by index; `gs_tile_bwd`, K5′, fed the block K4′ writes)
      against their plain versions on the card, at 20k splats / 256² with
      `max_per_tile` 512 and 100k splats / 800² with 1024, the backward
-     with phase 5's gates;
+     with phase 5's gates; K4′'s block equal to the gathered one below
+     each tile's count;
   9. the tile render path — phase 4's GS-PLY from the same 8 views with
      `render(..., backend="tile", max_per_tile=1024)`, launch counts reset
      just before and read just after; tile-vs-flat PSNR per view and on the
      20k/256² parity scene; times of a frame, the kernel, its plain
-     version, `bin_primitives` and the gather, and a profile of one frame;
+     version, `bin_primitives` and the gather the kernel took in, a profile
+     of one frame (no splat-row gather) and the per-splat box on view 0;
  10. the tile train path — the learning check of phase 6 and phase 7's 10
      steps with `GSTrainConfig(backend="tile")` (M = 512), with launch
-     counts, step and kernel times, a profile of one step and phase 7's
-     old-design counts.
+     counts, step and kernel times, a profile of one step (no splat-row
+     gather) and phase 7's view-0 measures.
 It prints one `{"kernels": [...]}` line, then the `nvidia-smi` line, and as
 its last line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -106,16 +116,20 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def profile_frames(fn, frames):
+def profile_frames(fn, frames, rows=None):
     """torch.profiler over `frames` calls of fn: device-busy ms per frame,
-    device-side ops per frame, and the ops with the most device time."""
+    device-side ops per frame, and the ops with the most device time. With
+    `rows` (a shape [n, D]), also the row gathers per frame: the indexing
+    ops (`aten::index`, `index_select`, `gather`, `take`) whose source has
+    that shape, i.e. a gather of the per-splat rows a forward kernel reads
+    by index."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=rows is not None) as prof:
         for _ in range(frames):
             fn()
         torch.cuda.synchronize()
@@ -131,13 +145,24 @@ def profile_frames(fn, frames):
     ops.sort(key=dev_us, reverse=True)
     # PyTorch's index_add_ kernels (indexFuncLargeIndex / SmallIndex)
     scatter = [e for e in ops if "indexFunc" in e.key]
-    return dict(
+    out = dict(
         device_busy_ms=sum(dev_us(e) for e in ops) / 1e3 / frames,
         device_ops=sum(e.count for e in ops) / frames,
         index_add_ms=sum(dev_us(e) for e in scatter) / 1e3 / frames,
         index_add_launches=sum(e.count for e in scatter) / frames,
         top=[dict(name=e.key[:80], ms=dev_us(e) / 1e3 / frames,
                   count=e.count / frames) for e in ops[:10]])
+    if rows is not None:
+        names = ("aten::index", "aten::index_select", "aten::gather",
+                 "aten::take")
+        hits = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.key in names and e.input_shapes
+                and list(e.input_shapes[0]) == list(rows)]
+        out["row_gathers"] = sum(e.count for e in hits) / frames
+        out["row_gather_ops"] = [
+            dict(name=e.key, input_shapes=str(e.input_shapes)[:160],
+                 count=e.count / frames) for e in hits]
+    return out
 
 
 def smi(fields):
@@ -180,11 +205,12 @@ def make_splat(n, scale, seed, device):
         opacity_raw=torch.full_like(s.opacity_raw, 1.0))
 
 
-def flat_inputs(splat, cam):
+def flat_inputs(splat, cam, bin_px=32):
     """The compositor's inputs for one camera, as `render_arrays` builds
-    them: projection, SH colour, coarse sort, payload gather."""
+    them: projection, SH colour, coarse sort, the per-splat rows the kernel
+    reads by index; and the gathered payload its plain version takes."""
     import torch
-    from comfy3d_tpu_torch.ops import binning
+    from comfy3d_tpu_torch.ops import binning, gs_flat
     from comfy3d_tpu_torch.ops import gs_render as G
     W, H = cam.width, cam.height
     means2d, depth, conic, radii, visible = G.project_gaussians(
@@ -192,23 +218,43 @@ def flat_inputs(splat, cam):
         W, H)
     active = visible & splat.alive & (splat.opacity > G.ALPHA_MIN)
     chans = torch.cat([splat.colors_toward(cam.campos), depth[:, None]], -1)
-    nby, nbx = binning.num_bins(H, W)
+    nby, nbx = binning.num_bins(H, W, bin_px)
     k = G.max_tiles_per_prim_coarse(16)
     sprim, bounds, _ = binning.bin_coarse(means2d, depth, radii, active,
-                                          nby, nbx, k=k)
+                                          nby, nbx, k=k, bin_px=bin_px)
     r_row = torch.where(active, torch.clamp_min(radii, 0.5),
                         torch.zeros_like(radii))
-    data = G.pack_payload(means2d, conic, splat.opacity, chans, r_row, sprim)
+    pack_args = (means2d, conic, splat.opacity, chans, r_row)
+    rows = G.payload_rows(*pack_args)
+    data = gs_flat.gather_payload(rows, sprim)
     sort_args = (means2d, depth, radii, active, nby, nbx, k)
-    return dict(data=data, bounds=bounds, nbx=nbx, nby=nby, W=W, H=H,
-                C=chans.shape[-1], sort_args=sort_args, sprim=sprim,
-                n=means2d.shape[0])
+    return dict(data=data, rows=rows, bounds=bounds, nbx=nbx, nby=nby, W=W,
+                H=H, C=chans.shape[-1], sort_args=sort_args, sprim=sprim,
+                n=means2d.shape[0], bin_px=bin_px, pack_args=pack_args)
+
+
+def flat_gather(inp):
+    """The payload gather K1′ took in (once the forward's input, now the
+    backward's): the rows packed and gathered in pair order."""
+    from comfy3d_tpu_torch.ops import gs_flat
+    from comfy3d_tpu_torch.ops import gs_render as G
+    return gs_flat.gather_payload(G.payload_rows(*inp["pack_args"]),
+                                  inp["sprim"])
+
+
+def flat_kernel_args(inp, merged):
+    """K1′'s arguments (`composite_bins_fwd_rows`) for this input, and its
+    plain version's on the gathered payload (`composite_bins_fwd_plain`)."""
+    geo = (inp["bounds"], inp["nbx"], inp["nby"], inp["C"], inp["W"],
+           inp["H"], inp["bin_px"], merged)
+    return (inp["rows"], inp["sprim"], *geo), (inp["data"], *geo)
 
 
 def to_image(acc, trans, inp):
     from comfy3d_tpu_torch.ops import gs_render as G
-    img = G._bins_to_image(acc, inp["nby"], inp["nbx"], inp["H"], inp["W"])
-    tr = G._bins_to_image(trans, inp["nby"], inp["nbx"], inp["H"], inp["W"])
+    geo = (inp["nby"], inp["nbx"], inp["H"], inp["W"], inp["bin_px"])
+    img = G._bins_to_image(acc, *geo)
+    tr = G._bins_to_image(trans, *geo)
     return img[..., :-1] + tr * 1.0         # rgb + (1 - alpha) · white
 
 
@@ -239,14 +285,14 @@ def visits(inp, stops):
 
 
 def kernel_vs_plain(label, inp, merged):
+    """K1′ (merged) or K2′ against its plain version on the gathered
+    payload: stops, acc/trans max abs error, the image's PSNR."""
     import torch
     from comfy3d_tpu_torch.ops import gs_flat
-    args = (inp["data"], inp["bounds"], inp["nbx"], inp["nby"], inp["C"],
-            inp["W"], inp["H"])
-    acc, tr, st = gs_flat.composite_bins_fwd(*args, merged=merged)
+    args, plain_args = flat_kernel_args(inp, merged)
+    acc, tr, st = gs_flat.composite_bins_fwd_rows(*args)
     torch.cuda.synchronize()
-    p_acc, p_tr, p_st = gs_flat.composite_bins_fwd_plain(*args,
-                                                         merged=merged)
+    p_acc, p_tr, p_st = gs_flat.composite_bins_fwd_plain(*plain_args)
     bad = (st != p_st).any(-1)
     n_bad = int(bad.sum())
     if n_bad:
@@ -259,7 +305,7 @@ def kernel_vs_plain(label, inp, merged):
     db = psnr(to_image(acc, tr, inp), to_image(p_acc, p_tr, inp))
     rec = dict(max_abs_err_acc=err_acc, max_abs_err_trans=err_tr,
                stops_mismatch_bins=n_bad, psnr_db=db,
-               pairs=int(inp["bounds"][-1]),
+               pairs=int(inp["bounds"][-1]), bin_px=inp["bin_px"],
                max_stop=int(st.max()))
     log(f"{label}: {rec}")
     check(err_acc <= TOL_ABS and err_tr <= TOL_ABS,
@@ -523,17 +569,18 @@ def pad_dead(splat, extra):
 def reset_launches():
     """Every kernel wrapper's launch count to 0."""
     from comfy3d_tpu_torch.ops import gs_flat, gs_tile
-    for fn in (gs_flat.composite_bins_fwd, gs_flat.composite_bins_bwd_splats,
-               gs_tile.composite_tiles_fwd,
+    for fn in (gs_flat.composite_bins_fwd_rows,
+               gs_flat.composite_bins_bwd_splats,
+               gs_tile.composite_tiles_fwd_rows,
                gs_tile.composite_tiles_bwd_splats):
         fn.launches = 0
 
 
 def read_launches():
     from comfy3d_tpu_torch.ops import gs_flat, gs_tile
-    return {"gs_flat_fwd": gs_flat.composite_bins_fwd.launches,
+    return {"gs_flat_fwd": gs_flat.composite_bins_fwd_rows.launches,
             "gs_flat_bwd": gs_flat.composite_bins_bwd_splats.launches,
-            "gs_tile_fwd": gs_tile.composite_tiles_fwd.launches,
+            "gs_tile_fwd": gs_tile.composite_tiles_fwd_rows.launches,
             "gs_tile_bwd": gs_tile.composite_tiles_bwd_splats.launches}
 
 
@@ -591,13 +638,20 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
               for k in dead_before), "dead slots changed")
 
     times = {"train_step_ms": cuda_ms(one_step, 10)}
-    prof = profile_frames(one_step, 3)
+    width = gs_tile.rows_width(4) if backend == "tile" \
+        else gs_flat.payload_width(4)      # SH colour (3) and depth
+    prof = profile_frames(one_step, 3, rows=(splat.num_capacity, width))
     prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] \
         / times["train_step_ms"]
     log(f"train step ({backend}) {times['train_step_ms']:.2f} ms; profile "
         f"{prof}")
     check(prof["index_add_launches"] == 0, f"the {backend} train step still "
           f"scatters with index_add_ ({prof['index_add_ms']:.3f} ms)")
+    # the tile step's forward writes the backward's block itself; the flat
+    # step gathers the payload once, for its backward
+    check(prof["row_gathers"] == (0 if backend == "tile" else 1),
+          f"the {backend} train step's row gathers: "
+          f"{prof['row_gather_ops']}")
 
     # the backward kernel alone, on the trained splat's compositor inputs
     # for view 0; its launches here are not the path's
@@ -606,9 +660,12 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
     trained = holder["state"].to_splat()
     if backend == "flat":
         inp = flat_inputs(trained, cam0)
-        fwd = gs_flat.composite_bins_fwd(inp["data"], inp["bounds"],
-                                         inp["nbx"], inp["nby"], inp["C"],
-                                         size, size)
+        fargs, _ = flat_kernel_args(inp, True)
+        fwd = gs_flat.composite_bins_fwd_rows(*fargs)
+        times["kernel_fwd_ms"] = cuda_ms(
+            lambda: gs_flat.composite_bins_fwd_rows(*fargs), 20)
+        box = flat_box_stats(inp, fwd[2])
+        fwd_bound = flat_fwd_bound(inp, fwd[2], box)
         args, pair_args = bwd_args(inp, fwd, 11)
         kernel, plain = gs_flat.composite_bins_bwd_splats, \
             gs_flat.composite_bins_bwd_splats_plain
@@ -622,8 +679,12 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
         rows, idx = cols[:, :inp["sprim"].numel()].t(), inp["sprim"]
     else:
         inp = tile_inputs(trained, cam0, cfg.max_per_tile)
-        fwd = gs_tile.composite_tiles_fwd(inp["data"], inp["counts"],
-                                          inp["grid_w"], inp["C"])
+        fwd = gs_tile.composite_tiles_fwd_rows(*tile_kernel_args(inp, True))
+        times["kernel_fwd_ms"] = cuda_ms(
+            lambda: gs_tile.composite_tiles_fwd_rows(
+                *tile_kernel_args(inp, True)), 20)
+        box = tile_box_stats(inp)
+        fwd_bound = tile_fwd_bound(inp, box, keep_block=True)
         args, slot_args = tile_bwd_args(inp, fwd, 11)
         kernel, plain = gs_tile.composite_tiles_bwd_splats, \
             gs_tile.composite_tiles_bwd_splats_plain
@@ -635,6 +696,10 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
         cols = gs_tile.composite_tiles_bwd_plain(*slot_args)
         rows = cols.transpose(1, 2).reshape(-1, cols.shape[1])
         idx = inp["prim_idx"].reshape(-1)
+    log(f"{backend} train view 0, forward kernel "
+        f"{times['kernel_fwd_ms']:.4f} ms, bound {fwd_bound}, per-splat box "
+        f"{box}")
+    check_box(box, f"{backend} train view 0")
     old.update(new_walk_chunks_max=int(new_walks.max()),
                new_walk_chunks_mean=float(new_walks.mean()),
                new_ctas=new_walks.numel())
@@ -675,7 +740,8 @@ def train_full_width(dev, asset_dir, backend="flat", size=800, n=100_000,
                launches=launches, losses=losses,
                first_10_steps_s=first10_s,
                alive_after_densify=int(state.alive.sum()),
-               ply_splats=back.num_capacity, old_design=old)
+               ply_splats=back.num_capacity, old_design=old, box=box,
+               fwd_bound=fwd_bound)
     return rec, times, prof, bound
 
 
@@ -702,12 +768,27 @@ def tile_inputs(splat, cam, max_per_tile):
     bins = binning.bin_primitives(*bin_args)
     gather_args = (s_m2d, conic[order], splat.opacity[order], chans[order],
                    bins.prim_idx, bins.valid)
+    rows = G.tile_rows(*gather_args[:4])
     data = G._build_tile_data(*gather_args)
-    return dict(data=data, counts=torch.clamp_max(bins.count, max_per_tile),
+    return dict(data=data, rows=rows,
+                counts=torch.clamp_max(bins.count, max_per_tile),
                 prim_idx=bins.prim_idx, valid=bins.valid, n=means2d.shape[0],
                 grid_w=grid_w, grid_h=grid_h, W=W, H=H, C=chans.shape[-1],
                 overflow=bool(bins.overflow), bin_args=bin_args,
                 gather_args=gather_args)
+
+
+def tile_kernel_args(inp, keep_block):
+    """K4′'s arguments (`composite_tiles_fwd_rows`) for this input."""
+    return (inp["rows"], inp["prim_idx"], inp["valid"], inp["counts"],
+            inp["grid_w"], inp["C"], keep_block)
+
+
+def tile_plain(inp):
+    """K4's plain version on this input: (acc, trans)."""
+    from comfy3d_tpu_torch.ops import gs_tile
+    return gs_tile.composite_tiles_fwd_plain(inp["data"], inp["counts"],
+                                             inp["grid_w"], inp["C"])
 
 
 def tile_to_image(acc, trans, inp):
@@ -755,6 +836,119 @@ def tile_visits(inp, block=8192):
                 unsat=unsat, slot_warps_live=warps_live)
 
 
+def tile_box_stats(inp, block=8192):
+    """The per-splat box (`gs_tile.splat_box`) on this tile input: the
+    share of warp-slots (walked slots × the 8 warps of two pixel rows) whose
+    rectangle misses the box, the visits the box admits (32 per warp-slot
+    that is not skipped), and the live visits (power ≤ 0, op·G ≥ 1/255, in
+    the kernels' operations) whose pixel lies outside the box, which must
+    be 0."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_tile
+    from comfy3d_tpu_torch.ops.gs_tile import ALPHA_MIN, TILE
+    data, counts = inp["data"], inp["counts"]
+    dev = data.device
+    m = data.shape[2]
+    t, slot = (torch.arange(m, device=dev)[None, :]
+               < counts[:, None]).nonzero(as_tuple=True)
+    p = torch.arange(TILE * TILE, device=dev)
+    w = torch.arange(8, device=dev).float()
+    skipped = outside = 0
+    for lo in range(0, t.numel(), block):
+        tt, ss = t[lo:lo + block], slot[lo:lo + block]
+        cols = data[tt, :, ss]                          # [b, D]
+        box = gs_tile.splat_box(*(cols[:, i] for i in range(6)))
+        ox = ((tt % inp["grid_w"]) * TILE).float()
+        oy = (torch.div(tt, inp["grid_w"], rounding_mode="floor")
+              * TILE).float()
+        miss = gs_tile.box_misses(
+            [b[:, None] for b in box], ox[:, None] + 0.5,
+            ox[:, None] + 15.5, oy[:, None] + 2 * w + 0.5,
+            oy[:, None] + 2 * w + 1.5)                  # [b, 8]
+        skipped += int(miss.sum())
+        px = (p % TILE).float()[None, :] + 0.5 + ox[:, None]
+        py = torch.div(p, TILE, rounding_mode="floor").float()[None, :] \
+            + 0.5 + oy[:, None]
+        mx = cols[:, 0:1] - px
+        my = cols[:, 1:2] - py
+        a, b, c, op = (cols[:, i:i + 1] for i in (2, 3, 4, 5))
+        power = -0.5 * (a * mx * mx + c * my * my) - b * mx * my
+        raw = op * torch.exp(torch.clamp_max(power, 0.0))
+        hit = (power <= 0.0) & (raw >= ALPHA_MIN)
+        x0, x1, y0, y1 = (v[:, None] for v in box)
+        inside = (x0 <= px) & (px <= x1) & (y0 <= py) & (py <= y1)
+        outside += int((hit & ~inside).sum())
+    warp_slots = t.numel() * 8
+    return dict(warp_slots=warp_slots, warp_slots_skipped=skipped,
+                skip_share=skipped / max(warp_slots, 1),
+                box_visits=(warp_slots - skipped) * 32,
+                live_outside_box=outside)
+
+
+def flat_box_stats(inp, stops, block=16384):
+    """`tile_box_stats` for a coarse-bin input (bin_px 32) and the stops of
+    its forward: warp-slots are the walked (pair, sub-tile) footprint
+    entries × 8 warps; the box is taken in the bin-local frame
+    (mxl = μx − the bin's origin) the kernels stage, and a live visit
+    there is op·G ≥ 1/255 (K1's test has no power ≤ 0)."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_tile
+    from comfy3d_tpu_torch.ops.gs_flat import ALPHA_MIN, TILE
+    data, C = inp["data"], inp["C"]
+    g, t, q = pair_bins(inp)
+    walk = walked_subtiles(inp, stops, t, q)
+    dev = data.device
+    p = torch.arange(TILE * TILE, device=dev)
+    s = torch.arange(4, device=dev)
+    sx0 = ((s % 2) * TILE).float()
+    sy0 = (torch.div(s, 2, rounding_mode="floor") * TILE).float()
+    px = (p % TILE).float()[None, :] + (sx0[:, None] + 0.5)     # [4, 256]
+    py = torch.div(p, TILE, rounding_mode="floor").float()[None, :] \
+        + (sy0[:, None] + 0.5)
+    w = torch.arange(8, device=dev).float()
+    entries = skipped = outside = 0
+    for lo in range(0, g.numel(), block):
+        sl = slice(lo, min(lo + block, g.numel()))
+        tt = t[sl]
+        mxl = data[0, sl] - ((tt % inp["nbx"]) * 2 * TILE).float()
+        myl = data[1, sl] - (torch.div(tt, inp["nbx"], rounding_mode="floor")
+                             * 2 * TILE).float()
+        r = data[6 + C, sl]
+        ov = walk[sl] & ((mxl[:, None] + r[:, None] > sx0)
+                         & (mxl[:, None] - r[:, None] < sx0 + TILE)
+                         & (myl[:, None] + r[:, None] > sy0)
+                         & (myl[:, None] - r[:, None] < sy0 + TILE))
+        a, b, c, op = (data[i, sl] for i in (2, 3, 4, 5))
+        box = gs_tile.splat_box(mxl, myl, a, b, c, op)
+        e3 = (slice(None), None, None)
+        miss = gs_tile.box_misses(
+            [v[e3] for v in box], sx0[None, :, None] + 0.5,
+            sx0[None, :, None] + 15.5, sy0[None, :, None] + 2 * w + 0.5,
+            sy0[None, :, None] + 2 * w + 1.5)          # [b, 4, 8]
+        entries += int(ov.sum())
+        skipped += int((miss & ov[..., None]).sum())
+        dx = px - mxl[e3]
+        dy = py - myl[e3]
+        a, b, c, op = (x[e3] for x in (a, b, c, op))
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        raw = op * torch.exp(torch.clamp_max(power, 0.0))
+        hit = ov[..., None] & (raw >= ALPHA_MIN)
+        x0, x1, y0, y1 = (v[e3] for v in box)
+        inside = (x0 <= px) & (px <= x1) & (y0 <= py) & (py <= y1)
+        outside += int((hit & ~inside).sum())
+    warp_slots = entries * 8
+    return dict(warp_slots=warp_slots, warp_slots_skipped=skipped,
+                skip_share=skipped / max(warp_slots, 1),
+                box_visits=(warp_slots - skipped) * 32,
+                live_outside_box=outside)
+
+
+def check_box(box, what):
+    """The per-splat box's gate: no live visit outside the box."""
+    check(box["live_outside_box"] == 0,
+          f"{what}: {box['live_outside_box']} live visits outside the box")
+
+
 def _bound(in_bytes, out_bytes, ops, **counts):
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_OPS_S * 1e3
@@ -763,16 +957,75 @@ def _bound(in_bytes, out_bytes, ops, **counts):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def tile_fwd_bound(inp):
-    """K4's least time on this input: bytes (the walked slots' 6 + C rows and
-    the counts read, acc and trans written, each once) against f32
-    operations counted from csrc/gs_tile_fwd.cu: 17 per visit (offsets,
-    power, exp, raw, tests), 4 + 2C more per live one (α, α·T, acc, T)."""
-    C, ntiles = inp["C"], inp["data"].shape[0]
+# f32 comparisons of the per-splat box test, per warp-slot (box_misses)
+BOX_TEST_OPS = 4
+
+
+def _full_walk(ops):
+    """The operations of the design that tests every walked visit, and
+    their time at the f32 peak: kept beside a bound for reference only."""
+    return dict(ops_full_walk=ops,
+                bound_ms_full_walk=ops / PEAK_F32_OPS_S * 1e3)
+
+
+def tile_fwd_bound(inp, box, keep_block=False):
+    """The least time of K4′'s function, the tile forward with its row
+    gather, on this input: bytes (the walked slots' indices and valid
+    flags, the distinct splat rows they hold (6 + C values each) and the
+    counts read, acc and trans written, and the walked slots' D-wide block
+    columns when the block is kept, each once) against the f32 operations
+    this input needs, counted from csrc/gs_tile_fwd.cu: 17 per visit the
+    per-splat box admits (`box`, `tile_box_stats`: offsets, power, exp,
+    raw, tests), 4 + 2C more per live one (α, α·T, acc, T), and the box
+    test of every warp-slot (a visit outside the box is dead wherever its
+    pixel lies, so it needs nothing more). Beside it, for reference only,
+    the count of the full walk (17 per walked slot-pixel visit)."""
+    import torch
+    C, ntiles = inp["C"], inp["prim_idx"].shape[0]
     v = tile_visits(inp)
-    return _bound(v["slots"] * (6 + C) * 4 + ntiles * 4,
-                  ntiles * (C + 1) * 256 * 4,
-                  17 * v["visits"] + (4 + 2 * C) * v["live"], **v)
+    walked = torch.arange(inp["prim_idx"].shape[1],
+                          device=inp["counts"].device)[None, :] \
+        < inp["counts"][:, None]
+    splats = int(torch.unique(inp["prim_idx"][walked]).numel())
+    block = v["slots"] * inp["rows"].shape[1] * 4 if keep_block else 0
+    live_ops = (4 + 2 * C) * v["live"]
+    return _bound(v["slots"] * 9 + splats * (6 + C) * 4 + ntiles * 4,
+                  ntiles * (C + 1) * 256 * 4 + block,
+                  17 * box["box_visits"] + live_ops
+                  + BOX_TEST_OPS * box["warp_slots"],
+                  splats_read=splats, block_kept=keep_block,
+                  box_visits=box["box_visits"],
+                  warp_slots=box["warp_slots"], **v,
+                  **_full_walk(17 * v["visits"] + live_ops))
+
+
+def flat_fwd_bound(inp, stops, box=None):
+    """The least time of K1′'s function, the coarse-bin forward with its
+    row gather, on this input (bin_px 32) and the stops of its run: bytes
+    (the pairs' indices, the distinct splat rows they hold (7 + C values
+    each) and the bounds read, acc, trans and stops written, each once)
+    against the f32 operations this input needs: 20 + 2C per footprint
+    visit the per-splat box admits (`box`, `flat_box_stats` for these
+    stops, computed when not given) and the box test of every footprint
+    warp-slot. Beside it, for reference only, the count of the full walk
+    (20 + 2C per footprint visit, `visits`: pairs of the composited chunks
+    whose 3σ square meets a sub-tile, × 256 pixels)."""
+    import torch
+    C = inp["C"]
+    if box is None:
+        box = flat_box_stats(inp, stops)
+    nbins = inp["nbx"] * inp["nby"]
+    nsub = (inp["bin_px"] // 16) ** 2
+    pairs = int(inp["bounds"][-1])
+    splats = int(torch.unique(inp["sprim"][:pairs]).numel())
+    v = visits(inp, stops)
+    return _bound(pairs * 8 + splats * (7 + C) * 4 + (nbins + 1) * 4,
+                  nbins * nsub * ((C + 1) * 256 * 4 + 4),
+                  (20 + 2 * C) * box["box_visits"]
+                  + BOX_TEST_OPS * box["warp_slots"],
+                  visits=v, box_visits=box["box_visits"],
+                  warp_slots=box["warp_slots"], splats_read=splats,
+                  **_full_walk((20 + 2 * C) * v))
 
 
 def tile_bwd_bound(inp):
@@ -819,22 +1072,36 @@ def scatter_columns(rows, idx, n, nchan):
 
 
 def tile_kernel_vs_plain(label, inp):
-    """K4 against its plain version: acc/trans max abs error and the image's
-    PSNR."""
+    """K4′ against its plain version on the gathered block: acc/trans max
+    abs error and the image's PSNR; and the block K4′ writes for the
+    backward against the gathered one on every slot below each tile's
+    count (equal), finite and with opacity 0 from there to the end of the
+    last walked chunk (the kernel writes zeros)."""
     import torch
     from comfy3d_tpu_torch.ops import gs_tile
-    args = (inp["data"], inp["counts"], inp["grid_w"], inp["C"])
-    acc, tr = gs_tile.composite_tiles_fwd(*args)
+    acc, tr, block = gs_tile.composite_tiles_fwd_rows(
+        *tile_kernel_args(inp, True))
     torch.cuda.synchronize()
-    p_acc, p_tr = gs_tile.composite_tiles_fwd_plain(*args)
+    p_acc, p_tr = tile_plain(inp)
     err_acc = float((acc - p_acc).abs().max())
     err_tr = float((tr - p_tr).abs().max())
     plain_img = tile_to_image(p_acc, p_tr, inp)
     db = psnr(tile_to_image(acc, tr, inp), plain_img)
+    m = block.shape[2]
+    slot = torch.arange(m, device=block.device)[None, :]
+    below = slot < inp["counts"][:, None]
+    tail = ~below & (slot < (inp["counts"][:, None] + 127) // 128 * 128)
+    block_equal = bool(torch.equal(block.transpose(1, 2)[below],
+                                   inp["data"].transpose(1, 2)[below]))
+    tail_cols = block.transpose(1, 2)[tail]
+    tail_zero = not bool(tail_cols[:, 5].any()) \
+        and bool(torch.isfinite(tail_cols).all())
     rec = dict(max_abs_err_acc=err_acc, max_abs_err_trans=err_tr,
                psnr_db=db, walked_slots=int(inp["counts"].sum()),
                max_count=int(inp["counts"].max()),
-               max_per_tile=inp["data"].shape[2], overflow=inp["overflow"])
+               max_per_tile=m, overflow=inp["overflow"],
+               block_equal_below_count=block_equal,
+               block_tail_transparent=tail_zero)
     log(f"tile {label}: {rec}")
     check(bool(torch.isfinite(acc).all()) and bool(torch.isfinite(tr).all()),
           f"tile {label}: non-finite")
@@ -842,33 +1109,38 @@ def tile_kernel_vs_plain(label, inp):
           f"tile {label}: acc err {err_acc}, trans err {err_tr} > {TOL_ABS}")
     check(db >= TOL_PSNR_DB, f"tile {label}: PSNR {db:.2f} dB < "
           f"{TOL_PSNR_DB}")
-    return rec, (acc, tr), plain_img
+    check(block_equal, f"tile {label}: K4′'s block differs from the gather")
+    check(tail_zero, f"tile {label}: K4′'s block past the count (to the end "
+          f"of the last walked chunk) is not finite with opacity 0")
+    return rec, (acc, tr, block), plain_img
 
 
 def tile_bwd_args(inp, fwd, seed):
-    """K5's arguments (`composite_tiles_bwd_splats`) for a forward kernel's
-    (acc, trans), with cotangents drawn from a seeded generator on the
-    card; and the per-slot plain function's (`composite_tiles_bwd_plain`)
-    for the same inputs."""
+    """K5′'s arguments (`composite_tiles_bwd_splats`) for a forward kernel's
+    (acc, trans, block), fed the block K4′ wrote, with cotangents drawn
+    from a seeded generator on the card; and the per-slot plain function's
+    (`composite_tiles_bwd_plain`) for the same inputs on the gathered
+    block."""
     import torch
-    acc, trans = fwd
+    acc, trans, block = fwd
     gen = torch.Generator(device=acc.device).manual_seed(seed)
     g_acc = torch.randn(acc.shape, generator=gen, device=acc.device)
     g_trans = torch.randn(trans.shape, generator=gen, device=acc.device)
-    return ((inp["data"], inp["counts"], inp["prim_idx"], inp["valid"],
+    return ((block, inp["counts"], inp["prim_idx"], inp["valid"],
              inp["n"], inp["grid_w"], trans, g_acc, g_trans, inp["C"]),
             (inp["data"], inp["counts"], inp["grid_w"], trans, g_acc,
              g_trans, inp["C"]))
 
 
 def tile_bwd_vs_plain(label, inp, fwd, seed):
-    """K5 against its plain version (`splat_rows_vs_plain`)."""
+    """K5′, fed K4′'s block, against its plain version on the gathered
+    block (`splat_rows_vs_plain`)."""
     import torch
     from comfy3d_tpu_torch.ops import gs_tile
     args, slot_args = tile_bwd_args(inp, fwd, seed)
     k = gs_tile.composite_tiles_bwd_splats(*args)
     torch.cuda.synchronize()
-    p = gs_tile.composite_tiles_bwd_splats_plain(*args)
+    p = gs_tile.composite_tiles_bwd_splats_plain(inp["data"], *args[1:])
     rows, idx = walked_slot_rows(
         inp, gs_tile.composite_tiles_bwd_plain(*slot_args))
     return splat_rows_vs_plain(f"tile {label}", k, p, rows, idx)
@@ -911,32 +1183,40 @@ def tile_render_path(dev, splat, cams, cam0, flat_imgs, parity_scene):
           f"scene: {parity_db:.2f} dB < {TOL_TILE_FLAT_DB}")
 
     inp = tile_inputs(splat, cam0, 1024)
-    kargs = (inp["data"], inp["counts"], inp["grid_w"], inp["C"])
+    kargs = tile_kernel_args(inp, False)
     times = {
         "frame_ms": cuda_ms(lambda: G.render(splat, cam0, **kw), 20),
         "kernel_fwd_ms": cuda_ms(
-            lambda: gs_tile.composite_tiles_fwd(*kargs), 20),
+            lambda: gs_tile.composite_tiles_fwd_rows(*kargs), 20),
         "plain_fwd_ms": cuda_ms(
-            lambda: gs_tile.composite_tiles_fwd_plain(*kargs), 3, warmup=1),
+            lambda: gs_tile.composite_tiles_fwd_rows_plain(*kargs), 3,
+            warmup=1),
         "bin_primitives_ms": cuda_ms(
             lambda: G.binning.bin_primitives(*inp["bin_args"]), 20),
-        "gather_ms": cuda_ms(
+        # the gather K4′ took in (`_build_tile_data`), for reference
+        "old_gather_ms": cuda_ms(
             lambda: G._build_tile_data(*inp["gather_args"]), 20),
         "prep_ms": cuda_ms(lambda: tile_inputs(splat, cam0, 1024), 20),
         "render_8_views_ms": cuda_ms(lambda: G.render(splat, cams, **kw), 5),
     }
     log(f"tile times at 800²/100k: {times}")
-    prof = profile_frames(lambda: G.render(splat, cam0, **kw), 5)
+    prof = profile_frames(lambda: G.render(splat, cam0, **kw), 5,
+                          rows=tuple(inp["rows"].shape))
     prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] \
         / times["frame_ms"]
     log(f"profile of one tile frame: {prof}")
+    check(prof["row_gathers"] == 0, f"the tile frame still gathers splat "
+          f"rows: {prof['row_gather_ops']}")
+    box = tile_box_stats(inp)
+    log(f"tile render view 0, per-splat box: {box}")
+    check_box(box, "tile render view 0")
     rec = dict(views=nview, size=size, splats=splat.num_capacity,
                max_per_tile=1024,
                launches=launches, mean_alpha=mean_alpha,
                overflow_views=int(out["overflow"].sum()),
                vs_flat_psnr_db=vs_flat, parity_20k_256_psnr_db=parity_db,
-               first_call_8_views_s=render8_s)
-    return rec, times, prof, tile_fwd_bound(inp)
+               first_call_8_views_s=render8_s, box=box)
+    return rec, times, prof, tile_fwd_bound(inp, box)
 
 
 def main(out_path=None) -> int:
@@ -1006,6 +1286,14 @@ def main(out_path=None) -> int:
             scene_of[label] = sname
             if merged:
                 plain_img[sname] = img
+    # bins of 48 and 64 px: clusters of 9 and 16 sub-tile CTAs
+    for bin_px in (48, 64):
+        wide = flat_inputs(*scenes["20k_256"], bin_px=bin_px)
+        for merged in (True, False):
+            label = f"20k_256_bin{bin_px}_" \
+                f"{'merged' if merged else 'per_subtile'}"
+            compare[label] = kernel_vs_plain(label, wide, merged)[0]
+        del wide
     record["kernel_vs_plain"] = compare
 
     # 4. the main path: GS-PLY → load on the card → 8 orbit views at 800²
@@ -1046,46 +1334,42 @@ def main(out_path=None) -> int:
     # timings (CUDA events), after the counted run
     cam0 = Camera.from_camposes(poses[0], width=800, height=800, device=dev)
     inp = inputs["100k_800"]
-    kargs = (inp["data"], inp["bounds"], inp["nbx"], inp["nby"], inp["C"],
-             inp["W"], inp["H"])
+    kargs = {m: flat_kernel_args(inp, m == "merged")
+             for m in ("merged", "per_subtile")}
     times = {
         "frame_ms": cuda_ms(lambda: G.render(splat, cam0), 20),
         "kernel_merged_ms": cuda_ms(
-            lambda: gs_flat.composite_bins_fwd(*kargs, merged=True), 20),
+            lambda: gs_flat.composite_bins_fwd_rows(*kargs["merged"][0]), 20),
         "kernel_per_subtile_ms": cuda_ms(
-            lambda: gs_flat.composite_bins_fwd(*kargs, merged=False), 20),
+            lambda: gs_flat.composite_bins_fwd_rows(
+                *kargs["per_subtile"][0]), 20),
         "plain_merged_ms": cuda_ms(
-            lambda: gs_flat.composite_bins_fwd_plain(*kargs, merged=True),
-            5, warmup=1),
+            lambda: gs_flat.composite_bins_fwd_rows_plain(
+                *kargs["merged"][0]), 5, warmup=1),
         "plain_per_subtile_ms": cuda_ms(
-            lambda: gs_flat.composite_bins_fwd_plain(*kargs, merged=False),
-            5, warmup=1),
+            lambda: gs_flat.composite_bins_fwd_rows_plain(
+                *kargs["per_subtile"][0]), 5, warmup=1),
         "sort_ms": cuda_ms(
             lambda: G.binning.bin_coarse(*inp["sort_args"]), 20),
+        "old_gather_ms": cuda_ms(lambda: flat_gather(inp), 20),
         "prep_ms": cuda_ms(lambda: flat_inputs(splat, cam0), 20),
         "render_8_views_ms": cuda_ms(lambda: G.render(splat, cams), 5),
     }
     log(f"times at 800²/100k: {times}")
-    prof = profile_frames(lambda: G.render(splat, cam0), 5)
+    prof = profile_frames(lambda: G.render(splat, cam0), 5,
+                          rows=tuple(inp["rows"].shape))
     prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / times["frame_ms"]
     log(f"profile of one frame: {prof}")
+    check(prof["row_gathers"] == 0, f"the flat frame still gathers pair "
+          f"rows: {prof['row_gather_ops']}")
+    box = flat_box_stats(inp, stops_by["100k_800_merged"])
+    log(f"flat render view 0, per-splat box: {box}")
+    check_box(box, "flat render view 0")
 
-    # bound: bytes each input read once + outputs written once, against
-    # f32 operations of the visits this input makes (20 + 2C per visit)
-    nbins = inp["nbx"] * inp["nby"]
-    pairs = int(inp["bounds"][-1])
-    C = inp["C"]
-    out_bytes = nbins * 4 * (C + 1) * 256 * 4 + nbins * 4 * 4
-    in_bytes = (7 + C) * pairs * 4 + (nbins + 1) * 4
-    bounds_rec = {}
-    for mode, label in (("merged", "100k_800_merged"),
-                        ("per_subtile", "100k_800_per_subtile")):
-        v = visits(inp, stops_by[label])
-        t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
-        t_ops = v * (20 + 2 * C) / PEAK_F32_OPS_S * 1e3
-        bounds_rec[mode] = dict(
-            visits=v, bytes=in_bytes + out_bytes, bound_ms=max(t_bytes, t_ops),
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    # bounds of the function with its gather, per mode, from this input
+    bounds_rec = {
+        "merged": flat_fwd_bound(inp, stops_by["100k_800_merged"], box),
+        "per_subtile": flat_fwd_bound(inp, stops_by["100k_800_per_subtile"])}
     log(f"bounds: {bounds_rec}")
 
     def err(label):
@@ -1109,15 +1393,15 @@ def main(out_path=None) -> int:
                 "replaces": "comfy3d_tpu/ops/pallas/gs_flat.py:339",
                 "ms": times["kernel_merged_ms"],
                 "plain_ms": times["plain_merged_ms"],
-                "max_abs_err": max(err("20k_256_merged"),
-                                   err("100k_800_merged")),
+                "max_abs_err": max(err(k) for k in compare
+                                   if k.endswith("_merged")),
                 **bounds_rec["merged"]},
             "per_subtile": {
                 "replaces": "comfy3d_tpu/ops/pallas/gs_flat.py:198",
                 "ms": times["kernel_per_subtile_ms"],
                 "plain_ms": times["plain_per_subtile_ms"],
-                "max_abs_err": max(err("20k_256_per_subtile"),
-                                   err("100k_800_per_subtile")),
+                "max_abs_err": max(err(k) for k in compare
+                                   if k.endswith("_per_subtile")),
                 **bounds_rec["per_subtile"]},
         },
     }
@@ -1125,7 +1409,7 @@ def main(out_path=None) -> int:
                                  launches=launches, mean_alpha=mean_alpha,
                                  view0_vs_plain_psnr_db=view0_db,
                                  overflow_views=overflow_views,
-                                 first_call_8_views_s=render8_s),
+                                 first_call_8_views_s=render8_s, box=box),
                   times=times, profile=prof)
 
     # 5. the compositor backward vs its plain version, both scenes and modes
@@ -1178,6 +1462,16 @@ def main(out_path=None) -> int:
                 "tile_train_10_steps": tile_train_rec["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
+    kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
+                        "read by index (cp.async ring), box skip")
+    kernel["by_path"] = {
+        "render_view0": dict(ms=times["kernel_merged_ms"],
+                             bound_ms=bounds_rec["merged"]["bound_ms"],
+                             launches=launches["gs_flat_fwd"]),
+        "train_view0_trained": dict(
+            ms=train_times["kernel_fwd_ms"],
+            bound_ms=train_rec["fwd_bound"]["bound_ms"],
+            launches=train_rec["launches"]["gs_flat_fwd"])}
     kernel_bwd = {
         "name": "gs_flat_bwd", "route": "cuda",
         "source": "comfy3d_tpu_torch/csrc/gs_flat_bwd.cu",
@@ -1210,6 +1504,18 @@ def main(out_path=None) -> int:
         "bound_ms": tile_fwd_bound_rec["bound_ms"],
         "bound_by": tile_fwd_bound_rec["bound_by"],
         "library_ms": None,
+        "design": "rows read by index (cp.async ring), box skip, writes "
+                  "the backward's block when asked",
+        "by_path": {
+            "render_view0_m1024": dict(
+                ms=tile_times["kernel_fwd_ms"],
+                bound_ms=tile_fwd_bound_rec["bound_ms"],
+                launches=tile_rec["launches"]["gs_tile_fwd"]),
+            "train_view0_trained_m512": dict(
+                ms=tile_train_times["kernel_fwd_ms"],
+                bound_ms=tile_train_rec["fwd_bound"]["bound_ms"],
+                launches=tile_train_rec["launches"]["gs_tile_fwd"],
+                block_kept=True)},
     }
     kernel_tile_bwd = {
         "name": "gs_tile_bwd", "route": "cuda",

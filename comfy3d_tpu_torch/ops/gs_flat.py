@@ -1,16 +1,19 @@
 """Coarse-bin 3DGS compositor, forward and backward: the CUDA kernels'
 wrappers and their plain PyTorch versions.
 
-Forward. Replaces the TPU kernels
+Forward with its pair-row gather. Replaces the TPU kernels
 `comfy3d_tpu/ops/pallas/gs_flat.py::_fwd_kernel_merged` (:339, the default)
 and `::_fwd_kernel` (:198, `COMFY3D_GS_MERGED=0`), both reached through
-`composite_bins_fwd` (:481). The kernel is `csrc/gs_flat_fwd.cu`; both TPU
-kernels are modes of it.
+`composite_bins_fwd` (:481), and the gather of their pair payload
+(`comfy3d_tpu/ops/gs_render.py:601`). The kernel is `csrc/gs_flat_fwd.cu`
+(with `csrc/gs_fwd_common.cuh`); both TPU kernels are modes of it; the
+wrapper is `composite_bins_fwd_rows`.
 
 What it computes, per coarse bin t (bin_px = 32: 2×2 sub-tiles of 16 px):
-walk the bin's depth-sorted pair segment [bounds[t], bounds[t+1]) of `data`
-front to back in 128-pair chunks counted from the segment start rounded
-down to 128 (the first `skip` slots are dead), and composite
+walk the bin's depth-sorted pair segment [bounds[t], bounds[t+1]), pair g
+holding the splat row `rows[sprim[g]]`, front to back in 128-pair chunks
+counted from the segment start rounded down to 128 (the first `skip` slots
+are dead), and composite
     α = min(op·exp(min(power, 0)), 0.99), zero where op·G < 1/255 or the
     pair's 3σ square misses the 16-px sub-tile;
     acc += chan·α·T,  T *= 1 − α.
@@ -19,19 +22,20 @@ bin in merged mode (sub-tiles whose origin lies outside the image start at
 T = 0 and never hold the exit back), each in-image sub-tile in per-sub-tile
 mode (out-of-image sub-tiles stay at acc 0, T 1). `stops` counts the chunks
 each sub-tile composited; the backward pass re-walks exactly that prefix.
+The plain version (`composite_bins_fwd_rows_plain`) gathers the payload
+[DPAY, P] as the TPU path does (`gather_payload`) and runs
+`composite_bins_fwd_plain`, the TPU kernels' function on it.
 
 What bounds it on the card: operations, not bytes. Each pair-pixel visit
-costs ~20 f32 operations and one exp, against 44 bytes of payload per pair
-that every pixel of the bin shares; at 800²/100k splats the function moves
-~27 MB but makes ~7.7e7 visits (`chip_smoke.py` counts both).
-
-What the design does about it: one CTA per bin, one thread per pixel of
-each sub-tile (256 threads × NSUB pixels in registers), so the payload is
-read from device memory once per bin and staged in shared memory one
-128-pair chunk at a time; each pair's per-sub-tile footprint bits are
-computed once at staging, so a pair that misses a sub-tile costs its 256
-threads one uniform branch; the saturation exit is a block-wide
-`__syncthreads_or` vote per chunk (per sub-tile in per-sub-tile mode).
+costs ~20 f32 operations and one exp, against a 64-byte row and an index
+per pair that every pixel of the sub-tile shares (`chip_smoke.py` counts
+both). What the design does about it: one CTA per 16-px sub-tile, one
+thread per pixel, the sub-tiles of a bin in one thread-block cluster whose
+CTAs vote on the merged exit through distributed shared memory; each CTA
+reads its chunk's pair indices and copies the rows with cp.async into a
+two-stage ring, compacts the chunk to the pairs whose 3σ square meets its
+sub-tile, and skips a pair for a warp whose two pixel rows miss the pair's
+conservative box (`gs_tile.splat_box`), so dead visits cost no exp.
 
 Backward with its per-splat scatter. Replaces
 `comfy3d_tpu/ops/pallas/gs_flat.py::_bwd_kernel` (:552, reached through
@@ -95,9 +99,10 @@ def _lib(name):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn = getattr(lib, name)
         fn.argtypes = {
-            # data, ppad, dpay, bounds, nbins, nbins_x, nchan, sub_n, width,
-            # height, merged, acc, trans, stops, stream
-            "gs_flat_fwd": [vp, i64, i32, vp] + [i32] * 7 + [vp] * 4,
+            # rows, n_rows, d, sprim, nsprim, bounds, nbins, nbins_x, nchan,
+            # sub_n, width, height, merged, acc, trans, stops, stream
+            "gs_flat_fwd": [vp, i64, i32, vp, i64, vp] + [i32] * 7
+            + [vp] * 4,
             # data, ppad, dpay, bounds, sprim, nsprim, trans, stops, g_acc,
             # g_trans, nbins, nbins_x, nchan, sub_n, width, height, n_rows,
             # g, stream
@@ -160,56 +165,92 @@ def _check_pairs(data, sprim, n):
         raise ValueError(f"n (splats) must be in 0..2^31-1, got {n}")
 
 
-def composite_bins_fwd(data, bounds, nbins_x: int, nbins_y: int, nchan: int,
-                       width: int, height: int, bin_px: int = DEFAULT_BIN,
-                       merged: bool | None = None):
-    """data [DPAY, P] f32 pair payload (rows μx, μy, conic a, b, c, opacity,
-    nchan channels, 3σ radius, zero pad); bounds [nbins+1] i32.
+def payload_width(nchan: int) -> int:
+    """DPAY, the width of the pair rows and of the payload: 7 + nchan
+    values padded to a multiple of 8."""
+    return -(-(7 + nchan) // 8) * 8
+
+
+def _check_rows(rows, sprim, bounds, nbins_x, nbins_y, nchan, bin_px):
+    if rows.dtype != torch.float32 or rows.dim() != 2:
+        raise ValueError(f"rows must be a 2-D float32 tensor [N, DPAY], got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    if not 1 <= nchan <= MAX_CHAN or rows.shape[1] != payload_width(nchan):
+        raise ValueError(f"nchan {nchan} needs 1..{MAX_CHAN} channels and "
+                         f"rows {payload_width(nchan)} wide, rows are "
+                         f"{rows.shape[1]}")
+    _check_pairs(rows, sprim, rows.shape[0])
+    if bin_px not in (32, 48, 64):
+        raise ValueError(f"bin_px must be 32, 48 or 64, got {bin_px}")
+    nbins = nbins_x * nbins_y
+    if bounds.dtype != torch.int32 or tuple(bounds.shape) != (nbins + 1,):
+        raise ValueError(f"bounds must be int32 [{nbins + 1}], got "
+                         f"{bounds.dtype} {tuple(bounds.shape)}")
+    if bounds.device != rows.device:
+        raise ValueError(f"bounds on {bounds.device}, rows on {rows.device}")
+
+
+def composite_bins_fwd_rows(rows, sprim, bounds, nbins_x: int, nbins_y: int,
+                            nchan: int, width: int, height: int,
+                            bin_px: int = DEFAULT_BIN,
+                            merged: bool | None = None):
+    """rows [N, DPAY] f32 (per splat: μx, μy, conic a, b, c, opacity, nchan
+    channels, 3σ radius, zero pad; DPAY = `payload_width(nchan)`); sprim
+    [≥ P] i64, the splat of each pair in sorted order; bounds [nbins+1]
+    i32, each bin's pair segment.
 
     Returns (acc [nbins, NSUB, C, 256], trans [nbins, NSUB, 1, 256],
-    stops [nbins, NSUB] i32). On a CUDA tensor it launches the kernel; on a
-    CPU tensor it runs `composite_bins_fwd_plain`; any other device raises.
-    """
+    stops [nbins, NSUB] i32). On a CUDA tensor it launches the kernel,
+    which reads the rows by index (indices outside [0, N) read as a zero
+    row), or raises (a refused launch raises too); on a CPU tensor it runs
+    `composite_bins_fwd_rows_plain`; any other device raises."""
     if merged is None:
         merged = merged_default()
-    _check(data, bounds, nbins_x, nbins_y, nchan, bin_px)
-    if data.device.type == "cpu":
-        return composite_bins_fwd_plain(data, bounds, nbins_x, nbins_y,
-                                        nchan, width, height, bin_px, merged)
-    if data.device.type != "cuda":
-        raise ValueError(f"composite_bins_fwd runs on cuda (kernel) or cpu "
-                         f"(plain version), not {data.device}")
-    if not (data.is_contiguous() and bounds.is_contiguous()):
-        raise ValueError("data and bounds must be contiguous")
+    _check_rows(rows, sprim, bounds, nbins_x, nbins_y, nchan, bin_px)
+    if rows.device.type == "cpu":
+        return composite_bins_fwd_rows_plain(rows, sprim, bounds, nbins_x,
+                                             nbins_y, nchan, width, height,
+                                             bin_px, merged)
+    if rows.device.type != "cuda":
+        raise ValueError(f"composite_bins_fwd_rows runs on cuda (kernel) or "
+                         f"cpu (plain version), not {rows.device}")
+    if not all(x.is_contiguous() for x in (rows, sprim, bounds)):
+        raise ValueError("composite_bins_fwd_rows needs contiguous inputs")
+    if rows.data_ptr() % 16 != 0:
+        raise ValueError("rows must be 16-byte aligned")
     nbins = nbins_x * nbins_y
     nsub = (bin_px // TILE) ** 2
-    dev = data.device
+    dev = rows.device
     acc = torch.empty((nbins, nsub, nchan, NPIX), dtype=torch.float32,
                       device=dev)
     trans = torch.empty((nbins, nsub, 1, NPIX), dtype=torch.float32,
                         device=dev)
     stops = torch.empty((nbins, nsub), dtype=torch.int32, device=dev)
+    if rows.shape[0] == 0:
+        raise ValueError("composite_bins_fwd_rows needs at least one row")
     lib = _lib("gs_flat_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gs_flat_fwd(data.data_ptr(), data.shape[1], data.shape[0],
+        err = lib.gs_flat_fwd(rows.data_ptr(), rows.shape[0], rows.shape[1],
+                              sprim.data_ptr(), sprim.numel(),
                               bounds.data_ptr(), nbins, nbins_x, nchan,
                               bin_px // TILE, width, height, int(merged),
                               acc.data_ptr(), trans.data_ptr(),
                               stops.data_ptr(), stream)
     _raise_on(err, lib, "gs_flat_fwd")
-    composite_bins_fwd.launches += 1
+    composite_bins_fwd_rows.launches += 1
     return acc, trans, stops
 
 
-composite_bins_fwd.launches = 0     # kernel launches since the last reset
+composite_bins_fwd_rows.launches = 0     # kernel launches since the last reset
 
 
 def composite_bins_bwd_splats(data, bounds, sprim, n: int, trans, stops,
                               g_acc, g_trans, nbins_x: int, nbins_y: int,
                               nchan: int, width: int, height: int,
                               bin_px: int = DEFAULT_BIN):
-    """Backward of `composite_bins_fwd` with its per-splat scatter:
+    """Backward of `composite_bins_fwd_rows` with its per-splat scatter,
+    on the payload `gather_payload` builds (`data`):
     `trans`/`stops` are its outputs, `g_acc`/`g_trans` the cotangents of
     acc/trans, `sprim` [≥ P] i64 the splat (of n) of each pair.
 
@@ -324,11 +365,34 @@ def _chunk_visits(data, geo, sel, q, runs, nchan):
                 alpha=alpha)
 
 
+def gather_payload(rows, sprim):
+    """The pair payload [DPAY, P] of rows [N, DPAY]: column g is row
+    `sprim[g]`, as the TPU path gathers it (`comfy3d_tpu/ops/
+    gs_render.py:601`)."""
+    return rows[sprim].t().contiguous()
+
+
+def composite_bins_fwd_rows_plain(rows, sprim, bounds, nbins_x: int,
+                                  nbins_y: int, nchan: int, width: int,
+                                  height: int, bin_px: int = DEFAULT_BIN,
+                                  merged: bool | None = None):
+    """Plain PyTorch version of `composite_bins_fwd_rows` (same contract):
+    `gather_payload`, then `composite_bins_fwd_plain`."""
+    _check_rows(rows, sprim, bounds, nbins_x, nbins_y, nchan, bin_px)
+    return composite_bins_fwd_plain(gather_payload(rows, sprim), bounds,
+                                    nbins_x, nbins_y, nchan, width, height,
+                                    bin_px, merged)
+
+
 def composite_bins_fwd_plain(data, bounds, nbins_x: int, nbins_y: int,
                              nchan: int, width: int, height: int,
                              bin_px: int = DEFAULT_BIN,
                              merged: bool | None = None):
-    """Plain PyTorch version of `composite_bins_fwd` (same contract).
+    """The TPU kernels' function (`gs_flat.py::composite_bins_fwd`) on a
+    gathered payload, in plain PyTorch: data [DPAY, P] f32 (rows μx, μy,
+    conic a, b, c, opacity, nchan channels, 3σ radius, zero pad), bounds
+    [nbins+1] i32 → (acc [nbins, NSUB, C, 256], trans [nbins, NSUB, 1,
+    256], stops [nbins, NSUB] i32).
 
     Vectorised over bins, a Python loop over the chunk index, `cumprod`
     inside a chunk."""

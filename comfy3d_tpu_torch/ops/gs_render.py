@@ -9,11 +9,12 @@ cull, elementwise on [N] vectors):
   * "flat" (the default; JAX's "pallas" and "auto") — the coarse-bin path
     the JAX package runs on its accelerator: `binning.bin_coarse`, one
     (bin|depth)-key sort of (splat, bin) pairs, then `gs_flat`'s
-    compositor, saturation exit per bin;
+    compositor, which reads the splats' rows by index, saturation exit per
+    bin;
   * "tile" (JAX's "xla") — the per-16-px-tile path: one global depth sort
     of the splats, `binning.bin_primitives` into padded per-tile lists of
-    `max_per_tile` slots, a packed row gather (`_build_tile_data`), then
-    `gs_tile`'s compositor, which walks every counted slot.
+    `max_per_tile` slots, then `gs_tile`'s compositor, which reads the
+    splats' rows by index and walks every counted slot.
 
 Each compositor is a CUDA kernel for tensors on the card and its plain
 PyTorch version for tensors on the CPU, with its backward likewise.
@@ -152,18 +153,17 @@ def _bins_to_image(x, nby, nbx, height, width, bin_px=32):
     return img[:height, :width]
 
 
-def pack_payload(means2d, conic, opacity, chans, radii, sprim):
-    """Per-pair payload [DPAY, P] for the compositor: rows μx, μy, conic
-    a, b, c, opacity, channels, 3σ radius, zero rows up to a multiple of
-    8, gathered in sorted pair order."""
+def payload_rows(means2d, conic, opacity, chans, radii):
+    """Per-splat rows [N, DPAY] of the coarse-bin compositor: μx, μy,
+    conic a, b, c, opacity, channels, 3σ radius, zero values up to a
+    multiple of 8."""
     n = means2d.shape[0]
     d_raw = 7 + chans.shape[-1]
-    dpay = -(-d_raw // 8) * 8
+    dpay = gs_flat.payload_width(chans.shape[-1])
     parts = [means2d, conic, opacity[:, None], chans, radii[:, None]]
     if dpay > d_raw:
         parts.append(means2d.new_zeros((n, dpay - d_raw)))
-    packed = torch.cat(parts, dim=-1)                 # [N, D]
-    return packed[sprim].t().contiguous()             # [D, P]
+    return torch.cat(parts, dim=-1)                   # [N, DPAY]
 
 
 class _CompositeFlat(torch.autograd.Function):
@@ -171,21 +171,23 @@ class _CompositeFlat(torch.autograd.Function):
     custom VJP, `_flat_vjp_fwd`/`_flat_vjp_bwd`). Returns
     (acc [nbins, NSUB, C, 256], trans [.., 1, 256]).
 
-    The payload is packed inside `forward`, where autograd is off, so
-    `backward` returns the gradients of means2d, conic, opacity and chans
-    itself: the per-splat rows of `gs_flat.composite_bins_bwd_splats`,
-    which sums each walked pair's gradient into its splat's row (atomics on
-    the card, so the sums vary in their last bits from run to run), split
-    into the four inputs. The radius row has none."""
+    `forward` packs the per-splat rows (autograd is off there) and hands
+    them with the sorted pairs' splat indices to
+    `gs_flat.composite_bins_fwd_rows`, which reads them by index: the
+    forward gathers no payload. `backward` gathers the payload
+    (`gs_flat.gather_payload`) for `gs_flat.composite_bins_bwd_splats`,
+    whose per-splat rows (atomics on the card, so the sums vary in their
+    last bits from run to run) it splits into the gradients of means2d,
+    conic, opacity and chans. The radius row has none."""
 
     @staticmethod
     def forward(ctx, means2d, conic, opacity, chans, radii, sprim, bounds,
                 nbx, nby, width, height, bin_px):
-        data = pack_payload(means2d, conic, opacity, chans, radii, sprim)
-        acc, trans, stops = gs_flat.composite_bins_fwd(
-            data, bounds, nbx, nby, chans.shape[-1], width, height,
+        rows = payload_rows(means2d, conic, opacity, chans, radii)
+        acc, trans, stops = gs_flat.composite_bins_fwd_rows(
+            rows, sprim, bounds, nbx, nby, chans.shape[-1], width, height,
             bin_px=bin_px)
-        ctx.save_for_backward(data, bounds, trans, stops, sprim)
+        ctx.save_for_backward(rows, bounds, trans, stops, sprim)
         ctx.geometry = (nbx, nby, chans.shape[-1], width, height, bin_px,
                         means2d.shape[0])
         return acc, trans
@@ -195,8 +197,9 @@ class _CompositeFlat(torch.autograd.Function):
         # an output without a gradient arrives as zeros (autograd
         # materialises it); the permute and crop of `_bins_to_image` leave
         # the cotangents strided
-        data, bounds, trans, stops, sprim = ctx.saved_tensors
+        rows, bounds, trans, stops, sprim = ctx.saved_tensors
         nbx, nby, c, width, height, bin_px, n = ctx.geometry
+        data = gs_flat.gather_payload(rows, sprim)
         g = gs_flat.composite_bins_bwd_splats(
             data, bounds, sprim, n, trans, stops, g_acc.contiguous(),
             g_trans.contiguous(), nbx, nby, c, width, height, bin_px=bin_px)
@@ -228,22 +231,25 @@ def render_flat(means2d, conic, opacity, chans, depth, active, radii,
 # ------------------------------------------------------------------ #
 # 3. Per-16-px-tile compositing
 # ------------------------------------------------------------------ #
-def _build_tile_data(means2d, conics, opacities, colors, prim_idx,
-                     prim_valid):
-    """Gather per-tile splat columns [T, D, M] (D = 6 + C padded to 8·k).
-
-    Packs every per-splat channel into one [N, D] matrix first, so the
-    expansion is a single row gather; invalid slots get opacity 0, so
-    their gradient columns are exactly 0."""
+def tile_rows(means2d, conics, opacities, colors):
+    """Per-splat rows [N, D] of the tile compositor: μx, μy, conic a, b, c,
+    opacity, channels, zero values up to D = 6 + C padded to a multiple of
+    8."""
     d_raw = 2 + 3 + 1 + colors.shape[-1]
-    pad = (-d_raw) % 8
+    pad = gs_tile.rows_width(colors.shape[-1]) - d_raw
     parts = [means2d, conics, opacities[:, None], colors]
     if pad:
         parts.append(means2d.new_zeros((means2d.shape[0], pad)))
-    packed = torch.cat(parts, dim=-1)                    # [N, D]
-    gathered = packed[prim_idx]                          # [T, M, D]
-    gathered[..., 5] *= prim_valid
-    return gathered.transpose(1, 2).contiguous()         # [T, D, M]
+    return torch.cat(parts, dim=-1)                      # [N, D]
+
+
+def _build_tile_data(means2d, conics, opacities, colors, prim_idx,
+                     prim_valid):
+    """Per-tile splat columns [T, D, M]: `tile_rows` gathered by
+    `gs_tile.gather_tile_block` (invalid slots get opacity 0, so their
+    gradient columns are exactly 0)."""
+    return gs_tile.gather_tile_block(
+        tile_rows(means2d, conics, opacities, colors), prim_idx, prim_valid)
 
 
 class _CompositeTiles(torch.autograd.Function):
@@ -252,33 +258,38 @@ class _CompositeTiles(torch.autograd.Function):
     outside, in `render_tiles`). Returns (acc [T, C, 256], trans
     [T, 1, 256]).
 
-    The tile data is gathered inside `forward`, where autograd is off, so
-    `backward` returns the gradients of means2d, conic, opacity and chans
-    itself: the per-splat rows of `gs_tile.composite_tiles_bwd_splats`,
-    which sums each valid slot's gradient into its splat's row (atomics on
-    the card, so the sums vary in their last bits from run to run), split
-    into the four inputs."""
+    `forward` packs the per-splat rows (autograd is off there) and hands
+    them with the tiles' slot lists to `gs_tile.composite_tiles_fwd_rows`,
+    which reads them by index. Only when a gradient can follow
+    (`ctx.needs_input_grad`) does it ask for the [T, D, M] tile data the
+    backward reads, which the kernel then writes as it stages the slots;
+    serving writes none. `backward` returns the gradients of means2d,
+    conic, opacity and chans itself: the per-splat rows of
+    `gs_tile.composite_tiles_bwd_splats`, which sums each valid slot's
+    gradient into its splat's row (atomics on the card, so the sums vary in
+    their last bits from run to run), split into the four inputs."""
 
     @staticmethod
     def forward(ctx, means2d, conic, opacity, chans, prim_idx, valid, counts,
                 grid_w):
-        data = _build_tile_data(means2d, conic, opacity, chans, prim_idx,
-                                valid)
-        acc, trans = gs_tile.composite_tiles_fwd(data, counts, grid_w,
-                                                 chans.shape[-1])
-        ctx.save_for_backward(data, counts, trans, prim_idx, valid)
+        rows = tile_rows(means2d, conic, opacity, chans)
+        keep = any(ctx.needs_input_grad[:4])
+        acc, trans, block = gs_tile.composite_tiles_fwd_rows(
+            rows, prim_idx, valid, counts, grid_w, chans.shape[-1],
+            keep_block=keep)
+        if keep:
+            ctx.save_for_backward(block, counts, trans, prim_idx, valid)
         ctx.geometry = (grid_w, chans.shape[-1], means2d.shape[0])
         return acc, trans
 
     @staticmethod
     def backward(ctx, g_acc, g_trans):
-        data, counts, trans, prim_idx, valid = ctx.saved_tensors
+        block, counts, trans, prim_idx, valid = ctx.saved_tensors
         grid_w, c, n = ctx.geometry
         g = gs_tile.composite_tiles_bwd_splats(
-            data, counts, prim_idx, valid, n, grid_w, trans,
+            block, counts, prim_idx, valid, n, grid_w, trans,
             g_acc.contiguous(), g_trans.contiguous(), c)
         return (g[:, 0:2], g[:, 2:5], g[:, 5], g[:, 6:6 + c], *[None] * 4)
-
 
 def render_tiles(means2d, conic, opacity, chans, depth, active, radii,
                  width: int, height: int, max_per_tile: int = 512,

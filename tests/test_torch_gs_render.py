@@ -25,7 +25,7 @@ from comfy3d_tpu_torch.core.gaussian import GaussianSplat
 from comfy3d_tpu_torch.ops import _build, binning, gs_flat
 from comfy3d_tpu_torch.ops import gs_render as G
 
-from tests.test_torch_kernels import CASES, make_bins_case
+from tests.test_torch_kernels import CASES, make_bins_case, rows_of_payload
 
 
 def make_scene(seed, n=24, spread=0.6):
@@ -128,9 +128,10 @@ def test_composite_plain_matches_pallas(monkeypatch, case, merged):
     r_acc, r_tr, r_st = (np.asarray(x) for x in jflat.composite_bins_fwd(
         jnp.asarray(data), jnp.asarray(bounds), nbx, nby, nchan, W, H,
         bin_px=bin_px, interpret=True))
-    acc, tr, st = (_np(x) for x in gs_flat.composite_bins_fwd(
-        torch.as_tensor(data), torch.as_tensor(bounds), nbx, nby, nchan, W,
-        H, bin_px=bin_px))                        # CPU → plain version
+    rows, sprim = rows_of_payload(data)
+    acc, tr, st = (_np(x) for x in gs_flat.composite_bins_fwd_rows(
+        rows, sprim, torch.as_tensor(bounds), nbx, nby, nchan, W, H,
+        bin_px=bin_px))                           # CPU → plain version
     np.testing.assert_array_equal(st, r_st)
     np.testing.assert_allclose(acc, r_acc, atol=1e-4, rtol=0)
     np.testing.assert_allclose(tr, r_tr, atol=1e-4, rtol=0)
@@ -150,13 +151,13 @@ def test_composite_plain_matches_pallas(monkeypatch, case, merged):
 
 def test_composite_mode_follows_the_environment(monkeypatch):
     data, bounds, nbx, nby = make_bins_case(1, **CASES["32px"])
-    args = (torch.as_tensor(data), torch.as_tensor(bounds), nbx, nby, 4,
+    args = (*rows_of_payload(data), torch.as_tensor(bounds), nbx, nby, 4,
             64, 40)
     monkeypatch.setenv("COMFY3D_GS_MERGED", "0")
-    per_sub = gs_flat.composite_bins_fwd(*args)[2]
+    per_sub = gs_flat.composite_bins_fwd_rows(*args)[2]
     monkeypatch.setenv("COMFY3D_GS_MERGED", "1")
-    merged = gs_flat.composite_bins_fwd(*args)[2]
-    assert torch.equal(per_sub, gs_flat.composite_bins_fwd(
+    merged = gs_flat.composite_bins_fwd_rows(*args)[2]
+    assert torch.equal(per_sub, gs_flat.composite_bins_fwd_rows(
         *args, merged=False)[2])
     assert bool((merged == merged[:, :1]).all())     # one value per bin
     assert not torch.equal(per_sub, merged)
@@ -237,14 +238,27 @@ def test_backward_through_the_compositor_fills_every_grad():
 
 def test_wrapper_runs_the_plain_version_only_on_the_cpu():
     data, bounds, nbx, nby = make_bins_case(0, **CASES["32px"])
+    rows, sprim = rows_of_payload(data)
+    b = torch.as_tensor(bounds)
     with pytest.raises(ValueError, match="cuda"):
-        gs_flat.composite_bins_fwd(torch.as_tensor(data).to("meta"),
-                                   torch.as_tensor(bounds).to("meta"),
-                                   nbx, nby, 4, 64, 40)
+        gs_flat.composite_bins_fwd_rows(rows.to("meta"), sprim.to("meta"),
+                                        b.to("meta"), nbx, nby, 4, 64, 40)
     with pytest.raises(ValueError, match="bounds"):
-        gs_flat.composite_bins_fwd(torch.as_tensor(data),
-                                   torch.as_tensor(bounds).long(),
-                                   nbx, nby, 4, 64, 40)
+        gs_flat.composite_bins_fwd_rows(rows, sprim, b.long(), nbx, nby, 4,
+                                        64, 40)
+    with pytest.raises(ValueError, match="rows"):
+        gs_flat.composite_bins_fwd_rows(rows[:, :8], sprim, b, nbx, nby, 4,
+                                        64, 40)
+    with pytest.raises(ValueError, match="sprim"):
+        gs_flat.composite_bins_fwd_rows(rows, sprim.int(), b, nbx, nby, 4,
+                                        64, 40)
+    # the CPU branch is the gather followed by the payload's plain version
+    out = gs_flat.composite_bins_fwd_rows(rows, sprim, b, nbx, nby, 4, 64,
+                                          40)
+    ref = gs_flat.composite_bins_fwd_plain(torch.as_tensor(data), b, nbx,
+                                           nby, 4, 64, 40)
+    for x, y in zip(out, ref):
+        assert torch.equal(x, y)
 
 
 def test_no_cpu_fallback_for_a_cuda_request(monkeypatch, tmp_path):

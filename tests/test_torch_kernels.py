@@ -1,6 +1,7 @@
 """The port's bin and tile compositors without the JAX package: their plain
-versions against per-pixel sequential compositors on the CPU, and the CUDA
-kernels (forward and backward) against the plain versions on the card.
+versions against per-pixel sequential compositors on the CPU, the forwards'
+per-splat box against the exact visit test, and the CUDA kernels (forward
+and backward) against the plain versions on the card.
 
 This file imports no JAX, so on a machine with the card and no JAX it runs
 on its own:
@@ -115,9 +116,26 @@ def make_tiles_case(seed, grid, n, crowd, m, nchan):
     return data, counts, gw, nchan, splats, bins
 
 
+def rows_of_payload(data, seed=7):
+    """Splat rows [P, DPAY] and pair indices [P] whose gather
+    (`gs_flat.gather_payload`) is the payload `data` [DPAY, P]: its columns
+    in a seeded random order, so the pairs read their rows by index."""
+    data = torch.as_tensor(data)
+    perm = torch.as_tensor(np.random.RandomState(seed).permutation(
+        data.shape[1]))
+    rows = torch.empty_like(data.t())
+    rows[perm] = data.t()
+    return rows.contiguous(), perm
+
+
+def tile_rows_of(splats):
+    """The tile compositor's splat rows [N, D] of a case's splats."""
+    return G.tile_rows(*map(torch.as_tensor, splats[:4]))
+
+
 def sequential_tiles(data, counts, grid_w, nchan):
     """Per-pixel, one slot at a time, in float64: the contract of
-    `composite_tiles_fwd` written as plainly as it reads."""
+    `composite_tiles_fwd_plain` written as plainly as it reads."""
     data = np.asarray(data, np.float64)
     t_tiles, _, m = data.shape
     acc = np.zeros((t_tiles, nchan, 256))
@@ -224,7 +242,7 @@ def deep_bin_case(nchan=4, n=300):
 def sequential_composite(data, bounds, nbx, nby, nchan, W, H, bin_px,
                          merged):
     """Per-pixel, one pair at a time, in float64: the contract of
-    `composite_bins_fwd` written as plainly as it reads."""
+    `composite_bins_fwd_plain` written as plainly as it reads."""
     sub = bin_px // 16
     nsub = sub * sub
     nbins = nbx * nby
@@ -389,6 +407,100 @@ def test_plain_matches_sequential_compositor(case, merged):
     np.testing.assert_allclose(tr.numpy(), r_tr, atol=1e-5, rtol=0)
 
 
+# ------------------------------------------------- the per-splat box
+def _box_case(kind, n=400, seed=0):
+    """f32 splats (mu_x, mu_y, a, b, c, op) around a 16-px window, of one
+    kind: random; opacity just above 1/255; thin, rotated ellipses;
+    near-singular conics; conics that are not positive definite; values
+    that are not finite."""
+    rng = np.random.RandomState(seed)
+    mu = rng.uniform(-4, 20, (n, 2))
+    th = rng.uniform(0, np.pi, n)
+    sig = np.exp(rng.randn(n, 2))
+    op = rng.uniform(0.01, 1.0, n)
+    if kind == "op_near_min":
+        op = np.float32(gs_tile.ALPHA_MIN) * (1 + rng.uniform(0, 1e-3, n))
+        op[::4] = np.nextafter(np.float32(gs_tile.ALPHA_MIN), np.float32(1))
+        sig *= 4
+    if kind == "thin_rotated":
+        sig[:, 0] = rng.uniform(8, 40, n)
+        sig[:, 1] = rng.uniform(0.05, 0.3, n)
+    c, s_ = np.cos(th), np.sin(th)
+    sxx = c * c * sig[:, 0] ** 2 + s_ * s_ * sig[:, 1] ** 2
+    syy = s_ * s_ * sig[:, 0] ** 2 + c * c * sig[:, 1] ** 2
+    sxy = c * s_ * (sig[:, 0] ** 2 - sig[:, 1] ** 2)
+    det = sxx * syy - sxy * sxy
+    a, b, cc = syy / det, -sxy / det, sxx / det
+    if kind == "near_singular":
+        a = rng.uniform(0.05, 2, n)
+        cc = rng.uniform(0.05, 2, n)
+        b = np.sqrt(a * cc) * (1 - 10.0 ** rng.uniform(-9, -3, n))
+        b[::2] *= -1
+    if kind == "not_pd":
+        b = np.sqrt(np.abs(a * cc)) * rng.uniform(1.0, 3.0, n)
+        a[::3] *= -1
+    arr = np.stack([mu[:, 0], mu[:, 1], a, b, cc, op], 1).astype(np.float32)
+    if kind == "non_finite":
+        for i, v in enumerate([np.nan, np.inf, -np.inf] * (n // 3)):
+            arr[i, i % 6] = v
+    return torch.as_tensor(arr)
+
+
+@pytest.mark.parametrize("kind", ["random", "op_near_min", "thin_rotated",
+                                  "near_singular", "not_pd", "non_finite"])
+def test_no_live_visit_falls_outside_the_box(kind):
+    """Every pixel centre of a 16 × 16 window that passes either forward's
+    exact visit test (K4: power ≤ 0 and op·G ≥ 1/255; K1: op·G ≥ 1/255),
+    evaluated in f32 with the kernels' operations, lies in the splat's box;
+    and the warp skip (`box_misses`) never skips a warp with such a pixel."""
+    sp = _box_case(kind)
+    box = gs_tile.splat_box(*sp.unbind(1))
+    x0, x1, y0, y1 = (v[:, None, None] for v in box)
+    p = torch.arange(16, dtype=torch.float32) + 0.5
+    px, py = p[None, None, :], p[None, :, None]
+    mu_x, mu_y, a, b, c, op = (v[:, None, None] for v in sp.unbind(1))
+    mx, my = mu_x - px, mu_y - py
+    power = -0.5 * (a * mx * mx + c * my * my) - b * mx * my
+    raw = op * torch.exp(torch.clamp_max(power, 0.0))
+    live_k1 = raw >= gs_tile.ALPHA_MIN
+    live_k4 = live_k1 & (power <= 0.0)
+    inside = (x0 <= px) & (px <= x1) & (y0 <= py) & (py <= y1)
+    assert not (live_k1 & ~inside).any()
+    assert not (live_k4 & ~inside).any()
+    w = torch.arange(8, dtype=torch.float32)
+    miss = gs_tile.box_misses([v[:, None] for v in box], 0.5, 15.5,
+                              2 * w + 0.5, 2 * w + 1.5)          # [n, 8]
+    warp_live = live_k1.reshape(-1, 8, 32).any(-1)
+    assert not (miss & warp_live).any()
+    # the cases exercise what they claim to
+    if kind in ("random", "thin_rotated", "op_near_min"):
+        assert live_k4.any() and miss.any()
+    if kind == "not_pd":
+        assert (live_k1 & (power > 0)).any()          # K1's far live visits
+        assert torch.isinf(box[0]).all()
+    if kind == "non_finite":
+        fin = torch.isfinite(sp).all(1)
+        assert (~fin).any() and torch.isinf(box[0][~fin]).all()
+
+
+def test_box_is_the_ellipse_bounding_box_to_within_its_margin():
+    """For an axis-aligned splat the box's half-extents are σ·√τ' with
+    τ' = 2 ln(255·op) + the slack, widened by BOX_WIDEN; op below 1/255
+    gives an empty box."""
+    sx, sy, op = 3.0, 1.5, 0.8
+    t = torch.tensor
+    box = gs_tile.splat_box(t([5.0]), t([7.0]), t([1 / sx ** 2]), t([0.0]),
+                            t([1 / sy ** 2]), t([op]))
+    tau = 2 * (np.log(op) - np.log(np.float32(gs_tile.ALPHA_MIN))) \
+        + gs_tile.BOX_TAU_SLACK
+    hx, hy = float(box[1] - 5.0), float(box[3] - 7.0)
+    np.testing.assert_allclose(hx, sx * np.sqrt(tau), rtol=1e-5)
+    np.testing.assert_allclose(hy, sy * np.sqrt(tau), rtol=1e-5)
+    empty = gs_tile.splat_box(t([5.0]), t([7.0]), t([1.0]), t([0.0]),
+                              t([1.0]), t([1 / 256]))
+    assert empty[0] == np.inf and empty[1] == -np.inf
+
+
 # ------------------------------------------------- on the card only
 def _card():
     if not torch.cuda.is_available():
@@ -396,20 +508,28 @@ def _card():
     return torch.device("cuda")
 
 
+CARD_CASES = dict(CASES, **{
+    # 64-px bins (4×4 sub-tiles): clusters of 16 CTAs
+    "64px": dict(W=128, H=70, bin_px=64, nchan=4, lens=(260, 0, 140, 700),
+                 sat_bin=3)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
 @pytest.mark.parametrize("merged", [True, False])
 def test_kernel_matches_plain_on_the_card(case, merged):
     dev = _card()
-    cfg = CASES[case]
+    cfg = CARD_CASES[case]
     data, bounds, nbx, nby = make_bins_case(0, **cfg)
+    rows, sprim = (x.to(dev) for x in rows_of_payload(data))
     d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
                                                               device=dev)
     args = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"], cfg["bin_px"])
-    before = gs_flat.composite_bins_fwd.launches
-    acc, tr, st = gs_flat.composite_bins_fwd(d, b, *args, merged=merged)
+    before = gs_flat.composite_bins_fwd_rows.launches
+    acc, tr, st = gs_flat.composite_bins_fwd_rows(rows, sprim, b, *args,
+                                                  merged=merged)
     torch.cuda.synchronize()
-    assert gs_flat.composite_bins_fwd.launches == before + 1
+    assert gs_flat.composite_bins_fwd_rows.launches == before + 1
     p_acc, p_tr, p_st = gs_flat.composite_bins_fwd_plain(d, b, *args,
                                                          merged=merged)
     assert torch.equal(st, p_st)
@@ -421,16 +541,16 @@ def test_kernel_matches_plain_on_the_card(case, merged):
 def test_kernel_rejects_bad_inputs_before_launch():
     dev = _card()
     data, bounds, nbx, nby = make_bins_case(0, **CASES["32px"])
-    d, b = torch.as_tensor(data, device=dev), torch.as_tensor(bounds,
-                                                              device=dev)
-    before = gs_flat.composite_bins_fwd.launches
-    with pytest.raises(ValueError):
-        gs_flat.composite_bins_fwd(d.double(), b, nbx, nby, 4, 64, 40)
-    with pytest.raises(ValueError):
-        gs_flat.composite_bins_fwd(d.t(), b, nbx, nby, 4, 64, 40)
-    with pytest.raises(ValueError):
-        gs_flat.composite_bins_fwd(d, b.cpu(), nbx, nby, 4, 64, 40)
-    assert gs_flat.composite_bins_fwd.launches == before
+    rows, sprim = (x.to(dev) for x in rows_of_payload(data))
+    b = torch.as_tensor(bounds, device=dev)
+    before = gs_flat.composite_bins_fwd_rows.launches
+    for bad in [(rows.double(), sprim, b), (rows.t(), sprim, b),
+                (rows[:, :12], sprim, b), (rows, sprim.int(), b),
+                (rows, sprim.cpu(), b), (rows, sprim, b.cpu()),
+                (rows[:0], sprim, b)]:
+        with pytest.raises(ValueError):
+            gs_flat.composite_bins_fwd_rows(*bad, nbx, nby, 4, 64, 40)
+    assert gs_flat.composite_bins_fwd_rows.launches == before
 
 
 def _bwd_case(case):
@@ -457,8 +577,10 @@ def test_bwd_kernel_matches_plain_on_the_card(case, merged):
     sprim, n = pair_splats(data)
     sprim = torch.as_tensor(sprim, device=dev)
     geo = (nbx, nby, cfg["nchan"], cfg["W"], cfg["H"])
-    acc, tr, st = gs_flat.composite_bins_fwd(d, b, *geo, cfg["bin_px"],
-                                             merged=merged)
+    rows, perm = (x.to(dev) for x in rows_of_payload(data))
+    acc, tr, st = gs_flat.composite_bins_fwd_rows(rows, perm, b, *geo,
+                                                  cfg["bin_px"],
+                                                  merged=merged)
     rng = np.random.RandomState(1)
     g_acc = torch.as_tensor(rng.randn(*acc.shape).astype(np.float32),
                             device=dev)
@@ -487,7 +609,7 @@ def test_bwd_kernel_rejects_bad_inputs_before_launch():
                                                               device=dev)
     sprim, n = pair_splats(data)
     sprim = torch.as_tensor(sprim, device=dev)
-    acc, tr, st = gs_flat.composite_bins_fwd(d, b, nbx, nby, 4, 64, 40)
+    acc, tr, st = gs_flat.composite_bins_fwd_plain(d, b, nbx, nby, 4, 64, 40)
     before = gs_flat.composite_bins_bwd_splats.launches
     rest = (nbx, nby, 4, 64, 40)
     for bad in [(sprim, n, tr, st, acc.double(), tr),
@@ -503,42 +625,55 @@ def test_bwd_kernel_rejects_bad_inputs_before_launch():
 
 # ------------------------------------------- tile compositor on the card
 def _tile_case_on(case, dev):
-    data, counts, grid_w, nchan, _, _ = make_tiles_case(**TILE_CASES[case])
-    return data.to(dev), counts.to(dev), grid_w, nchan
-
-
-def _tile_slots_on(case, dev):
-    """The case's (prim_idx, valid, number of splats) on `dev`."""
-    _, _, _, _, splats, bins = make_tiles_case(**TILE_CASES[case])
-    return bins.prim_idx.to(dev), bins.valid.to(dev), len(splats[0])
+    """The case's (tile data, counts, grid_w, nchan, splat rows, prim_idx,
+    valid, number of splats) on `dev`."""
+    data, counts, grid_w, nchan, splats, bins = make_tiles_case(
+        **TILE_CASES[case])
+    return (data.to(dev), counts.to(dev), grid_w, nchan,
+            tile_rows_of(splats).to(dev), bins.prim_idx.to(dev),
+            bins.valid.to(dev), len(splats[0]))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(TILE_CASES))
 def test_tile_kernels_match_plain_on_the_card(case):
     dev = _card()
-    data, counts, grid_w, nchan = _tile_case_on(case, dev)
-    prim_idx, valid, n = _tile_slots_on(case, dev)
-    fwd0 = gs_tile.composite_tiles_fwd.launches
+    data, counts, grid_w, nchan, rows, prim_idx, valid, n = _tile_case_on(
+        case, dev)
+    fwd0 = gs_tile.composite_tiles_fwd_rows.launches
     bwd0 = gs_tile.composite_tiles_bwd_splats.launches
-    acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
-    torch.cuda.synchronize()
-    assert gs_tile.composite_tiles_fwd.launches == fwd0 + 1
+    for keep in (False, True):
+        acc, tr, block = gs_tile.composite_tiles_fwd_rows(
+            rows, prim_idx, valid, counts, grid_w, nchan, keep_block=keep)
+        torch.cuda.synchronize()
+        assert (block is not None) == keep
+    assert gs_tile.composite_tiles_fwd_rows.launches == fwd0 + 2
     p_acc, p_tr = gs_tile.composite_tiles_fwd_plain(data, counts, grid_w,
                                                     nchan)
     assert float((acc - p_acc).abs().max()) <= 1e-4
     assert float((tr - p_tr).abs().max()) <= 1e-4
+    # the block: the gathered tile data on every slot below the count,
+    # zeros from the count to the end of the last walked chunk
+    m = data.shape[2]
+    slot = torch.arange(m, device=dev)[None, :]
+    below = slot < counts[:, None]
+    tail = ~below & (slot < (counts[:, None] + 127) // 128 * 128)
+    assert torch.equal(block.transpose(1, 2)[below],
+                       data.transpose(1, 2)[below])
+    assert not block.transpose(1, 2)[tail].any()
 
     rng = np.random.RandomState(1)
     g_acc = torch.as_tensor(rng.randn(*acc.shape).astype(np.float32),
                             device=dev)
     g_tr = torch.as_tensor(rng.randn(*tr.shape).astype(np.float32),
                            device=dev)
-    args = (data, counts, prim_idx, valid, n, grid_w, tr, g_acc, g_tr, nchan)
-    out = gs_tile.composite_tiles_bwd_splats(*args)
+    out = gs_tile.composite_tiles_bwd_splats(block, counts, prim_idx, valid,
+                                             n, grid_w, tr, g_acc, g_tr,
+                                             nchan)
     torch.cuda.synchronize()
     assert gs_tile.composite_tiles_bwd_splats.launches == bwd0 + 1
-    ref = gs_tile.composite_tiles_bwd_splats_plain(*args)
+    ref = gs_tile.composite_tiles_bwd_splats_plain(
+        data, counts, prim_idx, valid, n, grid_w, tr, g_acc, g_tr, nchan)
     assert out.shape == ref.shape == (n, 6 + nchan)
     for row in range(6 + nchan):
         scale = float(ref[:, row].abs().max())
@@ -547,6 +682,26 @@ def test_tile_kernels_match_plain_on_the_card(case):
     held = torch.zeros(n, dtype=torch.bool, device=dev)
     held[prim_idx[valid]] = True
     assert held.any() and not out[~held].any()
+
+
+@pytest.mark.cuda
+def test_tile_fwd_kernel_reads_invalid_slots_as_transparent_on_the_card():
+    """Slots marked invalid within the count composite nothing (their
+    opacity is taken times valid), as the gathered block's do."""
+    dev = _card()
+    data, counts, grid_w, nchan, rows, prim_idx, valid, n = _tile_case_on(
+        "two_chunks", dev)
+    valid = valid & (torch.arange(valid.shape[1], device=dev) % 5 != 3)
+    acc, tr, block = gs_tile.composite_tiles_fwd_rows(
+        rows, prim_idx, valid, counts, grid_w, nchan, keep_block=True)
+    p_acc, p_tr, p_block = gs_tile.composite_tiles_fwd_rows_plain(
+        rows, prim_idx, valid, counts, grid_w, nchan, keep_block=True)
+    assert float((acc - p_acc).abs().max()) <= 1e-4
+    assert float((tr - p_tr).abs().max()) <= 1e-4
+    below = torch.arange(valid.shape[1], device=dev)[None, :] \
+        < counts[:, None]
+    assert torch.equal(block.transpose(1, 2)[below],
+                       p_block.transpose(1, 2)[below])
 
 
 @pytest.mark.cuda
@@ -569,19 +724,26 @@ def test_tile_bwd_kernel_adds_only_valid_slots_on_the_card():
 @pytest.mark.cuda
 def test_tile_kernels_reject_bad_inputs_before_launch():
     dev = _card()
-    data, counts, grid_w, nchan = _tile_case_on("over_m", dev)
-    fwd0 = gs_tile.composite_tiles_fwd.launches
-    bad_fwd = [(data.double(), counts), (data.transpose(1, 2), counts),
-               (data, counts.cpu()), (data, counts.long()),
-               (data[:, :, :100].contiguous(), counts)]
-    for d, c in bad_fwd:
+    data, counts, grid_w, nchan, rows, prim_idx, valid, n = _tile_case_on(
+        "over_m", dev)
+    fwd0 = gs_tile.composite_tiles_fwd_rows.launches
+    bad_fwd = [(rows.double(), prim_idx, valid, counts),
+               (rows.t(), prim_idx, valid, counts),
+               (rows[:, :8], prim_idx, valid, counts),
+               (rows, prim_idx.int(), valid, counts),
+               (rows, prim_idx[:, :100].contiguous(), valid, counts),
+               (rows, prim_idx, valid.int(), counts),
+               (rows, prim_idx, valid, counts.cpu()),
+               (rows, prim_idx, valid, counts.long()),
+               (rows[:0], prim_idx, valid, counts)]
+    for args in bad_fwd:
         with pytest.raises(ValueError):
-            gs_tile.composite_tiles_fwd(d, c, grid_w, nchan)
-    assert gs_tile.composite_tiles_fwd.launches == fwd0
-    acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
-    prim_idx, valid, n = _tile_slots_on("over_m", dev)
+            gs_tile.composite_tiles_fwd_rows(*args, grid_w, nchan)
+    assert gs_tile.composite_tiles_fwd_rows.launches == fwd0
+    acc, tr, _ = gs_tile.composite_tiles_fwd_rows(rows, prim_idx, valid,
+                                                  counts, grid_w, nchan)
     bwd0 = gs_tile.composite_tiles_bwd_splats.launches
-    for g_acc, g_tr, idx, ok, rows in [
+    for g_acc, g_tr, idx, ok, nrow in [
             (acc.double(), tr, prim_idx, valid, n),
             (acc.transpose(1, 2), tr, prim_idx, valid, n),
             (acc, tr.cpu(), prim_idx, valid, n),
@@ -591,7 +753,7 @@ def test_tile_kernels_reject_bad_inputs_before_launch():
             (acc, tr, prim_idx[:, :64].contiguous(), valid, n),
             (acc, tr, prim_idx, valid, -1)]:
         with pytest.raises(ValueError):
-            gs_tile.composite_tiles_bwd_splats(data, counts, idx, ok, rows,
+            gs_tile.composite_tiles_bwd_splats(data, counts, idx, ok, nrow,
                                                grid_w, tr, g_acc, g_tr,
                                                nchan)
     assert gs_tile.composite_tiles_bwd_splats.launches == bwd0

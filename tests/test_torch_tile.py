@@ -25,7 +25,8 @@ from comfy3d_tpu_torch.ops import binning, gs_tile
 from comfy3d_tpu_torch.ops import gs_render as G
 
 from tests.test_torch_gs_render import _np, both_cameras, make_scene
-from tests.test_torch_kernels import TILE_CASES, make_tiles_case
+from tests.test_torch_kernels import (TILE_CASES, make_tiles_case,
+                                      tile_rows_of)
 
 
 # ------------------------------------------------------------ binning
@@ -124,9 +125,35 @@ def test_composite_tiles_fwd_plain_matches_pallas(case):
     # the case exercises what it claims to: several chunks, or a cut at M
     assert int(bins.count.max()) > gs_tile.CHUNK
     assert (case == "over_m") == bool((bins.count > data.shape[2]).any())
-    acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
+    acc, tr = gs_tile.composite_tiles_fwd_plain(data, counts, grid_w, nchan)
     np.testing.assert_allclose(_np(acc), r_acc, atol=1e-5, rtol=0)
     np.testing.assert_allclose(_np(tr), r_tr, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("keep_block", [True, False])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_composite_tiles_fwd_rows_plain_matches_pallas(case, keep_block):
+    """The forward that takes splat rows and slot indices (the CPU branch
+    of `composite_tiles_fwd_rows`) against the Pallas kernel on the
+    gathered block; the block it returns is the JAX path's gather."""
+    data, counts, grid_w, nchan, bins, r_acc, r_tr, *_ = _pallas_case(case)
+    _, _, _, _, splats, _ = make_tiles_case(**TILE_CASES[case])
+    rows = tile_rows_of(splats)
+    acc, tr, block = gs_tile.composite_tiles_fwd_rows(
+        rows, bins.prim_idx, bins.valid, counts, grid_w, nchan,
+        keep_block=keep_block)
+    np.testing.assert_allclose(_np(acc), r_acc, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_np(tr), r_tr, atol=1e-5, rtol=0)
+    if not keep_block:
+        assert block is None
+        return
+    m2d, conic, op, chans, _ = splats
+    ref = np.asarray(JG._build_tile_data(
+        jnp.asarray(m2d), jnp.asarray(conic), jnp.asarray(op),
+        jnp.asarray(chans), jnp.asarray(_np(bins.prim_idx)),
+        jnp.asarray(_np(bins.valid))))
+    np.testing.assert_array_equal(_np(block)[:, :ref.shape[1]], ref)
+    assert not _np(block)[:, ref.shape[1]:].any()
 
 
 @pytest.mark.parametrize("form", ["slots", "splats"])
@@ -246,22 +273,54 @@ def test_tile_wrappers_run_the_plain_version_only_on_the_cpu():
     data, counts, grid_w, nchan, splats, bins = make_tiles_case(
         **TILE_CASES["over_m"])
     n = len(splats[0])
-    acc, tr = gs_tile.composite_tiles_fwd(data, counts, grid_w, nchan)
+    rows = tile_rows_of(splats)
+    slots = (bins.prim_idx, bins.valid, counts)
+    acc, tr, _ = gs_tile.composite_tiles_fwd_rows(rows, *slots, grid_w,
+                                                  nchan)
     with pytest.raises(ValueError, match="cuda"):
-        gs_tile.composite_tiles_fwd(data.to("meta"), counts.to("meta"),
-                                    grid_w, nchan)
+        gs_tile.composite_tiles_fwd_rows(
+            rows.to("meta"), *[x.to("meta") for x in slots], grid_w, nchan)
     meta = [x.to("meta") for x in (data, counts, bins.prim_idx, bins.valid,
                                     tr, acc, tr)]
     with pytest.raises(ValueError, match="cuda"):
         gs_tile.composite_tiles_bwd_splats(*meta[:4], n, grid_w, *meta[4:],
                                            nchan)
     with pytest.raises(ValueError, match="counts"):
-        gs_tile.composite_tiles_fwd(data, counts.long(), grid_w, nchan)
-    slots = (bins.prim_idx, bins.valid, n, grid_w)
+        gs_tile.composite_tiles_fwd_rows(rows, *slots[:2], counts.long(),
+                                         grid_w, nchan)
+    with pytest.raises(ValueError, match="rows"):
+        gs_tile.composite_tiles_fwd_rows(rows[:, :12], *slots, grid_w, nchan)
+    with pytest.raises(ValueError, match="valid"):
+        gs_tile.composite_tiles_fwd_rows(rows, bins.prim_idx,
+                                         bins.valid.int(), counts, grid_w,
+                                         nchan)
     with pytest.raises(ValueError, match="g_acc"):
-        gs_tile.composite_tiles_bwd_splats(data, counts, *slots, tr,
+        gs_tile.composite_tiles_bwd_splats(data, counts, bins.prim_idx,
+                                           bins.valid, n, grid_w, tr,
                                            acc[:, :1], tr, nchan)
     with pytest.raises(ValueError, match="valid"):
         gs_tile.composite_tiles_bwd_splats(
             data, counts, bins.prim_idx, bins.valid.int(), n, grid_w, tr,
             acc, tr, nchan)
+
+
+@pytest.mark.parametrize("backend", ["flat", "tile"])
+def test_keep_block_on_and_off_give_the_same_outputs(backend):
+    """A render that can be differentiated (the tile node then keeps the
+    block for its backward; the flat node saves the rows) and one that
+    cannot give the same image, alpha and depth; the gradients reach every
+    input and are finite."""
+    W, H = 48, 40
+    _, tc = both_cameras(10.0, 25.0, 3.0, W, H)
+    arrs = [torch.as_tensor(a) for a in make_scene(1, n=40)]
+    kw = dict(backend=backend, max_per_tile=128)
+    with torch.no_grad():
+        ref = G.render_arrays(*arrs, tc.w2c, tc.intrinsics, W, H, **kw)
+    ins = [a.clone().requires_grad_(True) for a in arrs[:5]]
+    out = G.render_arrays(*ins, arrs[5], tc.w2c, tc.intrinsics, W, H, **kw)
+    for key in ("image", "alpha", "depth"):
+        assert torch.equal(out[key].detach(), ref[key]), key
+    (out["image"].sum() + out["alpha"].sum()).backward()
+    for x in ins:
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+        assert bool(x.grad.any())

@@ -122,7 +122,8 @@ def test_bwd_wrapper_checks_its_inputs():
     args = (torch.as_tensor(data), torch.as_tensor(bounds))
     sprim, n = pair_splats(data)
     sprim = torch.as_tensor(sprim)
-    acc, trans, stops = gs_flat.composite_bins_fwd(*args, nbx, nby, 4, 64, 40)
+    acc, trans, stops = gs_flat.composite_bins_fwd_plain(*args, nbx, nby, 4,
+                                                         64, 40)
     rest = (nbx, nby, 4, 64, 40)
     with pytest.raises(ValueError, match="g_acc"):
         gs_flat.composite_bins_bwd_splats(*args, sprim, n, trans, stops,

@@ -49,15 +49,39 @@ Phases, in order; the first failure ends the run with a non-zero exit:
   9. the tile render path — phase 4's GS-PLY from the same 8 views with
      `render(..., backend="tile", max_per_tile=1024)`, launch counts reset
      just before and read just after; tile-vs-flat PSNR per view and on the
-     20k/256² parity scene; times of a frame, the kernel, its plain
+     20k/256² parity scene; on that scene `render_arrays` at
+     `max_per_tile=64, chunk=8` (lists padded to 128 slots) through the
+     kernels against the same call through their plain versions, outputs
+     and gradients with phases 3 and 5's gates, one launch of each; times of a frame, the kernel, its plain
      version, `bin_primitives` and the gather the kernel took in, a profile
      of one frame (no splat-row gather) and the per-splat box on view 0;
  10. the tile train path — the learning check of phase 6 and phase 7's 10
      steps with `GSTrainConfig(backend="tile")` (M = 512), with launch
      counts, step and kernel times, a profile of one step (no splat-row
-     gather) and phase 7's view-0 measures.
-It prints one `{"kernels": [...]}` line, then the `nvidia-smi` line, and as
-its last line `{"ok": true, "device": {...}}`. With `--out`, the full record
+     gather) and phase 7's view-0 measures;
+ 11. TripoSR image → mesh (`TripoSRPipeline`, `TripoSRConfig()` widths:
+     ViT-B/16 on a 512² image, a 1,024-channel backbone over 3×32² tokens,
+     40-channel 64² triplanes, a 10-layer NeRF MLP; weights from a seed).
+     It reaches none of the compositor kernels. a. the card against the
+     port's CPU path with TF32 off, at full width but 2 ViT and 2 backbone
+     layers: scene codes, and σ and rgb at 32,768 probes, each within 1e-3
+     of its largest value; b. full depth: `scene_codes` by CUDA events
+     (warm-up, then 5 runs; TF32 off, then on) and peak memory; c. an
+     analytic sphere (radius 0.5 in the 0.87 box) decoded hierarchically
+     at 257³ and swept + welded on the card and on the CPU: equal counts
+     and faces, vertices within 1e-5, area within 1 % of π, no overflow;
+     d. `extract_mesh` at 256 (→ 257³) with the threshold at the 98th
+     percentile of σ at 32,768 seeded probes, 2 M triangles, clipped on
+     overflow (a random-weight field is a noise surface), with colours:
+     the total time of one call, then its split from a profile of one
+     more call (the host and device ms of each of `extract_mesh`'s
+     spans: decode, sweep + weld, the copy to the host, colours, the
+     host's vertex normals), counts, the overflow flag, and the mesh
+     through GLB and back; e. one 128² orbit render (finite, alpha in
+     [0, 1]).
+It prints a `{"triposr": {...}}` line, one `{"kernels": [...]}` line, then
+the `nvidia-smi` line, and as its last line `{"ok": true, "device":
+{...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
 Without a CUDA device, or without the repository beside this file, it exits
 non-zero and prints no result.
@@ -1146,6 +1170,82 @@ def tile_bwd_vs_plain(label, inp, fwd, seed):
     return splat_rows_vs_plain(f"tile {label}", k, p, rows, idx)
 
 
+def tile_cap_below_chunk(parity_scene):
+    """`render_arrays(backend="tile", max_per_tile=64, chunk=8)` on the
+    card, whose lists the renderer pads to the kernels' 128-slot chunks,
+    against the same call with the plain versions in place of the two
+    kernel wrappers, on the same inputs (the parity scene, its scales made
+    anisotropic): outputs and the gradients of a seeded random cotangent,
+    with the kernels' launch counts."""
+    import torch
+    from comfy3d_tpu_torch.ops import gs_tile
+    from comfy3d_tpu_torch.ops import gs_render as G
+    max_per_tile, chunk = 64, 8
+    p_splat, p_cam = parity_scene
+    w2c = p_cam.w2c.reshape(-1, 4, 4)[0]
+    intr = p_cam.intrinsics.reshape(-1, 4)[0]
+    W, H = p_cam.width, p_cam.height
+    gen = torch.Generator(device=w2c.device).manual_seed(9)
+    # the scene's scales made anisotropic, so the rotations take gradients
+    leaves = [x.detach().clone() for x in (
+        p_splat.xyz, p_splat.scale * (0.5 + torch.rand(
+            p_splat.scale.shape, generator=gen, device=w2c.device)),
+        p_splat.rotation, p_splat.opacity,
+        p_splat.colors_toward(p_cam.campos.reshape(-1, 3)[0]))]
+    cot = {k: torch.rand(shape, generator=gen, device=w2c.device)
+           for k, shape in (("image", (H, W, 3)), ("alpha", (H, W)),
+                            ("depth", (H, W)))}
+
+    def run():
+        xs = [x.clone().requires_grad_() for x in leaves]
+        out = G.render_arrays(*xs, p_splat.alive, w2c, intr, W, H,
+                              backend="tile", max_per_tile=max_per_tile,
+                              chunk=chunk)
+        sum((out[k] * c).sum() for k, c in cot.items()).backward()
+        return out, [x.grad for x in xs]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    out, grads = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    kernels = (gs_tile.composite_tiles_fwd_rows,
+               gs_tile.composite_tiles_bwd_splats)
+    gs_tile.composite_tiles_fwd_rows = gs_tile.composite_tiles_fwd_rows_plain
+    gs_tile.composite_tiles_bwd_splats = \
+        gs_tile.composite_tiles_bwd_splats_plain
+    try:
+        ref, ref_grads = run()
+    finally:
+        (gs_tile.composite_tiles_fwd_rows,
+         gs_tile.composite_tiles_bwd_splats) = kernels
+    expect_launches(launches, "tile", 1, 1, f"the tile path at "
+                    f"max_per_tile={max_per_tile}, chunk={chunk}")
+    rec = {"max_per_tile": max_per_tile, "chunk": chunk,
+           "launches": launches, "size": [W, H],
+           "splats": int(leaves[0].shape[0]),
+           "overflow": bool(out["overflow"])}
+    for k in ("image", "alpha", "depth"):
+        a, b = out[k].detach(), ref[k].detach()
+        scale = max(1.0, float(b.abs().max()))
+        rec[f"{k}_max_abs_err"] = float((a - b).abs().max())
+        check(rec[f"{k}_max_abs_err"] <= TOL_ABS * scale,
+              f"tile cap {max_per_tile}: {k} err {rec[k + '_max_abs_err']}")
+    for name, g, r in zip(("xyz", "scale", "rotation", "opacity", "colors"),
+                          grads, ref_grads):
+        check(bool(r.abs().max() > 0), f"tile cap: d {name} is all zero")
+        rec[f"d_{name}_rel_err"] = float((g - r).abs().max()
+                                         / r.abs().max())
+        check(rec[f"d_{name}_rel_err"] <= TOL_BWD_REL,
+              f"tile cap {max_per_tile}: d {name} rel err "
+              f"{rec['d_' + name + '_rel_err']} > {TOL_BWD_REL}")
+    # the cap bites: some tile held more splats than it keeps
+    check(rec["overflow"], f"no tile list reached {max_per_tile}")
+    log(f"tile path at max_per_tile={max_per_tile}, chunk={chunk} (lists "
+        f"padded to {gs_tile.CHUNK} slots), kernels vs plain: {rec}")
+    return rec
+
+
 def tile_render_path(dev, splat, cams, cam0, flat_imgs, parity_scene):
     """Phase 9: the tile render path, 8 views at 800², M = 1024 (the sizes
     are read from `splat` and `cams`)."""
@@ -1181,6 +1281,7 @@ def tile_render_path(dev, splat, cams, cam0, flat_imgs, parity_scene):
         f"{parity_db:.2f} dB")
     check(parity_db >= TOL_TILE_FLAT_DB, f"tile vs flat on the parity "
           f"scene: {parity_db:.2f} dB < {TOL_TILE_FLAT_DB}")
+    cap_64 = tile_cap_below_chunk(parity_scene)
 
     inp = tile_inputs(splat, cam0, 1024)
     kargs = tile_kernel_args(inp, False)
@@ -1215,8 +1316,263 @@ def tile_render_path(dev, splat, cams, cam0, flat_imgs, parity_scene):
                launches=launches, mean_alpha=mean_alpha,
                overflow_views=int(out["overflow"].sum()),
                vs_flat_psnr_db=vs_flat, parity_20k_256_psnr_db=parity_db,
-               first_call_8_views_s=render8_s, box=box)
+               first_call_8_views_s=render8_s, box=box,
+               cap_64_chunk_8=cap_64)
     return rec, times, prof, tile_fwd_bound(inp, box)
+
+
+# ------------------------------------------------------------------ #
+# TripoSR image → mesh (phase 11)
+# ------------------------------------------------------------------ #
+TOL_TRIPOSR_REL = 1e-3   # card vs CPU, of the largest value, TF32 off
+TOL_MESH_V = 1e-5        # analytic mesh, card vs CPU
+PROBES = 32768
+CPU_LAYERS = 2           # ViT and backbone layers of the card-vs-CPU check
+MESH_RES = 256           # extract_mesh's resolution (bumped to 257)
+ANALYTIC_RES = 257       # the analytic sphere's lattice
+RENDER_PX = 128          # the orbit render's size
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|, with b on the CPU."""
+    a = a.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def sphere_density(pts):
+    """0.5 − |p|: a sphere of radius 0.5, positive inside, in separate
+    elementwise operations so every device rounds alike. The square root
+    is taken in float64: PyTorch's CUDA float32 `sqrt` differs from the
+    CPU's correctly rounded one by an ulp on 0.6 % of uniform inputs in
+    [0, 1) (measured on an H100)."""
+    import torch
+    x, y, z = pts.unbind(-1)
+    return 0.5 - torch.sqrt((x * x + y * y + z * z).double()).float()
+
+
+def mesh_area(v, f):
+    a, b, c = (v[f[:, i].long()] for i in range(3))
+    return float(0.5 * (b - a).cross(c - a, dim=-1).norm(dim=-1).sum())
+
+
+def profile_spans(fn, names):
+    """One call of fn under torch.profiler: its wall seconds and, for each
+    `record_function` span in `names`, the host ms the span lasted and the
+    device ms of the kernels launched inside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0))
+
+    spans = {}
+    for name in names:
+        evs = [e for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU]
+        spans[name] = {"calls": len(evs),
+                       "host_ms": sum(e.cpu_time_total for e in evs) / 1e3,
+                       "device_ms": sum(dev_us(e) for e in evs) / 1e3}
+    return out, wall_s, spans
+
+
+def triposr_path(dev, asset_dir, smi_line):
+    """Phase 11, at `TripoSRConfig()`'s widths."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models.triposr import (TripoSRConfig,
+                                                  TripoSRPipeline)
+    from comfy3d_tpu_torch.models.triposr.pipeline import EXTRACT_STAGES
+    from comfy3d_tpu_torch.ops import tetra, volume
+
+    cfg = TripoSRConfig()
+    r = cfg.radius
+    s = cfg.cond_image_size
+    rec = {"card": smi_line, "config": dataclasses.asdict(cfg), "seed": 0}
+    img = np.random.RandomState(0).rand(1, s, s, 3).astype(np.float32)
+    probe_np = np.random.RandomState(2).uniform(
+        -r, r, (PROBES, 3)).astype(np.float32)
+    cpu = torch.device("cpu")
+
+    # a. the card against the port's CPU path, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    small = dataclasses.replace(cfg, vit_layers=CPU_LAYERS,
+                                num_layers=CPU_LAYERS)
+    th = time.perf_counter()
+    host = TripoSRPipeline.init_random(0, small, device=cpu)
+    with torch.no_grad():
+        h_codes = host.scene_codes(img)
+        h_sig, h_rgb = host.model.query(h_codes[0], torch.as_tensor(probe_np))
+    host_s = time.perf_counter() - th
+    del host
+    card = TripoSRPipeline.init_random(0, small, device=dev)
+    with torch.no_grad():
+        c_codes = card.scene_codes(img)
+        c_sig, c_rgb = card.model.query(c_codes[0],
+                                        torch.as_tensor(probe_np, device=dev))
+    del card
+    parity = {"layers": CPU_LAYERS, "host_s": host_s,
+              "codes_rel_err": rel_err(c_codes, h_codes),
+              "sigma_rel_err": rel_err(c_sig, h_sig),
+              "rgb_rel_err": rel_err(c_rgb, h_rgb),
+              "codes_shape": list(c_codes.shape)}
+    log(f"triposr a. card vs CPU ({CPU_LAYERS}+{CPU_LAYERS} layers, TF32 "
+        f"off; host {host_s:.1f} s): {parity}")
+    check(tuple(c_codes.shape) == (1, 3, cfg.triplane_channels,
+                                   2 * cfg.plane_size, 2 * cfg.plane_size),
+          f"scene codes {tuple(c_codes.shape)}")
+    for k in ("codes", "sigma", "rgb"):
+        check(parity[f"{k}_rel_err"] <= TOL_TRIPOSR_REL,
+              f"triposr {k}: card vs CPU {parity[k + '_rel_err']:.3g} of "
+              f"the largest value")
+    rec["card_vs_cpu"] = parity
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. full depth: scene codes by CUDA events, peak memory
+    t0 = time.perf_counter()
+    pipe = TripoSRPipeline.init_random(0, cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    img_dev = torch.as_tensor(img, device=dev)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in pipe.model.parameters())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    codes_ms = cuda_ms(lambda: pipe.scene_codes(img_dev), 5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        codes_tf32_ms = cuda_ms(lambda: pipe.scene_codes(img_dev), 5,
+                                warmup=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    codes = pipe.scene_codes(img_dev)
+    check(bool(torch.isfinite(codes).all()), "non-finite scene codes")
+    rec["scene_codes"] = {
+        "ms": codes_ms, "ms_tf32": codes_tf32_ms, "init_s": init_s,
+        "peak_bytes": peak, "weight_bytes": weight_bytes,
+        "params": sum(p.numel() for p in pipe.model.parameters())}
+    log(f"triposr b. full depth: {rec['scene_codes']}")
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. an analytic sphere at 257³, card against CPU
+    t0 = time.perf_counter()
+    analytic = {}
+    for d in (dev, cpu):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        grid = volume.decode_grid(sphere_density, ANALYTIC_RES, r, iso=0.0,
+                                  device=d)
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        v, f, nv, nf = tetra.extract_isosurface_device(
+            grid, iso=0.0, bounds=(-r, r), max_tris=2_000_000,
+            on_overflow="raise")
+        torch.cuda.synchronize()
+        analytic[d.type] = dict(v=v[:nv].cpu(), f=f[:nf].cpu(), nv=nv, nf=nf,
+                                decode_s=tb - ta,
+                                sweep_weld_s=time.perf_counter() - tb)
+        del grid
+    a, b = analytic[dev.type], analytic["cpu"]
+    area = mesh_area(a["v"], a["f"])
+    sphere = {"nv": a["nv"], "nf": a["nf"], "cpu_nv": b["nv"],
+              "cpu_nf": b["nf"], "area": area,
+              "area_rel_err": abs(area - math.pi) / math.pi,
+              "decode_s": a["decode_s"], "sweep_weld_s": a["sweep_weld_s"],
+              "cpu_decode_s": b["decode_s"],
+              "cpu_sweep_weld_s": b["sweep_weld_s"]}
+    check((a["nv"], a["nf"]) == (b["nv"], b["nf"]),
+          f"analytic mesh counts: card {a['nv']}/{a['nf']}, CPU "
+          f"{b['nv']}/{b['nf']}")
+    check(torch.equal(a["f"], b["f"]), "analytic mesh: faces differ")
+    sphere["v_max_abs_err"] = float((a["v"] - b["v"]).abs().max())
+    check(sphere["v_max_abs_err"] <= TOL_MESH_V,
+          f"analytic mesh vertices: {sphere['v_max_abs_err']:.3g}")
+    check(sphere["area_rel_err"] <= 0.01, f"analytic area {area:.5f}")
+    log(f"triposr c. analytic sphere at {ANALYTIC_RES}³: {sphere}")
+    rec["analytic_sphere"] = sphere
+    del analytic, a, b
+    rec["c_s"] = time.perf_counter() - t0
+
+    # d. image → mesh at full width
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sig = pipe.model.query(codes[0], torch.as_tensor(probe_np,
+                                                         device=dev))[0]
+    threshold = float(np.quantile(sig.cpu().numpy(), 0.98))
+    kw = dict(resolution=MESH_RES, threshold=threshold,
+              max_tris=2_000_000, on_overflow="warn", with_color=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pipe.extract_mesh(codes[0], **kw)                     # warm-up
+        torch.cuda.synchronize()
+        tm = time.perf_counter()
+        mesh = pipe.extract_mesh(codes[0], **kw)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - tm
+        # the split: the spans of one more call, profiled
+        _, profiled_s, spans = profile_spans(
+            lambda: pipe.extract_mesh(codes[0], **kw), EXTRACT_STAGES)
+    overflow = [str(w.message) for w in caught if "overflow" in
+                str(w.message)]
+    check(all(sp["calls"] == 1 for sp in spans.values()),
+          f"extract_mesh's spans: {spans}")
+    res = MESH_RES + 1 if volume.hier_plan(MESH_RES) is None else MESH_RES
+    check(mesh.num_vertices > 0 and mesh.num_faces > 0, "empty mesh")
+    check(bool(np.isfinite(mesh.v).all()) and
+          np.abs(mesh.v).max() <= r + 1e-5, "mesh vertices off the box")
+    check(int(mesh.f.max()) < mesh.num_vertices, "faces past the vertices")
+    check(mesh.vc is not None and mesh.vc.shape == mesh.v.shape,
+          "no vertex colours")
+    glb = os.path.join(asset_dir, "triposr_mesh.glb")
+    mesh.write(glb)
+    back = Mesh.load(glb)
+    check(np.array_equal(back.v, mesh.v) and np.array_equal(back.f, mesh.f),
+          "GLB round trip changed the mesh")
+    rec["image_to_mesh"] = {
+        "resolution": res, "threshold": threshold, "max_tris": 2_000_000,
+        "nv": mesh.num_vertices, "nf": mesh.num_faces,
+        "overflow": bool(overflow), "overflow_warnings": overflow,
+        "total_s": total_s, "profiled_total_s": profiled_s,
+        "stages": {k.split(".")[-1]: v for k, v in spans.items()},
+        "glb_bytes": os.path.getsize(glb)}
+    log(f"triposr d. image → mesh at {res}³: {rec['image_to_mesh']}")
+    rec["d_s"] = time.perf_counter() - t0
+
+    # e. one orbit render
+    t0 = time.perf_counter()
+    cam = Camera.from_orbit(0.0, 30.0, 1.9, fovy_deg=40.0, width=RENDER_PX,
+                            height=RENDER_PX, device=dev)
+    out = pipe.render(codes[0], cam)
+    rgb, alpha = out["rgb"], out["alpha"]
+    check(tuple(rgb.shape) == (RENDER_PX, RENDER_PX, 3),
+          f"render shape {tuple(rgb.shape)}")
+    check(all(bool(torch.isfinite(out[k]).all()) for k in out),
+          "non-finite render")
+    check(float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0 + 1e-6,
+          f"alpha in [{float(alpha.min())}, {float(alpha.max())}]")
+    torch.cuda.synchronize()
+    rec["render"] = {"px": RENDER_PX, "mean_alpha": float(alpha.mean()),
+                     "s": time.perf_counter() - t0}
+    log(f"triposr e. {RENDER_PX}² render: {rec['render']}")
+    rec["e_s"] = rec["render"]["s"]
+    return rec
 
 
 def main(out_path=None) -> int:
@@ -1236,6 +1592,15 @@ def main(out_path=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     record = {}
+    phase_s = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, under `name` (phases in order)."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -1247,6 +1612,7 @@ def main(out_path=None) -> int:
                             sm_clock_max_mhz=clock_mhz,
                             torch=torch.__version__, cuda=torch.version.cuda)
 
+    lap("card")
     # 2. build
     t0 = time.perf_counter()
     _build.build()
@@ -1261,6 +1627,7 @@ def main(out_path=None) -> int:
             log(f"  {src}: {line}")
     record.update(build_s=build_s, ptxas=ptxas)
 
+    lap("2_build")
     # 3. kernel vs plain on the card
     poses = compose_orbit_camposes(
         [2.2] * 8, [15.0, 30.0, 0.0, -15.0] * 2,
@@ -1296,6 +1663,7 @@ def main(out_path=None) -> int:
         del wide
     record["kernel_vs_plain"] = compare
 
+    lap("3_flat_kernels")
     # 4. the main path: GS-PLY → load on the card → 8 orbit views at 800²
     asset_dir = os.path.join(_build.BUILD_DIR, "chip_smoke")
     os.makedirs(asset_dir, exist_ok=True)
@@ -1412,6 +1780,7 @@ def main(out_path=None) -> int:
                                  first_call_8_views_s=render8_s, box=box),
                   times=times, profile=prof)
 
+    lap("4_render_path")
     # 5. the compositor backward vs its plain version, both scenes and modes
     bwd_compare = {label: bwd_vs_plain(label, inputs[scene_of[label]],
                                        fwd_out[label], seed)
@@ -1420,6 +1789,7 @@ def main(out_path=None) -> int:
     del fwd_out, stops_by
     torch.cuda.empty_cache()
 
+    lap("5_flat_backward")
     # 6. the trainer learns; 7. the training path at full width
     record["trainer_learns"] = trainer_learns(dev)
     train_rec, train_times, train_prof, bwd_bound_rec = train_full_width(
@@ -1428,6 +1798,7 @@ def main(out_path=None) -> int:
                   train_profile=train_prof, bwd_bound=bwd_bound_rec)
     torch.cuda.empty_cache()
 
+    lap("6_7_train_path")
     # 8. the tile compositor, forward and backward, vs its plain versions
     tile_cmp, tile_bwd_cmp = {}, {}
     for seed, (sname, m) in enumerate((("20k_256", 512), ("100k_800", 1024))):
@@ -1439,6 +1810,7 @@ def main(out_path=None) -> int:
     record.update(tile_vs_plain=tile_cmp, tile_bwd_vs_plain=tile_bwd_cmp)
     torch.cuda.empty_cache()
 
+    lap("8_tile_kernels")
     # 9. the tile render path; 10. the tile train path
     tile_rec, tile_times, tile_prof, tile_fwd_bound_rec = tile_render_path(
         dev, splat, cams, cam0, img, scenes["20k_256"])
@@ -1454,6 +1826,19 @@ def main(out_path=None) -> int:
                   tile_train_times=tile_train_times,
                   tile_train_profile=tile_train_prof,
                   tile_bwd_bound=tile_bwd_bound_rec)
+    del splat, cams
+    torch.cuda.empty_cache()
+
+    lap("9_10_tile_paths")
+    # 11. TripoSR image → mesh; no compositor kernel may launch
+    reset_launches()
+    t0 = time.perf_counter()
+    record["triposr"] = triposr_path(dev, asset_dir, smi_line)
+    record["triposr"]["s"] = time.perf_counter() - t0
+    record["triposr"]["launches"] = read_launches()
+    check(not any(record["triposr"]["launches"].values()),
+          f"the TripoSR path launched a compositor kernel: "
+          f"{record['triposr']['launches']}")
 
     def by_path(name):
         return {"render_8_views": launches[name],
@@ -1535,6 +1920,8 @@ def main(out_path=None) -> int:
         "old_scatter_ms": tile_train_times["old_scatter_ms"],
         "old_design": tile_train_rec["old_design"],
     }
+    lap("11_triposr")
+    record["phase_s"] = phase_s
     record["kernels"] = [kernel, kernel_bwd, kernel_tile_fwd, kernel_tile_bwd]
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
@@ -1557,6 +1944,8 @@ def main(out_path=None) -> int:
                           k: v for k, v in tile_train_prof.items()
                           if k != "top"},
                       "tile_trainer_learns": record["tile_trainer_learns"]}))
+    print(json.dumps({"phase_s": phase_s}))
+    print(json.dumps({"triposr": record["triposr"]}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 The JAX package `comfy3d_tpu` stays the reference; this package mirrors its
 module names so each module's counterpart is easy to find
-(`comfy3d_tpu_torch.ops.gs_render` ↔ `comfy3d_tpu.ops.gs_render`). Plain
+(`comfy3d_tpu_torch/ops/gs_render.py` ↔ `comfy3d_tpu/ops/gs_render.py`). Plain
 tensor code is PyTorch; each kernel the JAX package wrote in Pallas becomes a
 hand-written CUDA kernel under `csrc/`, built with `nvcc` at first use.
 

@@ -23,7 +23,8 @@ What differs from the JAX module:
     kernels on the card, their plain versions on the CPU): "flat", the
     coarse-bin path, or "tile", the per-16-px-tile path whose lists are cut
     at `max_per_tile`; the JAX names map onto them ("pallas" and "auto" →
-    "flat", "xla" → "tile"), and `chunk` has no effect;
+    "flat", "xla" → "tile"); `chunk` only sets the tile path's rule that
+    `max_per_tile` is a positive multiple of it;
   * randomness is explicit: a step takes its `view_idx` and `bgs`, densify
     its two standard-normal noise tensors, and `train` draws all of them
     from one `torch.Generator`;
@@ -82,6 +83,10 @@ class GSTrainConfig:
     max_per_tile: int = 512
     chunk: int = 16
     backend: str = "auto"
+
+    def __post_init__(self):
+        if gs_render.BACKENDS.get(self.backend) == "tile":
+            gs_render.check_tile_cap(self.max_per_tile, self.chunk)
 
 
 def exponential_lr(step, lr_init, lr_final, delay_mult, max_steps) -> float:

@@ -1,11 +1,14 @@
-"""The JAX package's containers as numpy arrays → the port's tensors.
+"""The JAX package's containers and params as numpy arrays → the port's
+tensors.
 
-`comfy3d_tpu.core.gaussian.GaussianSplat` and `comfy3d_tpu.core.camera.Camera`
+`GaussianSplat` and `Camera` of `comfy3d_tpu/core/{gaussian,camera}.py`
 hold their state in six and two arrays, and
-`comfy3d_tpu.algorithms.gs_trainer.GSTrainState` in dicts of arrays;
+`GSTrainState` of `comfy3d_tpu/algorithms/gs_trainer.py` in dicts of arrays;
 handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
-/ `GSTrainState` with the same state, so both packages can compute on
-identical inputs.
+/ `GSTrainState` with the same state. The JAX package's model params (nested
+dicts of arrays) become the port's native-layout state dicts
+(`triposr_state_dict_from_flax` and the per-block functions below it), so
+both packages can compute on identical inputs and weights.
 """
 
 from __future__ import annotations
@@ -68,3 +71,125 @@ def train_state_from_numpy(state: Mapping, device) -> GSTrainState:
                               device=device),
         grad_accum=f32(state["grad_accum"]), denom=f32(state["denom"]),
         max_radii=f32(state["max_radii"]), step=int(state["step"]))
+
+
+# ------------------------------------------------------------------ #
+# the JAX package's model params (numpy) → native torch state dicts
+# ------------------------------------------------------------------ #
+def _join(prefix: str, sd: Mapping) -> dict:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def _dense(p) -> dict:
+    """A JAX Dense {kernel [in, out], bias} → nn.Linear {weight, bias}."""
+    out = {"weight": np.ascontiguousarray(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out["bias"] = np.asarray(p["bias"])
+    return out
+
+
+def _norm(p) -> dict:
+    return {"weight": np.asarray(p["scale"]), "bias": np.asarray(p["bias"])}
+
+
+def attention_state_dict_from_flax(p) -> dict:
+    sd = {}
+    for name in ("to_q", "to_k", "to_v"):
+        sd.update(_join(name, _dense(p[name])))
+    sd.update(_join("to_out.0", _dense(p["to_out_0"])))
+    return sd
+
+
+def feedforward_state_dict_from_flax(p) -> dict:
+    return {**_join("net.0.proj", _dense(p["net_0"]["proj"])),
+            **_join("net.2", _dense(p["net_2"]))}
+
+
+def basic_block_state_dict_from_flax(p) -> dict:
+    sd = {}
+    for name in ("norm1", "norm2", "norm3"):
+        if name in p:
+            sd.update(_join(name, _norm(p[name])))
+    for name in ("attn1", "attn2"):
+        if name in p:
+            sd.update(_join(name, attention_state_dict_from_flax(p[name])))
+    sd.update(_join("ff", feedforward_state_dict_from_flax(p["ff"])))
+    return sd
+
+
+def transformer1d_state_dict_from_flax(p) -> dict:
+    sd = {**_join("norm", _norm(p["norm"])),
+          **_join("proj_in", _dense(p["proj_in"])),
+          **_join("proj_out", _dense(p["proj_out"]))}
+    i = 0
+    while f"blocks_{i}" in p:
+        sd.update(_join(f"transformer_blocks.{i}",
+                        basic_block_state_dict_from_flax(p[f"blocks_{i}"])))
+        i += 1
+    return sd
+
+
+def vit_self_attention_state_dict_from_flax(p) -> dict:
+    sd = {}
+    for name in ("query", "key", "value"):
+        sd.update(_join(f"attention.{name}", _dense(p[name])))
+    sd.update(_join("output.dense", _dense(p["out"])))
+    return sd
+
+
+def vit_block_state_dict_from_flax(p) -> dict:
+    return {**_join("layernorm_before", _norm(p["ln1"])),
+            **_join("attention",
+                    vit_self_attention_state_dict_from_flax(p["attn"])),
+            **_join("layernorm_after", _norm(p["ln2"])),
+            **_join("intermediate.dense", _dense(p["mlp_in"])),
+            **_join("output.dense", _dense(p["mlp_out"]))}
+
+
+def vit_state_dict_from_flax(p) -> dict:
+    """HF's pooler.dense, which the JAX model lacks and no output reads,
+    gets zero weights, so the port's ViT loads strictly."""
+    kernel = np.asarray(p["patch_embed"]["kernel"])       # [kh, kw, I, O]
+    sd = {"embeddings.cls_token": np.asarray(p["cls_token"]),
+          "embeddings.position_embeddings": np.asarray(p["pos_embed"]),
+          "embeddings.patch_embeddings.projection.weight":
+              np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)),
+          "embeddings.patch_embeddings.projection.bias":
+              np.asarray(p["patch_embed"]["bias"]),
+          **_join("layernorm", _norm(p["ln_final"]))}
+    i = 0
+    while f"block_{i}" in p:
+        sd.update(_join(f"encoder.layer.{i}",
+                        vit_block_state_dict_from_flax(p[f"block_{i}"])))
+        i += 1
+    h = sd["embeddings.cls_token"].shape[-1]
+    sd["pooler.dense.weight"] = np.zeros((h, h), np.float32)
+    sd["pooler.dense.bias"] = np.zeros((h,), np.float32)
+    return sd
+
+
+def triposr_state_dict_from_flax(params) -> dict:
+    """The JAX package's TripoSR params → the port's `TripoSR` state dict
+    (torch tensors on the CPU), the inverse of that package's
+    `_convert_triposr`: Dense kernels transposed, the ConvTranspose kernel
+    [kh, kw, I, O] flipped back to torch's [I, O, kh, kw], the triplane
+    tokens [3, P, P, C] → [3, C, P, P], the decoder's layer_i / layer_out
+    → layers.{0, 2, …}."""
+    sd = _join("image_tokenizer.model",
+               vit_state_dict_from_flax(params["vit"]))
+    sd["tokenizer.embeddings"] = np.ascontiguousarray(
+        np.asarray(params["triplane_tokens"]).transpose(0, 3, 1, 2))
+    sd.update(_join("backbone",
+                    transformer1d_state_dict_from_flax(params["backbone"])))
+    up = params["post"]["upsample"]
+    kernel = np.asarray(up["kernel"])[::-1, ::-1]         # undo the flip
+    sd["post_processor.upsample.weight"] = np.ascontiguousarray(
+        kernel.transpose(2, 3, 0, 1))
+    sd["post_processor.upsample.bias"] = np.asarray(up["bias"])
+    dec = params["decoder"]
+    n_hidden = sum(1 for k in dec if k.startswith("layer_")
+                   and k != "layer_out")
+    for i in range(n_hidden + 1):
+        name = "layer_out" if i == n_hidden else f"layer_{i}"
+        sd.update(_join(f"decoder.layers.{2 * i}", _dense(dec[name])))
+    return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}

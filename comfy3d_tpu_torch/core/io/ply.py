@@ -1,4 +1,4 @@
-"""PLY reader/writer (ascii + binary_little_endian) and 3DGS splat files.
+"""PLY reader/writer (ascii + binary_little_endian), meshes and 3DGS splats.
 
 Port of `comfy3d_tpu/core/io/ply.py` (kept as the port's own copy; the files
 it writes are byte-identical to the JAX package's). Pure numpy on the host —
@@ -207,6 +207,44 @@ def _expand_names(name: str, width: int):
     if name in _CANONICAL and len(_CANONICAL[name]) == width:
         return _CANONICAL[name]
     return tuple(f"{name}_{i}" for i in range(width))
+
+
+# --------------------------------------------------------------------- #
+# Mesh-level helpers
+# --------------------------------------------------------------------- #
+
+def load_mesh_ply(path: str):
+    """PLY → (v, f, vn, vc). Any of f/vn/vc may be None."""
+    els = read_ply(path)
+    vel = els["vertex"]
+    v = np.stack([vel.data["x"], vel.data["y"], vel.data["z"]], -1
+                 ).astype(np.float32)
+    vn = None
+    if "nx" in vel.data:
+        vn = np.stack([vel.data["nx"], vel.data["ny"], vel.data["nz"]], -1
+                      ).astype(np.float32)
+    vc = None
+    if "red" in vel.data:
+        scale = 255.0 if vel.data["red"].dtype.kind == "u" else 1.0
+        vc = np.stack([vel.data["red"], vel.data["green"],
+                       vel.data["blue"]], -1).astype(np.float32) / scale
+    f = None
+    if "face" in els and els["face"].count:
+        fel = els["face"]
+        key = next(iter(fel.data))
+        f = np.asarray(fel.data[key], np.int32)
+    return v, f, vn, vc
+
+
+def save_mesh_ply(path: str, v, f, vn=None, vc=None) -> None:
+    props: Dict[str, np.ndarray] = {"xyz": np.asarray(v, np.float32)}
+    if vn is not None:
+        props["normals"] = np.asarray(vn, np.float32)
+    if vc is not None:
+        props["rgb"] = np.clip(np.asarray(vc) * 255.0, 0, 255
+                               ).astype(np.uint8)
+    # same header comment as the JAX package, so the files are identical
+    write_ply(path, props, faces=f, comments=("comfy3d_tpu mesh",))
 
 
 # --------------------------------------------------------------------- #

@@ -291,14 +291,28 @@ class _CompositeTiles(torch.autograd.Function):
             g_acc.contiguous(), g_trans.contiguous(), c)
         return (g[:, 0:2], g[:, 2:5], g[:, 5], g[:, 6:6 + c], *[None] * 4)
 
+
+def check_tile_cap(max_per_tile: int, chunk: int) -> None:
+    """The tile path's rule for its per-tile cap, as in the JAX package
+    (whose `xla` compositor reshapes each list into `chunk`-slot steps):
+    `max_per_tile` is a positive multiple of `chunk`."""
+    if chunk <= 0 or max_per_tile <= 0 or max_per_tile % chunk:
+        raise ValueError(f"max_per_tile {max_per_tile} must be a positive "
+                         f"multiple of chunk {chunk}")
+
+
 def render_tiles(means2d, conic, opacity, chans, depth, active, radii,
                  width: int, height: int, max_per_tile: int = 512,
-                 max_tiles_per_prim: int = 16):
+                 max_tiles_per_prim: int = 16, chunk: int = 16):
     """Per-16-px-tile splat compositing for one camera (JAX: the `xla`
     branch of `render_arrays`).
 
-    chans: [N, C] channel vector (rgb... + depth last). Returns
-    (rgb [H,W,C-1], alpha [H,W], depth [H,W], overflow)."""
+    chans: [N, C] channel vector (rgb... + depth last). `max_per_tile` is a
+    positive multiple of `chunk`; the lists are padded with invalid slots
+    to the compositor's 128-slot chunks (`gs_tile.CHUNK`), past the counts,
+    which stay clamped at `max_per_tile`. Returns (rgb [H,W,C-1],
+    alpha [H,W], depth [H,W], overflow)."""
+    check_tile_cap(max_per_tile, chunk)
     grid_h, grid_w = binning.num_tiles(height, width)
     # global front-to-back depth order: each tile's ascending-index list
     # is then depth-ordered
@@ -312,9 +326,14 @@ def render_tiles(means2d, conic, opacity, chans, depth, active, radii,
         active[order], grid_h, grid_w, max_per_tile=max_per_tile,
         max_tiles_per_prim=max_tiles_per_prim)
     counts = torch.clamp_max(bins.count, max_per_tile)
+    prim_idx, valid = bins.prim_idx, bins.valid
+    pad = -max_per_tile % gs_tile.CHUNK
+    if pad:
+        prim_idx = torch.nn.functional.pad(prim_idx, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
     acc, trans = _CompositeTiles.apply(
         s_means2d, conic[order], opacity[order], chans[order],
-        bins.prim_idx, bins.valid, counts, grid_w)
+        prim_idx, valid, counts, grid_w)
     img = binning.tiles_to_image(acc.transpose(1, 2), grid_h, grid_w,
                                  height, width)
     alpha = 1.0 - binning.tiles_to_image(trans[:, 0], grid_h, grid_w,
@@ -341,10 +360,10 @@ def render_arrays(xyz, scale, rot_quat, opacity, colors, alive,
     colors: [N, C] per-gaussian channel vector (precomputed — SH eval or
     raw RGB). `means2d_offset` [N,2] is the viewspace-gradient hook.
     `backend`: "flat" (coarse bins, `bin_px`) or "tile" (16-px tiles, each
-    list cut at `max_per_tile`, a multiple of 128); the JAX package's
-    names map onto them: "pallas" and "auto" → "flat", "xla" → "tile".
-    `chunk` is accepted for the JAX signature and has no effect: the tile
-    compositor walks 128-slot chunks. Returns dict(image [H,W,C], alpha,
+    list cut at `max_per_tile`, a positive multiple of `chunk`); the JAX
+    package's names map onto them: "pallas" and "auto" → "flat", "xla" →
+    "tile". `chunk` sets only that rule: the tile compositor walks
+    128-slot chunks whatever it is. Returns dict(image [H,W,C], alpha,
     depth, radii [N], means2d [N,2], overflow flag).
     """
     if backend not in BACKENDS:
@@ -361,7 +380,7 @@ def render_arrays(xyz, scale, rot_quat, opacity, colors, alive,
         rgb, alpha, depth_img, overflow = render_tiles(
             means2d, conic, opacity, chans, depth, active, radii.detach(),
             width, height, max_per_tile=max_per_tile,
-            max_tiles_per_prim=max_tiles_per_prim)
+            max_tiles_per_prim=max_tiles_per_prim, chunk=chunk)
     else:
         rgb, alpha, depth_img, overflow = render_flat(
             means2d, conic, opacity, chans, depth, active, radii.detach(),

@@ -261,9 +261,11 @@ def test_tile_backend_rejects_bad_arguments():
     arrs = [torch.as_tensor(a) for a in make_scene(2, n=12, spread=0.4)]
     with pytest.raises(ValueError, match="backend"):
         G.render_arrays(*arrs, tc.w2c, tc.intrinsics, W, H, backend="mosaic")
-    with pytest.raises(ValueError, match="multiple of 128"):
+    # the JAX package's rule (its `xla` compositor reshapes each list into
+    # `chunk`-slot steps, so it cannot run 100 at chunk 16 either)
+    with pytest.raises(ValueError, match="chunk"):
         G.render_arrays(*arrs, tc.w2c, tc.intrinsics, W, H, backend="tile",
-                        max_per_tile=100)
+                        max_per_tile=100, chunk=16)
     # the flat path takes no per-tile cap, so it ignores one
     G.render_arrays(*arrs, tc.w2c, tc.intrinsics, W, H, backend="flat",
                     max_per_tile=100)

@@ -79,7 +79,42 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      host's vertex normals), counts, the overflow flag, and the mesh
      through GLB and back; e. one 128² orbit render (finite, alpha in
      [0, 1]).
-It prints a `{"triposr": {...}}` line, one `{"kernels": [...]}` line, then
+ 12. InstantMesh posed views → mesh (`InstantMeshPipeline`,
+     `InstantMeshConfig()` widths: a camera-modulated ViT-B/16 over six
+     320² views, a 16-layer 1,024-wide transformer over 3×32² tokens, 80-
+     channel 64² triplanes; weights from seed 0; `bench.py::
+     bench_instantmesh_wallclock`'s views and cameras). a. the card against
+     the port's CPU path with TF32 off at 2 ViT + 2 transformer layers:
+     triplanes, and SDF, deformation and rgb at 32,768 probes, each within
+     1e-3 of its largest value; b. full depth: `forward_planes` by CUDA
+     events (warm-up, then 5 runs; TF32 off, then on), the parameter count
+     and peak memory; c. `marching_tets_deformed` + `weld_device` on a
+     sphere's SDF over a smoothly deformed 97³ lattice, card against CPU:
+     equal counts and faces, vertices within 1e-5, no overflow; d.
+     `extract_mesh` at 96 (the bench's) and 129 (the default): a first call
+     that climbs the capacity ladder (its rungs counted), one warm call
+     timed, one more profiled by its spans (`models/instantmesh/
+     pipeline.py::EXTRACT_STAGES`), counts, the capacity reached, the
+     overflow flag (reported, not gated: random weights make a noise
+     surface), the 96³ mesh through GLB and back.
+ 13. the mesh orbit renderer (`ops/mesh_render.py::render_mesh` with the
+     `Mesh_Orbit_Renderer` node's defaults: 512², fovy 49.1, background 1,
+     "binned"; meshes through `Mesh.device_arrays` with `face_valid`, as
+     the node passes them), on a unit sphere from
+     `extract_isosurface_device` at 97³ with vertex colours and a
+     subdivided cube with per-face UVs onto a seeded 1024² albedo. a. one
+     view of each, card against CPU: face ids equal on ≥ 99.9 % of pixels,
+     image, alpha, depth, normal and viewcos within 1e-4 where they agree;
+     on the card `"binned"` equal to `"bruteforce"` (no tile overflowed);
+     b. the gradients with respect to v, vc and albedo, finite, card
+     against CPU within 1e-3 of their largest value; c. the 8-view orbit
+     batch of the sphere by CUDA events, one frame and its rasterization,
+     a profile of one frame (device-busy ms, idle share, device ops), one
+     view at `ssaa=2`; d. phase 12's 96³ mesh from the same 8 views: the
+     time and the covered-pixel share (not gated).
+Phases 11–13 launch none of the compositor kernels (counted).
+It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}` and a
+`{"mesh_render": {...}}` line, one `{"kernels": [...]}` line, then
 the `nvidia-smi` line, and as its last line `{"ok": true, "device":
 {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -1575,6 +1610,475 @@ def triposr_path(dev, asset_dir, smi_line):
     return rec
 
 
+# ------------------------------------------------------------------ #
+# InstantMesh posed views → mesh (phase 12)
+# ------------------------------------------------------------------ #
+TOL_IM_REL = 1e-3        # card vs CPU, of the largest value, TF32 off
+IM_AZIMUTHS = (30.0, 90.0, 150.0, 210.0, 270.0, 330.0)
+IM_ELEVATIONS = (20.0, -10.0, 20.0, -10.0, 20.0, -10.0)
+IM_SIZE = 320            # the six views' size
+IM_SPHERE_RES = 97       # the deformed analytic sphere's lattice
+IM_RESOLUTIONS = (96, 129)   # extract_mesh: the bench's and the default
+
+
+def deformed_sphere(res, scale):
+    """The res³ lattice over the ±scale box, each vertex moved by a smooth
+    field of up to a quarter cell, and a radius-0.6 sphere's SDF (> 0
+    inside) at the moved vertices: numpy float32 from float64, so every
+    device gets the same inputs."""
+    from comfy3d_tpu_torch.ops import tetra
+    import numpy as np
+    verts = tetra.grid_vertices(res) * scale
+    p = verts.astype(np.float64)
+    d = 0.25 * (2 * scale / (res - 1)) * np.stack(
+        [np.sin(3 * p[:, 1] + 1), np.sin(3 * p[:, 2] + 2),
+         np.sin(3 * p[:, 0] + 3)], -1)
+    v_def = (verts + d.astype(np.float32)).astype(np.float32)
+    sdf = 0.6 - np.linalg.norm(v_def.astype(np.float64), axis=-1)
+    return v_def, sdf.astype(np.float32)
+
+
+class count_calls:
+    """Counts the calls of `module.name` while the block runs."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def instantmesh_path(dev, asset_dir, smi_line):
+    """Phase 12, at `InstantMeshConfig()`'s widths (`bench.py::
+    bench_instantmesh_wallclock`'s set-up). Returns (record, the 96³
+    mesh)."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models.instantmesh import (
+        InstantMeshConfig, InstantMeshPipeline, orbit_poses_to_input_cameras)
+    from comfy3d_tpu_torch.models.instantmesh.pipeline import EXTRACT_STAGES
+    from comfy3d_tpu_torch.ops import tetra
+
+    cfg = InstantMeshConfig()
+    half = cfg.grid_scale * 0.5
+    rec = {"card": smi_line, "config": dataclasses.asdict(cfg), "seed": 0,
+           "views": len(IM_AZIMUTHS), "size": IM_SIZE}
+    imgs = np.random.RandomState(1).rand(1, len(IM_AZIMUTHS), IM_SIZE,
+                                         IM_SIZE, 3).astype(np.float32)
+    cams = orbit_poses_to_input_cameras(np.array(IM_AZIMUTHS),
+                                        np.array(IM_ELEVATIONS))[None]
+    probe = torch.as_tensor(np.random.RandomState(2).uniform(
+        -half, half, (PROBES, 3)).astype(np.float32))
+    cpu = torch.device("cpu")
+
+    # a. the card against the port's CPU path, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    small = dataclasses.replace(cfg, vit_layers=CPU_LAYERS,
+                                transformer_layers=CPU_LAYERS)
+    outs = {}
+    for d in (cpu, dev):
+        th = time.perf_counter()
+        pipe = InstantMeshPipeline.init_random(0, small, device=d)
+        with torch.no_grad():
+            planes = pipe.forward_planes(imgs, cams)
+            sdf, deform = pipe.model.query_geometry(planes[0], probe.to(d))
+            rgb = pipe.model.query_color(planes[0], probe.to(d))
+        outs[d.type] = dict(planes=planes, sdf=sdf, deform=deform, rgb=rgb,
+                            s=time.perf_counter() - th)
+        del pipe
+    h, c = outs["cpu"], outs[dev.type]
+    parity = {"layers": CPU_LAYERS, "host_s": h["s"],
+              "planes_shape": list(c["planes"].shape)}
+    for k in ("planes", "sdf", "deform", "rgb"):
+        parity[f"{k}_rel_err"] = rel_err(c[k], h[k])
+    log(f"instantmesh a. card vs CPU ({CPU_LAYERS}+{CPU_LAYERS} layers, "
+        f"TF32 off): {parity}")
+    lo = cfg.triplane_low_res
+    check(tuple(c["planes"].shape) == (1, 3, cfg.triplane_dim, 2 * lo,
+                                       2 * lo),
+          f"planes {tuple(c['planes'].shape)}")
+    for k in ("planes", "sdf", "deform", "rgb"):
+        check(parity[f"{k}_rel_err"] <= TOL_IM_REL,
+              f"instantmesh {k}: card vs CPU {parity[k + '_rel_err']:.3g} "
+              f"of the largest value")
+    rec["card_vs_cpu"] = parity
+    del outs, h, c
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. full depth: forward_planes by CUDA events, peak memory
+    t0 = time.perf_counter()
+    pipe = InstantMeshPipeline.init_random(0, cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    imgs_dev = torch.as_tensor(imgs, device=dev)
+    cams_dev = torch.as_tensor(cams, device=dev)
+    params = sum(p.numel() for p in pipe.model.parameters())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    planes_ms = cuda_ms(lambda: pipe.forward_planes(imgs_dev, cams_dev), 5,
+                        warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        planes_tf32_ms = cuda_ms(
+            lambda: pipe.forward_planes(imgs_dev, cams_dev), 5, warmup=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    planes = pipe.forward_planes(imgs_dev, cams_dev)
+    check(bool(torch.isfinite(planes).all()), "non-finite triplanes")
+    rec["forward_planes"] = {
+        "ms": planes_ms, "ms_tf32": planes_tf32_ms, "init_s": init_s,
+        "peak_bytes": peak, "params": params,
+        "weight_bytes": sum(p.numel() * p.element_size()
+                            for p in pipe.model.parameters())}
+    log(f"instantmesh b. full depth: {rec['forward_planes']}")
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. marching tets over a deformed lattice + weld, card against CPU
+    t0 = time.perf_counter()
+    v_def, sdf = deformed_sphere(IM_SPHERE_RES, half)
+    swept = {}
+    for d in (dev, cpu):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        soup, count, ovf = tetra.marching_tets_deformed(
+            torch.as_tensor(v_def, device=d), torch.as_tensor(sdf, device=d),
+            IM_SPHERE_RES, max_tris=262_144)
+        v, f, nv, nf, v_ovf = tetra.weld_device(soup, count,
+                                                max_verts=262_144)
+        torch.cuda.synchronize()
+        swept[d.type] = dict(v=v[:nv].cpu(), f=f[:nf].cpu(), nv=nv, nf=nf,
+                             count=count, overflow=bool(ovf or v_ovf),
+                             s=time.perf_counter() - ta)
+    a, b = swept[dev.type], swept["cpu"]
+    sphere = {"res": IM_SPHERE_RES, "triangles": a["count"], "nv": a["nv"],
+              "nf": a["nf"], "cpu_nv": b["nv"], "cpu_nf": b["nf"],
+              "overflow": a["overflow"] or b["overflow"], "s": a["s"],
+              "cpu_s": b["s"]}
+    check((a["count"], a["nv"], a["nf"]) == (b["count"], b["nv"], b["nf"]),
+          f"deformed sphere counts: card {a['count']}/{a['nv']}/{a['nf']}, "
+          f"CPU {b['count']}/{b['nv']}/{b['nf']}")
+    check(not sphere["overflow"], "deformed sphere overflowed")
+    check(torch.equal(a["f"], b["f"]), "deformed sphere: faces differ")
+    sphere["v_max_abs_err"] = float((a["v"] - b["v"]).abs().max())
+    check(sphere["v_max_abs_err"] <= TOL_MESH_V,
+          f"deformed sphere vertices: {sphere['v_max_abs_err']:.3g}")
+    log(f"instantmesh c. deformed sphere at {IM_SPHERE_RES}³: {sphere}")
+    rec["deformed_sphere"] = sphere
+    del swept, a, b
+    rec["c_s"] = time.perf_counter() - t0
+
+    # d. extract_mesh at the bench's 96 and the default 129
+    t0 = time.perf_counter()
+    meshes, rec["extract_mesh"] = {}, {}
+    for res in IM_RESOLUTIONS:
+        pipe._cap_memo.pop(res, None)
+        with warnings.catch_warnings(record=True) as caught, \
+                count_calls(tetra, "marching_tets_deformed") as rungs:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            tc = time.perf_counter()
+            pipe.extract_mesh(planes[0], resolution=res)     # the ladder
+            torch.cuda.synchronize()
+            cold_s, cold_rungs = time.perf_counter() - tc, rungs.calls
+            tm = time.perf_counter()
+            mesh = pipe.extract_mesh(planes[0], resolution=res)
+            torch.cuda.synchronize()
+            total_s, warm_rungs = time.perf_counter() - tm, \
+                rungs.calls - cold_rungs
+            _, profiled_s, spans = profile_spans(
+                lambda: pipe.extract_mesh(planes[0], resolution=res),
+                EXTRACT_STAGES)
+        overflow = [str(w.message) for w in caught
+                    if "overflow" in str(w.message)]
+        check(all(sp["calls"] == 1 for sp in spans.values()),
+              f"extract_mesh's spans: {spans}")
+        check(mesh.num_vertices > 0 and mesh.num_faces > 0, "empty mesh")
+        check(bool(np.isfinite(mesh.v).all()), "non-finite vertices")
+        check(int(mesh.f.max()) < mesh.num_vertices, "faces past the vertices")
+        check(mesh.vc is not None and mesh.vc.shape == mesh.v.shape,
+              "no vertex colours")
+        r = {"resolution": res, "nv": mesh.num_vertices,
+             "nf": mesh.num_faces, "capacity": pipe._cap_memo[res],
+             "cold_rungs": cold_rungs, "warm_rungs": warm_rungs,
+             "overflow": bool(overflow), "overflow_warnings": overflow[:2],
+             "cold_s": cold_s, "total_s": total_s,
+             "profiled_total_s": profiled_s,
+             "stages": {k.split(".")[-1]: v for k, v in spans.items()}}
+        if res == IM_RESOLUTIONS[0]:
+            glb = os.path.join(asset_dir, "instantmesh_mesh.glb")
+            mesh.write(glb)
+            back = Mesh.load(glb)
+            check(np.array_equal(back.v, mesh.v)
+                  and np.array_equal(back.f, mesh.f),
+                  "GLB round trip changed the mesh")
+            r["glb_bytes"] = os.path.getsize(glb)
+        log(f"instantmesh d. extract_mesh at {res}³: {r}")
+        rec["extract_mesh"][str(res)] = r
+        meshes[res] = mesh
+    rec["d_s"] = time.perf_counter() - t0
+    del pipe, planes
+    torch.cuda.empty_cache()
+    return rec, meshes[IM_RESOLUTIONS[0]]
+
+
+# ------------------------------------------------------------------ #
+# The mesh orbit renderer (phase 13)
+# ------------------------------------------------------------------ #
+MR_SIZE = 512            # the Mesh_Orbit_Renderer node's defaults
+MR_FOVY = 49.1
+MR_RADIUS = 2.6          # the orbit's camera distance
+# the sphere: radius 1 in a ±3 lattice of 97³ (28,524 faces), so no 16-px
+# tile of the 8 views at 512² holds more than 216 faces: `max_per_tile`
+# 256 cuts none, and binned must equal brute force
+MR_SPHERE_RES = 97
+MR_SPHERE_BOUND = 3.0
+MR_TEXTURE = 1024
+MR_BF_CHUNK = 128        # brute force's faces per step on the card
+TOL_MR = 1e-4            # buffers where the face ids agree, card vs CPU
+MR_FACE_AGREE = 0.999    # share of pixels whose face id agrees
+TOL_MR_GRAD_REL = 1e-3   # gradients, card vs CPU, of their largest value
+
+
+def sphere_mesh():
+    """A unit sphere from `extract_isosurface_device` at MR_SPHERE_RES³ over
+    ±MR_SPHERE_BOUND (on the CPU; the field rooted in float64), with vertex
+    colours from the position."""
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.ops import tetra
+    bound = MR_SPHERE_BOUND
+    lin = np.linspace(-bound, bound, MR_SPHERE_RES)
+    x, y, z = np.meshgrid(lin, lin, lin, indexing="ij")
+    grid = (1.0 - np.sqrt(x * x + y * y + z * z)).astype(np.float32)
+    v, f, nv, nf = tetra.extract_isosurface_device(
+        torch.as_tensor(grid), bounds=(-bound, bound), max_tris=400_000,
+        on_overflow="raise")
+    v, f = v[:nv].numpy(), f[:nf].numpy()
+    return Mesh(v=v, f=f, vc=np.clip(v * 0.5 + 0.5, 0.0, 1.0))
+
+
+def uv_cube():
+    """A cube of half-size 0.5, each face split into 4 × 4 quads (two
+    triangles each), its vertices shared between faces, with per-face UVs
+    (vt/ft) into a 3 × 2 atlas of a seeded MR_TEXTURE² albedo."""
+    import numpy as np
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    n = 4
+    s = np.linspace(-0.5, 0.5, n + 1)
+    a, b = np.meshgrid(s, s, indexing="ij")
+    pts, uvs, tris = [], [], []
+    for k in range(6):
+        axis, sign = k // 2, (-1.0, 1.0)[k % 2]
+        p = np.zeros(a.shape + (3,))
+        p[..., axis] = 0.5 * sign
+        p[..., (axis + 1) % 3], p[..., (axis + 2) % 3] = a, b
+        uv = np.stack([(k % 3 + a + 0.5) / 3.0,
+                       (k // 3 + b + 0.5) / 2.0], -1)
+        idx = k * (n + 1) ** 2 + np.arange((n + 1) ** 2).reshape(n + 1,
+                                                                  n + 1)
+        q0, q1, q2, q3 = (idx[:-1, :-1], idx[1:, :-1], idx[1:, 1:],
+                          idx[:-1, 1:])
+        tris.append(np.stack([q0, q1, q2], -1).reshape(-1, 3))
+        tris.append(np.stack([q0, q2, q3], -1).reshape(-1, 3))
+        pts.append(p.reshape(-1, 3))
+        uvs.append(uv.reshape(-1, 2))
+    pts, uvs, ft = np.concatenate(pts), np.concatenate(uvs), \
+        np.concatenate(tris)
+    v, inv = np.unique(np.round(pts, 6), axis=0, return_inverse=True)
+    albedo = np.random.RandomState(0).rand(MR_TEXTURE, MR_TEXTURE, 3)
+    return Mesh(v=v, f=inv.reshape(-1)[ft], vt=uvs, ft=ft, albedo=albedo)
+
+
+def render_inputs(mesh, device):
+    """The orbit-renderer node's inputs: `Mesh.device_arrays` with
+    `face_valid` over the padded faces, and the colour source."""
+    import torch
+    d = mesh.device_arrays(device=device)
+    kw = dict(face_valid=torch.arange(d["f"].shape[0], device=device)
+              < mesh.num_faces)
+    if "albedo" in d and "ft" in d:
+        kw.update(vt=d["vt"], ft=d["ft"], albedo=d["albedo"])
+    elif "vc" in d:
+        kw["vc"] = d["vc"]
+    return d["v"], d["f"], kw
+
+
+def orbit_cameras(device):
+    """The 8-view orbit at MR_RADIUS."""
+    from comfy3d_tpu_torch.core.camera import Camera, compose_orbit_camposes
+    poses = compose_orbit_camposes([MR_RADIUS] * 8,
+                                   [15.0, 30.0, 0.0, -15.0] * 2,
+                                   [30.0 + 45.0 * i for i in range(8)])
+    return Camera.from_camposes(poses, fovy_deg=MR_FOVY, width=MR_SIZE,
+                                height=MR_SIZE, device=device)
+
+
+def _view(cams, i):
+    import dataclasses
+    return dataclasses.replace(cams, c2w=cams.c2w[i],
+                               fovy_deg=cams.fovy_deg[i])
+
+
+def mesh_render_path(dev, im_mesh):
+    """Phase 13: `render_mesh` with the Mesh_Orbit_Renderer node's defaults
+    (fovy 49.1, background 1, "binned") on two fixtures, then the 8-view
+    orbit batch, then phase 12's mesh."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.ops import mesh_render as MR
+    from comfy3d_tpu_torch.ops import rasterize as R
+
+    cpu = torch.device("cpu")
+    size = MR_SIZE
+    fixtures = {"sphere_vc": sphere_mesh(), "cube_albedo": uv_cube()}
+    rec = {"size": size, "fovy": MR_FOVY, "radius": MR_RADIUS,
+           "fixtures": {k: {"nv": m.num_vertices, "nf": m.num_faces}
+                        for k, m in fixtures.items()}}
+    # one set of camera poses, copied to the card: both devices see the
+    # same c2w bits (a sin or cos on the card may differ by an ulp)
+    cams = {"cpu": orbit_cameras(cpu)}
+    cams[dev.type] = dataclasses.replace(
+        cams["cpu"], c2w=cams["cpu"].c2w.to(dev),
+        fovy_deg=cams["cpu"].fovy_deg.to(dev))
+
+    # a. one view of each fixture, card against CPU; binned = brute force
+    t0 = time.perf_counter()
+    rec["parity"] = {}
+    for name, mesh in fixtures.items():
+        out = {}
+        for d in (dev, cpu):
+            v, f, kw = render_inputs(mesh, d)
+            cam = _view(cams[d.type], 0)
+            rast = R.rasterize(v, f, cam.view_proj, size, size,
+                               face_valid=kw["face_valid"])
+            img = MR.render_mesh(v, f, cam, **kw)
+            out[d.type] = (rast, {k: x.cpu() for k, x in img.items()})
+            if d == dev:
+                brute = R.rasterize(v, f, cam.view_proj, size, size,
+                                    face_valid=kw["face_valid"],
+                                    method="bruteforce", chunk=MR_BF_CHUNK)
+                same = {k: bool(torch.equal(getattr(rast, k),
+                                            getattr(brute, k)))
+                        for k in ("face_id", "bary", "depth")}
+                check(all(same.values()),
+                      f"{name}: binned differs from brute force: {same}")
+        (cr, ci), (hr, hi) = out[dev.type], out["cpu"]
+        agree = (cr.face_id.cpu() == hr.face_id)
+        r = {"coverage": float(hi["alpha"].mean()),
+             "face_id_agree": float(agree.float().mean())}
+        for k in ("image", "alpha", "depth", "normal", "viewcos"):
+            diff = (ci[k] - hi[k]).abs()
+            if diff.dim() == 3:
+                diff = diff.amax(-1)
+            r[f"{k}_max_abs_err"] = float(diff[agree].max())
+        log(f"mesh_render a. {name}, card vs CPU at {size}²: {r}")
+        check(0.02 < r["coverage"] < 0.98, f"{name}: coverage {r}")
+        check(r["face_id_agree"] >= MR_FACE_AGREE,
+              f"{name}: face ids agree on {r['face_id_agree']:.5f}")
+        for k in ("image", "alpha", "depth", "normal", "viewcos"):
+            check(r[f"{k}_max_abs_err"] <= TOL_MR,
+                  f"{name}: {k} card vs CPU {r[k + '_max_abs_err']:.3g}")
+        rec["parity"][name] = r
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. gradients with respect to v, vc and albedo, card against CPU
+    t0 = time.perf_counter()
+    w = np.random.RandomState(5).rand(size, size, 3).astype(np.float32)
+    rec["gradients"] = {}
+    for name, mesh, leaf in (("sphere_vc", fixtures["sphere_vc"], "vc"),
+                             ("cube_albedo", fixtures["cube_albedo"],
+                              "albedo")):
+        grads = {}
+        for d in (dev, cpu):
+            v, f, kw = render_inputs(mesh, d)
+            v = v.clone().requires_grad_()
+            kw[leaf] = kw[leaf].clone().requires_grad_()
+            img = MR.render_mesh(v, f, _view(cams[d.type], 0), **kw)
+            (img["image"] * torch.as_tensor(w, device=d)).sum().backward()
+            grads[d.type] = {"v": v.grad.cpu(), leaf: kw[leaf].grad.cpu()}
+        r = {}
+        for k, g in grads[dev.type].items():
+            ref = grads["cpu"][k]
+            check(bool(torch.isfinite(g).all()), f"{name}: non-finite d{k}")
+            check(float(ref.abs().max()) > 0, f"{name}: d{k} is zero")
+            r[f"d{k}_rel_err"] = rel_err(g, ref)
+            check(r[f"d{k}_rel_err"] <= TOL_MR_GRAD_REL,
+                  f"{name}: d{k} card vs CPU {r[f'd{k}_rel_err']:.3g}")
+        log(f"mesh_render b. {name} gradients: {r}")
+        rec["gradients"][name] = r
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. the 8-view orbit batch of the sphere
+    t0 = time.perf_counter()
+    v, f, kw = render_inputs(fixtures["sphere_vc"], dev)
+    cam8, cam0 = cams[dev.type], _view(cams[dev.type], 0)
+    out = MR.render_mesh(v, f, cam8, **kw)
+    check(tuple(out["image"].shape) == (8, size, size, 3),
+          f"8-view image {tuple(out['image'].shape)}")
+    check(all(bool(torch.isfinite(x).all()) for x in out.values()),
+          "non-finite 8-view render")
+    batch_ms = cuda_ms(lambda: MR.render_mesh(v, f, cam8, **kw), 3,
+                       warmup=1)
+    frame_ms = cuda_ms(lambda: MR.render_mesh(v, f, cam0, **kw), 5,
+                       warmup=1)
+    raster_ms = cuda_ms(lambda: R.rasterize(
+        v, f, cam0.view_proj, size, size, face_valid=kw["face_valid"]), 5,
+        warmup=1)
+    prof = profile_frames(lambda: MR.render_mesh(v, f, cam0, **kw), 3)
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / frame_ms
+    ss = MR.render_mesh(v, f, cam0, ssaa=2, **kw)
+    check(tuple(ss["image"].shape) == (size, size, 3)
+          and all(bool(torch.isfinite(x).all()) for x in ss.values()),
+          "ssaa=2 render")
+    ssaa_ms = cuda_ms(lambda: MR.render_mesh(v, f, cam0, ssaa=2, **kw), 2,
+                      warmup=0)
+    rec["orbit"] = {"views": 8, "batch_ms": batch_ms,
+                    "ms_per_frame": batch_ms / 8, "frame_ms": frame_ms,
+                    "rasterize_ms": raster_ms, "ssaa2_frame_ms": ssaa_ms,
+                    "mean_alpha": float(out["alpha"].mean()),
+                    "profile": {k: x for k, x in prof.items() if k != "top"},
+                    "profile_top": prof["top"][:6]}
+    log(f"mesh_render c. 8-view orbit at {size}²: {rec['orbit']}")
+    rec["c_s"] = time.perf_counter() - t0
+
+    # d. phase 12's mesh from the same 8 views (a noise surface: tiles
+    # may overflow, so nothing is gated but finiteness)
+    t0 = time.perf_counter()
+    v, f, kw = render_inputs(im_mesh, dev)
+    out = MR.render_mesh(v, f, cam8, **kw)
+    check(all(bool(torch.isfinite(x).all()) for x in out.values()),
+          "non-finite render of the InstantMesh mesh")
+    im_ms = cuda_ms(lambda: MR.render_mesh(v, f, cam8, **kw), 1, warmup=0)
+    rec["instantmesh_mesh"] = {
+        "nv": im_mesh.num_vertices, "nf": im_mesh.num_faces,
+        "batch_ms": im_ms, "ms_per_frame": im_ms / 8,
+        "covered_share": float(out["alpha"].mean())}
+    log(f"mesh_render d. the InstantMesh mesh, 8 views: "
+        f"{rec['instantmesh_mesh']}")
+    rec["d_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main(out_path=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1603,12 +2107,12 @@ def main(out_path=None) -> int:
         log(f"phase {name}: {phase_s[name]:.1f} s")
 
     # 1. the card
-    name = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     smi_line = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
-    log(f"device {name} | nvidia-smi: {smi_line}, SM clock max {clock_mhz} "
+    log(f"device {card} | nvidia-smi: {smi_line}, SM clock max {clock_mhz} "
         f"MHz | torch {torch.__version__} cuda {torch.version.cuda}")
-    record["device"] = dict(name=name, nvidia_smi=smi_line,
+    record["device"] = dict(name=card, nvidia_smi=smi_line,
                             sm_clock_max_mhz=clock_mhz,
                             torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -1840,11 +2344,36 @@ def main(out_path=None) -> int:
           f"the TripoSR path launched a compositor kernel: "
           f"{record['triposr']['launches']}")
 
+    lap("11_triposr")
+    # 12. InstantMesh posed views → mesh; 13. the mesh orbit renderer; no
+    # compositor kernel may launch on either
+    for phase, path, run in (
+            (12, "instantmesh",
+             lambda: instantmesh_path(dev, asset_dir, smi_line)),
+            (13, "mesh_render", lambda: mesh_render_path(dev, im_mesh))):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        if path == "instantmesh":
+            out, im_mesh = out
+        record[path] = out
+        record[path]["s"] = time.perf_counter() - t0
+        record[path]["launches"] = read_launches()
+        check(not any(record[path]["launches"].values()),
+              f"the {path} path launched a compositor kernel: "
+              f"{record[path]['launches']}")
+        torch.cuda.empty_cache()
+        lap(f"{phase}_{path}")
+    del im_mesh
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
                 "tile_render_8_views": tile_rec["launches"][name],
-                "tile_train_10_steps": tile_train_rec["launches"][name]}
+                "tile_train_10_steps": tile_train_rec["launches"][name],
+                "triposr": record["triposr"]["launches"][name],
+                "instantmesh": record["instantmesh"]["launches"][name],
+                "mesh_render": record["mesh_render"]["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -1920,7 +2449,6 @@ def main(out_path=None) -> int:
         "old_scatter_ms": tile_train_times["old_scatter_ms"],
         "old_design": tile_train_rec["old_design"],
     }
-    lap("11_triposr")
     record["phase_s"] = phase_s
     record["kernels"] = [kernel, kernel_bwd, kernel_tile_fwd, kernel_tile_bwd]
     if out_path:
@@ -1946,10 +2474,12 @@ def main(out_path=None) -> int:
                       "tile_trainer_learns": record["tile_trainer_learns"]}))
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"triposr": record["triposr"]}))
+    print(json.dumps({"instantmesh": record["instantmesh"]}))
+    print(json.dumps({"mesh_render": record["mesh_render"]}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

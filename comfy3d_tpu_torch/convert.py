@@ -7,8 +7,9 @@ hold their state in six and two arrays, and
 handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
 / `GSTrainState` with the same state. The JAX package's model params (nested
 dicts of arrays) become the port's native-layout state dicts
-(`triposr_state_dict_from_flax` and the per-block functions below it), so
-both packages can compute on identical inputs and weights.
+(`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax` and
+the per-block functions below them), so both packages can compute on
+identical inputs and weights.
 """
 
 from __future__ import annotations
@@ -168,6 +169,15 @@ def vit_state_dict_from_flax(p) -> dict:
     return sd
 
 
+def _conv_transpose(p) -> dict:
+    """A JAX ConvTranspose {kernel [kh, kw, I, O], bias} → torch's
+    ConvTranspose2d {weight [I, O, kh, kw], bias}: flax applies the kernel
+    unflipped, torch as the gradient of a convolution."""
+    kernel = np.asarray(p["kernel"])[::-1, ::-1]
+    return {"weight": np.ascontiguousarray(kernel.transpose(2, 3, 0, 1)),
+            "bias": np.asarray(p["bias"])}
+
+
 def triposr_state_dict_from_flax(params) -> dict:
     """The JAX package's TripoSR params → the port's `TripoSR` state dict
     (torch tensors on the CPU), the inverse of that package's
@@ -181,15 +191,98 @@ def triposr_state_dict_from_flax(params) -> dict:
         np.asarray(params["triplane_tokens"]).transpose(0, 3, 1, 2))
     sd.update(_join("backbone",
                     transformer1d_state_dict_from_flax(params["backbone"])))
-    up = params["post"]["upsample"]
-    kernel = np.asarray(up["kernel"])[::-1, ::-1]         # undo the flip
-    sd["post_processor.upsample.weight"] = np.ascontiguousarray(
-        kernel.transpose(2, 3, 0, 1))
-    sd["post_processor.upsample.bias"] = np.asarray(up["bias"])
+    sd.update(_join("post_processor.upsample",
+                    _conv_transpose(params["post"]["upsample"])))
     dec = params["decoder"]
     n_hidden = sum(1 for k in dec if k.startswith("layer_")
                    and k != "layer_out")
     for i in range(n_hidden + 1):
         name = "layer_out" if i == n_hidden else f"layer_{i}"
         sd.update(_join(f"decoder.layers.{2 * i}", _dense(dec[name])))
+    return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+# ------------------------------------------------------------ InstantMesh
+def vit_adaln_block_state_dict_from_flax(p) -> dict:
+    """`ViTBlockAdaLN`: a ViT block plus its `adaln` head."""
+    return {**vit_block_state_dict_from_flax(p),
+            **_join("adaLN_modulation.1", _dense(p["adaln"]))}
+
+
+def dino_adaln_state_dict_from_flax(p) -> dict:
+    """`DinoAdaLN`: the ViT (no pooler) under `model`, adaLN heads in its
+    blocks, and `camera_embedder.{0,2}`."""
+    sd = {k: v for k, v in vit_state_dict_from_flax(p).items()
+          if not k.startswith("pooler.")}
+    i = 0
+    while f"block_{i}" in p:
+        sd.update(_join(f"encoder.layer.{i}",
+                        vit_adaln_block_state_dict_from_flax(p[f"block_{i}"])))
+        i += 1
+    return {**_join("model", sd),
+            **_join("camera_embedder.0", _dense(p["cam_embed_0"])),
+            **_join("camera_embedder.2", _dense(p["cam_embed_1"]))}
+
+
+def lrm_block_state_dict_from_flax(p) -> dict:
+    """`LRMBlock`: `nn.MultiheadAttention`'s keys — the cross-attention's
+    separate `{q,k,v}_proj_weight`, the self-attention's packed
+    `in_proj_weight`, `out_proj.weight` — and `mlp.{0,3}`."""
+    def t(name, sub):
+        return np.ascontiguousarray(np.asarray(p[name][sub]["kernel"]).T)
+
+    sd = {}
+    for name in ("norm1", "norm2", "norm3"):
+        sd.update(_join(name, _norm(p[name])))
+    for x in "qkv":
+        sd[f"cross_attn.{x}_proj_weight"] = t("cross_attn", f"to_{x}")
+    sd["self_attn.in_proj_weight"] = np.concatenate(
+        [t("self_attn", f"to_{x}") for x in "qkv"], 0)
+    for name in ("cross_attn", "self_attn"):
+        sd[f"{name}.out_proj.weight"] = t(name, "to_out_0")
+    sd.update(_join("mlp.0", _dense(p["mlp_in"])))
+    sd.update(_join("mlp.3", _dense(p["mlp_out"])))
+    return sd
+
+
+def triplane_transformer_state_dict_from_flax(p) -> dict:
+    sd = {"pos_embed": np.asarray(p["pos_embed"]),
+          **_join("norm", _norm(p["norm"])),
+          **_join("deconv", _conv_transpose(p["deconv"]))}
+    i = 0
+    while f"layer_{i}" in p:
+        sd.update(_join(f"layers.{i}",
+                        lrm_block_state_dict_from_flax(p[f"layer_{i}"])))
+        i += 1
+    return sd
+
+
+_OSG_HEADS = {"sdf": "net_sdf", "deform": "net_deformation",
+              "rgb": "net_rgb", "weight": "net_weight"}
+
+
+def osg_decoder_state_dict_from_flax(p) -> dict:
+    """`OSGDecoder`: each head's `{prefix}_{i}` / `{prefix}_out` Dense →
+    `net_*.{0, 2, …}`; heads the params lack are left out."""
+    sd = {}
+    for prefix, net in _OSG_HEADS.items():
+        if prefix + "_out" not in p:
+            continue
+        n_hidden = sum(1 for k in p if k.startswith(prefix + "_")) - 1
+        for i in range(n_hidden + 1):
+            name = f"{prefix}_out" if i == n_hidden else f"{prefix}_{i}"
+            sd.update(_join(f"{net}.{2 * i}", _dense(p[name])))
+    return sd
+
+
+def instantmesh_state_dict_from_flax(params) -> dict:
+    """The JAX package's InstantMesh params → the port's `InstantMesh`
+    state dict (torch tensors on the CPU), in the upstream checkpoint's
+    names: `encoder.*`, `transformer.*`, `synthesizer.decoder.*`."""
+    sd = {**_join("encoder", dino_adaln_state_dict_from_flax(
+              params["encoder"])),
+          **_join("transformer", triplane_transformer_state_dict_from_flax(
+              params["transformer"])),
+          **_join("synthesizer.decoder", osg_decoder_state_dict_from_flax(
+              params["decoder"]))}
     return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}

@@ -109,13 +109,14 @@ def orbit_c2w(elevation_deg, azimuth_deg, radius, target=None,
 
 
 def perspective(fovy_deg, aspect=1.0, near=0.01, far=100.0,
-                device=None) -> torch.Tensor:
+                device=None, dtype=torch.float32) -> torch.Tensor:
     """OpenGL perspective projection 4x4 (z_clip in [-1, 1])."""
     if device is None and torch.is_tensor(fovy_deg):
         device = fovy_deg.device
-    fovy = torch.deg2rad(_f32(fovy_deg, _resolve(device)))
+    fovy = torch.deg2rad(torch.as_tensor(fovy_deg, dtype=dtype,
+                                         device=_resolve(device)))
     f = 1.0 / torch.tan(fovy / 2.0)
-    z = torch.zeros(fovy.shape + (4, 4), device=fovy.device)
+    z = torch.zeros(fovy.shape + (4, 4), dtype=dtype, device=fovy.device)
     z[..., 0, 0] = f / aspect
     z[..., 1, 1] = f
     z[..., 2, 2] = (far + near) / (near - far)
@@ -184,6 +185,18 @@ class Camera:
     @property
     def proj(self):
         return perspective(self.fovy_deg, self.aspect, self.near, self.far)
+
+    @property
+    def view_proj(self):
+        """[..., 4, 4] world → clip: proj @ w2c per camera, computed in
+        float64 and rounded once to float32, so the card and the CPU give
+        the same matrix for the same c2w (their float32 `tan` and matmul
+        round differently, and a face seen edge-on turns an ulp of the
+        matrix into a visible change of its barycentrics)."""
+        proj = perspective(self.fovy_deg, self.aspect, self.near, self.far,
+                           dtype=torch.float64)
+        w2c = invert_rigid(self.c2w.double())
+        return torch.einsum("...ij,...jk->...ik", proj, w2c).float()
 
     @property
     def intrinsics(self):

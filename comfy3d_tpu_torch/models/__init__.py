@@ -1,11 +1,11 @@
 """The model zoo: shared transformer blocks (`common`) and the model
-families (`triposr`).
+families (`triposr`, `instantmesh`).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("common", "triposr")
+_SUBMODULES = ("common", "instantmesh", "triposr")
 
 
 def __getattr__(name):

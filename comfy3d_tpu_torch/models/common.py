@@ -239,6 +239,31 @@ class ViT(nn.Module):
         return self.layernorm(x)
 
 
+def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded weights in the JAX package's scheme, in place: Linear, conv
+    and transposed-conv kernels (and `nn.MultiheadAttention`'s projection
+    matrices) normal with std 1/sqrt(fan_in), biases 0, norms 1 and 0."""
+    def draw(w, fan_in):
+        w.copy_(torch.randn(w.shape, generator=generator) / fan_in ** 0.5)
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                w = mod.weight
+                draw(w, w.shape[0] * w[0, 0].numel()
+                     if isinstance(mod, nn.ConvTranspose2d) else w[0].numel())
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.MultiheadAttention):
+                for w in (mod.in_proj_weight, mod.q_proj_weight,
+                          mod.k_proj_weight, mod.v_proj_weight):
+                    if w is not None:
+                        draw(w, w.shape[1])
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 

@@ -12,13 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 from torch.profiler import record_function
 
 from ... import resolve_device
 from ...core.camera import Camera, get_rays
 from ...core.mesh import Mesh
 from ...ops import raymarch, tetra, volume
+from ..common import init_weights_
 from .model import TripoSR, TripoSRConfig
 
 # the profiler spans of `TripoSRPipeline.extract_mesh`, in the order it runs
@@ -30,24 +30,12 @@ EXTRACT_STAGES = ("extract_mesh.decode", "extract_mesh.sweep_weld",
 
 
 def _init_params(model: TripoSR, generator: torch.Generator) -> None:
-    """Seeded weights in the JAX package's scheme: Linear and conv kernels
-    normal with std 1/sqrt(fan_in), biases 0, norms 1 and 0, the triplane
-    tokens normal with std 1/sqrt(C); the ViT's cls token and position
-    grid normal with std 0.02 (HF's ViT init), so the grid resize sees
-    values."""
+    """Seeded weights in the JAX package's scheme (`common.init_weights_`),
+    the triplane tokens normal with std 1/sqrt(C); the ViT's cls token and
+    position grid normal with std 0.02 (HF's ViT init), so the grid resize
+    sees values."""
+    init_weights_(model, generator)
     with torch.no_grad():
-        for name, mod in model.named_modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-                w = mod.weight
-                fan_in = w[0].numel() if not isinstance(
-                    mod, nn.ConvTranspose2d) else w.shape[0] * w[0, 0].numel()
-                w.copy_(torch.randn(w.shape, generator=generator)
-                        / fan_in ** 0.5)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
         emb = model.image_tokenizer.model.embeddings
         for p in (emb.cls_token, emb.position_embeddings):
             p.copy_(torch.randn(p.shape, generator=generator) * 0.02)

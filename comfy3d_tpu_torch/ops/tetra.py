@@ -3,8 +3,9 @@
 Port of the parts of `comfy3d_tpu/ops/tetra.py` that the image → mesh path
 runs: the 16-case table derived at import (`_build_case_table`), the per-tet
 triangles (`_tet_triangles`), active cells → compacted soup
-(`_cells_to_tris`), `marching_tets_grid`, the host `weld`, `weld_device`
-and `extract_isosurface_device` with its capacity doubling.
+(`_cells_to_tris`), `marching_tets_grid` and `marching_tets_deformed` (the
+same sweep over a deformed lattice), `grid_tets`, the host `weld`,
+`weld_device` and `extract_isosurface_device` with its capacity doubling.
 
 Each cube splits into 6 tets around its 0→6 diagonal; each tet yields 0–2
 triangles, oriented away from its inside corners. Arrays are laid out
@@ -153,6 +154,30 @@ def _cells_to_tris(pos, val, max_tris: int):
     return soup, min(count, max_tris), count > max_tris
 
 
+def _active_cells(field, max_tris: int, cell_cap: int | None):
+    """The cells of a [X, Y, Z] field whose corners differ in sign (> 0
+    inside), in index order, cut at `cell_cap` (default max(4096,
+    max_tris // 4), a crossing cell yielding 1-12 triangles, typically ~2;
+    clipped to the cell count). Returns (ci, cj, ck, n_active, cell_cap)."""
+    ncx, ncy, ncz = (s - 1 for s in field.shape)
+    if cell_cap is None:
+        cell_cap = max(4096, max_tris // 4)
+    cell_cap = min(cell_cap, ncx * ncy * ncz)
+    inside = field > 0
+    corner = [inside[dx:dx + ncx, dy:dy + ncy, dz:dz + ncz]
+              for dx, dy, dz in _CORNERS]
+    any_in, all_in = corner[0], corner[0]
+    for c in corner[1:]:
+        any_in = any_in | c
+        all_in = all_in & c
+    # the JAX package's `top_k` over the 0/1 mask pads the crossing cells
+    # with non-crossing ones, which yield no triangle
+    active = torch.nonzero((any_in & ~all_in).reshape(-1)).squeeze(1)
+    cell = active[:cell_cap]
+    return (cell // (ncy * ncz), (cell // ncz) % ncy, cell % ncz,
+            active.numel(), cell_cap)
+
+
 def marching_tets_grid(grid, iso: float = 0.0, origin=(-1.0, -1.0, -1.0),
                        spacing=None, max_tris: int = 200_000,
                        cell_cap: int | None = None):
@@ -171,28 +196,9 @@ def marching_tets_grid(grid, iso: float = 0.0, origin=(-1.0, -1.0, -1.0),
     spacing = torch.tensor(spacing, dtype=torch.float32, device=dev)
     origin = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
     field = grid - torch.tensor(iso, dtype=torch.float32, device=dev)
-    ncx, ncy, ncz = (s - 1 for s in grid.shape)
-    if cell_cap is None:
-        # a crossing cell yields 1-12 triangles, typically ~2
-        cell_cap = max(4096, max_tris // 4)
-    cell_cap = min(cell_cap, ncx * ncy * ncz)
-
-    # pass 1: the cells whose corners differ in sign, in index order
-    s = field > 0
-    corner = [s[dx:dx + ncx, dy:dy + ncy, dz:dz + ncz]
-              for dx, dy, dz in _CORNERS]
-    any_in, all_in = corner[0], corner[0]
-    for c in corner[1:]:
-        any_in = any_in | c
-        all_in = all_in & c
-    active = torch.nonzero((any_in & ~all_in).reshape(-1)).squeeze(1)
-    n_active = active.numel()
-    cell = active[:cell_cap]
-
-    # pass 2: corners of the active cells, then the tet cases
-    ci = cell // (ncy * ncz)
-    cj = (cell // ncz) % ncy
-    ck = cell % ncz
+    ci, cj, ck, n_active, cell_cap = _active_cells(field, max_tris,
+                                                   cell_cap)
+    # corners of the active cells, then the tet cases
     val = torch.stack([field[ci + dx, cj + dy, ck + dz]
                        for dx, dy, dz in _CORNERS], 1)           # [K, 8]
     base = torch.stack([ci, cj, ck], 1).float()                  # [K, 3]
@@ -201,6 +207,49 @@ def marching_tets_grid(grid, iso: float = 0.0, origin=(-1.0, -1.0, -1.0),
 
     soup, count, tri_ovf = _cells_to_tris(pos, val, max_tris)
     return soup, count, tri_ovf or n_active > cell_cap
+
+
+def marching_tets_deformed(v_def, sdf, res: int, max_tris: int = 200_000,
+                           cell_cap: int | None = None):
+    """Marching tets over a deformed res³ lattice, as a triangle soup.
+
+    v_def [res³, 3] deformed vertex positions (the lattice's topology,
+    x-major); sdf [res³] signed field (> 0 inside). The crossing cells are
+    those of `marching_tets_grid`, in index order, and their corners are
+    gathered from `v_def`. Returns (soup [max_tris, 3, 3], count, overflow)
+    with Python count and overflow: overflow when more than `max_tris`
+    triangles or more than `cell_cap` crossing cells were found. Gradients
+    reach `v_def` and `sdf` through the edge interpolation; the topology is
+    not differentiated."""
+    ci, cj, ck, n_active, cell_cap = _active_cells(
+        sdf.reshape(res, res, res), max_tris, cell_cap)
+    vids = torch.stack([((ci + dx) * res + (cj + dy)) * res + (ck + dz)
+                        for dx, dy, dz in _CORNERS], 1)          # [K, 8]
+    soup, count, tri_ovf = _cells_to_tris(v_def[vids], sdf[vids], max_tris)
+    return soup, count, tri_ovf or n_active > cell_cap
+
+
+def grid_vertices(res: int) -> np.ndarray:
+    """[res³, 3] float32 lattice over [-1, 1]³, x-major (numpy)."""
+    lin = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    gx, gy, gz = np.meshgrid(lin, lin, lin, indexing="ij")
+    return np.stack([gx, gy, gz], -1).reshape(-1, 3)
+
+
+def grid_tets(res: int):
+    """Regular tet decomposition of a res³ vertex grid in [-1, 1]³ →
+    (verts [res³, 3], tets [(res-1)³·6, 4] int32), numpy, each cube split
+    into `_TETS`."""
+    def vid(x, y, z):
+        return (x * res + y) * res + z
+
+    ix = np.arange(res - 1)
+    cx, cy, cz = np.meshgrid(ix, ix, ix, indexing="ij")
+    corner_ids = np.stack([
+        vid(cx + _CORNERS[k, 0], cy + _CORNERS[k, 1], cz + _CORNERS[k, 2])
+        for k in range(8)], -1).reshape(-1, 8)
+    tets = corner_ids[:, _TETS].reshape(-1, 4).astype(np.int32)
+    return grid_vertices(res), tets
 
 
 def weld(tri_soup: np.ndarray, tri_count: int, decimals: int = 6):

@@ -27,6 +27,25 @@ def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
+# `jax.jit(..., compiler_options=QUICK_XLA)`: XLA:CPU compiles a reference
+# held within a tolerance in about half the time; references held element
+# for element keep the default options, whose fused arithmetic they match
+QUICK_XLA = {"xla_backend_optimization_level": 0,
+             "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for a module's tests, then as before:
+    at these tiny shapes a thread pool buys nothing, and while the suite's
+    other workers load every core its waits multiply a test's time (the
+    brute-force raster test 0.8 → 6.2 s with six busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize(params, seed):
     """Every leaf of a flax param tree redrawn from a seed (the zeros and
     ones of a fresh init would leave biases, norms, position grids and cls

@@ -7,13 +7,15 @@ hold their state in six and two arrays, and
 handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
 / `GSTrainState` with the same state. The JAX package's model params (nested
 dicts of arrays) become the port's native-layout state dicts
-(`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax` and
+(`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax`,
+`mvdream_state_dict_from_flax`, `lgm_state_dict_from_flax` and
 the per-block functions below them), so both packages can compute on
 identical inputs and weights.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -286,3 +288,115 @@ def instantmesh_state_dict_from_flax(params) -> dict:
           **_join("synthesizer.decoder", osg_decoder_state_dict_from_flax(
               params["decoder"]))}
     return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+# ------------------------------------- the diffusion UNet / VAE, MVDream, LGM
+def _modules(tree, path=()):
+    """(flax path "a/b/c", its param dict) for every Dense, Conv and norm
+    of a flax param tree."""
+    if "kernel" in tree or "scale" in tree:
+        yield "/".join(path), tree
+        return
+    for name, sub in tree.items():
+        yield from _modules(sub, path + (name,))
+
+
+def _module_sd(p) -> dict:
+    """A flax Dense {kernel [in, out]}, Conv {kernel [kh, kw, I, O]} or
+    norm {scale} (each with its bias) → torch's {weight, bias}: Linear
+    [out, in], Conv2d [O, I, kh, kw]."""
+    if "scale" in p:
+        return _norm(p)
+    kernel = np.asarray(p["kernel"])
+    if kernel.ndim == 4:
+        out = {"weight": np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))}
+        if "bias" in p:
+            out["bias"] = np.asarray(p["bias"])
+        return out
+    return _dense(p)
+
+
+def _renamed_state_dict(tree, renames) -> dict:
+    """Every module of a flax tree under its torch name: the flax path
+    with each (regex, replacement) of `renames` applied in order, then
+    "/" → "."."""
+    sd = {}
+    for path, p in _modules(tree):
+        for pattern, repl in renames:
+            path = re.sub(pattern, repl, path)
+        sd.update(_join(path.replace("/", "."), _module_sd(p)))
+    return sd
+
+
+def _tensors(sd) -> dict:
+    return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+# the JAX package's transformer-block names → diffusers'
+_TRANSFORMER_RENAMES = (
+    (r"blocks_(\d+)", r"transformer_blocks.\1"),
+    (r"to_out_0", "to_out.0"),
+    (r"ff_net_0/proj", "ff.net.0.proj"),
+    (r"ff_net_2", "ff.net.2"),
+)
+_UNET_RENAMES = (
+    (r"^(down|up)_(\d+)_res_(\d+)", r"\1_blocks.\2.resnets.\3"),
+    (r"^(down|up)_(\d+)_attn_(\d+)", r"\1_blocks.\2.attentions.\3"),
+    (r"^down_(\d+)_downsample", r"down_blocks.\1.downsamplers.0"),
+    (r"^up_(\d+)_upsample", r"up_blocks.\1.upsamplers.0"),
+    (r"^mid_res_(\d+)", r"mid_block.resnets.\1"),
+    (r"^mid_attn", "mid_block.attentions.0"),
+    (r"^time_emb_(\d)", r"time_embedding.linear_\1"),
+    (r"^norm_out", "conv_norm_out"),
+) + _TRANSFORMER_RENAMES
+_VAE_RENAMES = (
+    (r"^encoder/quant_conv", "quant_conv"),
+    (r"^decoder/post_quant_conv", "post_quant_conv"),
+    (r"/(down|up)_(\d+)_res_(\d+)", r"/\1_blocks.\2.resnets.\3"),
+    (r"/down_(\d+)_downsample", r"/down_blocks.\1.downsamplers.0.conv"),
+    (r"/up_(\d+)_upsample", r"/up_blocks.\1.upsamplers.0.conv"),
+    (r"/mid_res_(\d+)", r"/mid_block.resnets.\1"),
+    (r"/mid_attn", "/mid_block.attentions.0"),
+    (r"/norm_out", "/conv_norm_out"),
+    (r"to_out_0", "to_out.0"),
+)
+_LGM_RENAMES = (
+    (r"^(down|up)_(\d+)_res_(\d+)", r"\1_blocks.\2.nets.\3"),
+    (r"^(down|up)_(\d+)_attn_(\d+)", r"\1_blocks.\2.attns.\3"),
+    (r"^(down|up)_(\d+)_(down|up)sample", r"\1_blocks.\2.\3sample"),
+    (r"^mid_res_(\d+)", r"mid_block.nets.\1"),
+    (r"^mid_attn", "mid_block.attns.0"),
+    (r"/(qkv|proj)$", r"/attn.\1"),
+)
+
+
+def unet_state_dict_from_flax(params) -> dict:
+    """The JAX package's `UNet2DCondition` params → the port's state dict
+    (diffusers' `UNet2DConditionModel` names), torch tensors on the CPU."""
+    return _tensors(_renamed_state_dict(params, _UNET_RENAMES))
+
+
+def vae_state_dict_from_flax(params) -> dict:
+    """The JAX package's `AutoencoderKL` params → the port's state dict
+    (diffusers' `AutoencoderKL` names)."""
+    return _tensors(_renamed_state_dict(params, _VAE_RENAMES))
+
+
+def mvdream_state_dict_from_flax(params) -> dict:
+    """The JAX package's MVDream params, `{"unet", "vae", "camera"}` → the
+    port's `MVDream` state dict: `unet.*`, `vae.*` and `camera_embed.{0,2}`
+    (MVDream's camera MLP)."""
+    cam = params["camera"]
+    return {**_join("unet", unet_state_dict_from_flax(params["unet"])),
+            **_join("vae", vae_state_dict_from_flax(params["vae"])),
+            **_tensors({**_join("camera_embed.0", _dense(cam["linear_1"])),
+                        **_join("camera_embed.2", _dense(cam["linear_2"]))})}
+
+
+def lgm_state_dict_from_flax(params) -> dict:
+    """The JAX package's `LGMUNet` params → the port's `LGMUNet` state dict
+    in LGM's checkpoint names (`unet.*` and the trailing 1×1 `conv.*`)."""
+    body = {k: v for k, v in params.items() if k != "conv_final"}
+    return _tensors({
+        **_join("unet", _renamed_state_dict(body, _LGM_RENAMES)),
+        **_join("conv", _module_sd(params["conv_final"]))})

@@ -1,11 +1,13 @@
-"""The model zoo: shared transformer blocks (`common`) and the model
-families (`triposr`, `instantmesh`).
+"""The model zoo: shared transformer blocks (`common`), the diffusion
+substrate (`diffusion`: UNet, VAE, DDIM) and the model families
+(`triposr`, `instantmesh`, `mvdream`, `lgm`).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("common", "instantmesh", "triposr")
+_SUBMODULES = ("common", "diffusion", "instantmesh", "lgm", "mvdream",
+               "triposr")
 
 
 def __getattr__(name):

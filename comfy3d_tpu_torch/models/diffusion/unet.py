@@ -1,0 +1,340 @@
+"""Stable-Diffusion-class conditional UNet (NCHW).
+
+Port of `comfy3d_tpu/models/diffusion/unet.py`: a `UNet2DConditionModel`
+with (CrossAttn)Down/Mid/Up blocks, GroupNorm-SiLU-Conv resnets, spatial
+transformers with self- and cross-attention, and sinusoidal time
+embeddings. Submodules carry diffusers' names (`conv_in`,
+`time_embedding.linear_{1,2}`, `down_blocks.{i}.{resnets,attentions,
+downsamplers}`, `mid_block`, `up_blocks.{i}.{resnets,attentions,
+upsamplers}`, `conv_norm_out`, `conv_out`), the layout the JAX package's
+`models/diffusion/convert.py::unet_rules` reads; `proj_in`/`proj_out` are
+linear (SD2.x's `use_linear_projection`), as in the JAX package.
+
+MVDream's 3D self-attention (`mv_views > 1`) folds the views of each
+sample into one token sequence; the cross-attention of a fold reads only
+its first view's context, as the JAX package does.
+
+The arithmetic is the JAX package's: GroupNorm eps 1e-5 in the resnets and
+`conv_norm_out`, 1e-6 in the spatial transformers, LayerNorm eps 1e-6, the
+feed-forward's GEGLU gated by the tanh GELU (`models/common.py`). Token
+sequences are flattened row-major over (H, W) with the channels last.
+
+Not ported: the options of the other UNet families. Each raises
+NotImplementedError naming its ROADMAP item: Wonder3D's `cd_joint`, Era3D's
+`mv_rowwise` and `pose_hook`, ImageDream's `ip_dim`, Hunyuan's `use_ma` /
+`use_ra`, MV-Adapter's `mv_decoupled`, SDXL's `addition_embed_type` and
+per-block `transformer_depth`, Zero123Plus's reference attention
+(`ref_mode`), and the ControlNet / T2I-Adapter residuals.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..common import BasicTransformerBlock
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 1024
+    attention_head_dim: int = 64     # per-head dim; < 0: a head count
+    norm_groups: int = 32
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D", "DownBlock2D")
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D")
+    # > 1: MVDream's 3D self-attention over all views of a sample
+    mv_views: int = 1
+    # the other families' options (the JAX package's fields); any value
+    # but the default raises in `UNet2DCondition`
+    cd_joint: bool = False
+    mv_rowwise: bool = False
+    ip_dim: int = 0
+    ip_weight: float = 1.0
+    use_ma: bool = False
+    use_ra: bool = False
+    mva_scale: float = 1.0
+    ref_scale: float = 1.0
+    transformer_depth: Tuple[int, ...] | int = 1
+    addition_embed_type: str = ""
+    addition_time_embed_dim: int = 256
+    addition_proj_dim: int = 2816
+    mv_decoupled: bool = False
+    mv_use_ref: bool = True
+
+    @classmethod
+    def sd15(cls) -> "UNetConfig":
+        return cls(cross_attention_dim=768, attention_head_dim=-8)
+
+    @classmethod
+    def sd21(cls) -> "UNetConfig":
+        return cls(cross_attention_dim=1024, attention_head_dim=64)
+
+
+# config fields of other families → the ROADMAP item that ports them
+_UNPORTED_FIELDS = (
+    ("cd_joint", "Wonder3D's cross-domain attention", "A.6.6"),
+    ("mv_rowwise", "Era3D's row-wise attention", "A.6.6"),
+    ("ip_dim", "ImageDream's IP-adapter tokens", "A.6.4"),
+    ("use_ma", "Hunyuan paint's multiview attention", "A.6.6"),
+    ("use_ra", "Hunyuan paint's reference attention", "A.6.6"),
+    ("mv_decoupled", "MV-Adapter's decoupled attention", "A.6.6"),
+    ("addition_embed_type", "SDXL's added embedding", "A.6.6"),
+)
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported (ROADMAP {item})")
+
+
+def check_config(cfg: UNetConfig) -> None:
+    """Raise for a config field of a family the port does not carry."""
+    default = UNetConfig()
+    for field, what, item in _UNPORTED_FIELDS:
+        if getattr(cfg, field) != getattr(default, field):
+            raise _unported(f"UNetConfig.{field} ({what})", item)
+    if not isinstance(cfg.transformer_depth, int):
+        raise _unported("a per-block transformer_depth (SDXL)", "A.6.6")
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding [B, dim], [cos, sin] (diffusers `Timesteps`
+    with flip_sin_to_cos=True, downscale_freq_shift=0)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=t.device) / half)
+    args = t.to(torch.float32)[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class ResnetBlock(nn.Module):
+    """diffusers `ResnetBlock2D`: GN-SiLU-conv, + the projected time
+    embedding, GN-SiLU-conv, + the (1×1-projected) input."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
+                 norm_groups: int = 32):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(norm_groups, in_channels, eps=1e-5)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_dim, out_channels)
+        self.norm2 = nn.GroupNorm(norm_groups, out_channels, eps=1e-5)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x, temb):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class SpatialTransformer(nn.Module):
+    """diffusers `Transformer2DModel`: GN → linear proj_in → blocks →
+    proj_out, + the input. With `mv_views` > 1 the views of each sample
+    are one token sequence, and its context is its first view's."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int,
+                 context_dim: int, depth: int = 1, norm_groups: int = 32):
+        super().__init__()
+        self.norm = nn.GroupNorm(norm_groups, channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, channels)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(channels, heads, dim_head,
+                                  cross_attention_dim=context_dim)
+            for _ in range(depth)])
+        self.proj_out = nn.Linear(channels, channels)
+
+    def forward(self, x, context, mv_views: int = 1):
+        b, c, h, w = x.shape
+        hid = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        hid = self.proj_in(hid)
+        v = mv_views
+        if v > 1:
+            hid = hid.reshape(b // v, v * h * w, c)
+            context = context.reshape(b // v, v, *context.shape[1:])[:, 0]
+        for block in self.transformer_blocks:
+            hid = block(hid, context=context)
+        hid = self.proj_out(hid.reshape(b, h * w, c))
+        return hid.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+
+
+class Downsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest 2× (as `jax.image.resize(..., "nearest")`), then a conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def _block(resnets, attentions=(), resample=None, kind="downsamplers"):
+    """A diffusers block: `resnets`, `attentions` and `{down,up}samplers`."""
+    return nn.ModuleDict({
+        "resnets": nn.ModuleList(resnets),
+        "attentions": nn.ModuleList(attentions),
+        kind: nn.ModuleList([] if resample is None else [resample])})
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, cfg: UNetConfig = UNetConfig()):
+        super().__init__()
+        check_config(cfg)
+        self.cfg = c = cfg
+        ch0 = c.block_out_channels[0]
+        temb_dim = ch0 * 4
+        g = c.norm_groups
+
+        def st(ch):
+            heads, dim_head = self._heads(ch)
+            return SpatialTransformer(ch, heads, dim_head,
+                                      c.cross_attention_dim,
+                                      depth=c.transformer_depth,
+                                      norm_groups=g)
+
+        self.time_embedding = nn.ModuleDict({
+            "linear_1": nn.Linear(ch0, temb_dim),
+            "linear_2": nn.Linear(temb_dim, temb_dim)})
+        self.conv_in = nn.Conv2d(c.in_channels, ch0, 3, padding=1)
+
+        skip_ch = [ch0]
+        cur = ch0
+        down = []
+        last = len(c.down_block_types) - 1
+        for bi, btype in enumerate(c.down_block_types):
+            out_ch = c.block_out_channels[bi]
+            cross = btype.startswith("CrossAttnDownBlock")
+            resnets, attns = [], []
+            for _ in range(c.layers_per_block):
+                resnets.append(ResnetBlock(cur, out_ch, temb_dim, g))
+                cur = out_ch
+                if cross:
+                    attns.append(st(out_ch))
+                skip_ch.append(cur)
+            ds = Downsample(out_ch) if bi < last else None
+            if ds is not None:
+                skip_ch.append(cur)
+            down.append(_block(resnets, attns, ds, "downsamplers"))
+        self.down_blocks = nn.ModuleList(down)
+
+        mid_ch = c.block_out_channels[-1]
+        self.mid_block = nn.ModuleDict({
+            "resnets": nn.ModuleList([
+                ResnetBlock(cur, mid_ch, temb_dim, g),
+                ResnetBlock(mid_ch, mid_ch, temb_dim, g)]),
+            "attentions": nn.ModuleList([st(mid_ch)])})
+        cur = mid_ch
+
+        up = []
+        rev = list(reversed(c.block_out_channels))
+        last = len(c.up_block_types) - 1
+        for bi, btype in enumerate(c.up_block_types):
+            out_ch = rev[bi]
+            cross = btype.startswith("CrossAttnUpBlock")
+            resnets, attns = [], []
+            for _ in range(c.layers_per_block + 1):
+                resnets.append(ResnetBlock(cur + skip_ch.pop(), out_ch,
+                                           temb_dim, g))
+                cur = out_ch
+                if cross:
+                    attns.append(st(out_ch))
+            us = Upsample(out_ch) if bi < last else None
+            up.append(_block(resnets, attns, us, "upsamplers"))
+        self.up_blocks = nn.ModuleList(up)
+
+        self.conv_norm_out = nn.GroupNorm(g, ch0, eps=1e-5)
+        self.conv_out = nn.Conv2d(ch0, c.out_channels, 3, padding=1)
+
+    def _heads(self, channels: int):
+        """(heads, dim_head): `attention_head_dim` < 0 is a head count (SD
+        1.5), else the per-head width (SD 2.x)."""
+        hd = self.cfg.attention_head_dim
+        if hd < 0:
+            return -hd, channels // -hd
+        return channels // hd, hd
+
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                class_emb=None, mv_views: Optional[int] = None,
+                ref_mode=None, ref_hidden=None, down_residuals=None,
+                mid_residual=None, adapter_residuals=None, pose_hook=None,
+                added_text_emb=None, added_time_ids=None,
+                intrablock_residuals=None):
+        """sample [B, Cin, H, W]; timesteps [B]; context [B, T, D];
+        class_emb [B, 4·C0] added to the time embedding (MVDream's camera);
+        `mv_views` overrides the config's per call. → [B, Cout, H, W]."""
+        for name, val, item in (
+                ("ref_mode", ref_mode, "A.6.6"),
+                ("ref_hidden", ref_hidden, "A.6.6"),
+                ("down_residuals", down_residuals, "A.6.6"),
+                ("mid_residual", mid_residual, "A.6.6"),
+                ("adapter_residuals", adapter_residuals, "A.6.4"),
+                ("pose_hook", pose_hook, "A.6.6"),
+                ("added_text_emb", added_text_emb, "A.6.6"),
+                ("added_time_ids", added_time_ids, "A.6.6"),
+                ("intrablock_residuals", intrablock_residuals, "A.6.6")):
+            if val is not None:
+                raise _unported(f"UNet2DCondition's {name}", item)
+        c = self.cfg
+        v = c.mv_views if mv_views is None else mv_views
+        ctx = encoder_hidden_states
+
+        te = self.time_embedding
+        temb = timestep_embedding(timesteps, c.block_out_channels[0])
+        temb = te["linear_2"](F.silu(te["linear_1"](temb)))
+        if class_emb is not None:
+            temb = temb + class_emb
+
+        h = self.conv_in(sample)
+        skips = [h]
+        for block in self.down_blocks:
+            attns = block["attentions"]
+            for li, res in enumerate(block["resnets"]):
+                h = res(h, temb)
+                if len(attns):
+                    h = attns[li](h, ctx, v)
+                skips.append(h)
+            for ds in block["downsamplers"]:
+                h = ds(h)
+                skips.append(h)
+
+        mid = self.mid_block
+        h = mid["resnets"][0](h, temb)
+        h = mid["attentions"][0](h, ctx, v)
+        h = mid["resnets"][1](h, temb)
+
+        for block in self.up_blocks:
+            attns = block["attentions"]
+            for li, res in enumerate(block["resnets"]):
+                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                if len(attns):
+                    h = attns[li](h, ctx, v)
+            for us in block["upsamplers"]:
+                h = us(h)
+
+        return self.conv_out(F.silu(self.conv_norm_out(h)))

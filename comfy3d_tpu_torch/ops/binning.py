@@ -151,22 +151,14 @@ def num_bins(height: int, width: int, bin_px: int = BIN) -> tuple[int, int]:
     return -(-height // bin_px), -(-width // bin_px)
 
 
-def bin_coarse(means2d: torch.Tensor, depth: torch.Tensor,
-               radii: torch.Tensor, active: torch.Tensor,
-               nbins_y: int, nbins_x: int, k: int = 4, bin_px: int = BIN):
-    """Returns (sorted_prim [N*k] int64, bounds [nbins+1] int32,
-    overflow [] bool).
-
-    Bin t's depth-ordered segment is sorted_prim[bounds[t]:bounds[t+1]].
-    Overflow is set when a primitive's bin footprint exceeds `k` slots."""
-    n = means2d.shape[0]
-    dev = means2d.device
-    nbins = nbins_y * nbins_x
-    bin_bits = (nbins + 1).bit_length()
-    depth_bits = 32 - bin_bits
-    if nbins >= (1 << bin_bits) - 1:
-        raise ValueError(f"{nbins} bins do not fit the key")
-
+def coarse_footprint(means2d: torch.Tensor, radii: torch.Tensor,
+                     active: torch.Tensor, nbins_y: int, nbins_x: int,
+                     bin_px: int = BIN):
+    """Each primitive's box of bins for `bin_coarse`: (bx0, by0, w, h)
+    int64 [N], the box's first bin column and row and its width and height
+    in bins, and `act` bool [N], the primitives that are binned at all
+    (active, on screen, radius > 0). A primitive overflows where
+    act & (w·h > k)."""
     r = torch.clamp_min(radii, 0.0)
     inv = 1.0 / bin_px
     mx, my = means2d[:, 0], means2d[:, 1]
@@ -178,9 +170,26 @@ def bin_coarse(means2d: torch.Tensor, depth: torch.Tensor,
                  | (mx - r >= nbins_x * bin_px)
                  | (my - r >= nbins_y * bin_px))
     act = active & ~offscreen & (radii > 0)
+    return bx0, by0, bx1 - bx0 + 1, by1 - by0 + 1, act
 
-    w = bx1 - bx0 + 1
-    h = by1 - by0 + 1
+
+def bin_coarse(means2d: torch.Tensor, depth: torch.Tensor,
+               radii: torch.Tensor, active: torch.Tensor,
+               nbins_y: int, nbins_x: int, k: int = 4, bin_px: int = BIN):
+    """Returns (sorted_prim [N*k] int64, bounds [nbins+1] int32,
+    overflow [] bool).
+
+    Bin t's depth-ordered segment is sorted_prim[bounds[t]:bounds[t+1]].
+    Overflow is set when a primitive's bin footprint exceeds `k` slots."""
+    dev = means2d.device
+    nbins = nbins_y * nbins_x
+    bin_bits = (nbins + 1).bit_length()
+    depth_bits = 32 - bin_bits
+    if nbins >= (1 << bin_bits) - 1:
+        raise ValueError(f"{nbins} bins do not fit the key")
+
+    bx0, by0, w, h, act = coarse_footprint(means2d, radii, active, nbins_y,
+                                           nbins_x, bin_px)
     footprint = w * h
     overflow = torch.any(act & (footprint > k))
     kk = torch.where(act, torch.clamp_max(footprint, k),

@@ -6,7 +6,7 @@ per-block functions of `convert`)."""
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import functools
 

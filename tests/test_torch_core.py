@@ -4,7 +4,7 @@
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import os
 import subprocess
@@ -30,6 +30,8 @@ from comfy3d_tpu_torch.core.camera import Camera
 from comfy3d_tpu_torch.core.gaussian import GaussianSplat
 from comfy3d_tpu_torch.core.gaussian import quat_to_rotmat, rotmat_to_quat
 from comfy3d_tpu_torch.core.io import ply as tply
+
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

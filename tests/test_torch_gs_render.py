@@ -6,7 +6,7 @@ numpy-built inputs."""
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import collections
 
@@ -26,6 +26,7 @@ from comfy3d_tpu_torch.ops import _build, binning, gs_flat
 from comfy3d_tpu_torch.ops import gs_render as G
 
 from tests.test_torch_kernels import CASES, make_bins_case, rows_of_payload
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 
 
 def make_scene(seed, n=24, spread=0.6):

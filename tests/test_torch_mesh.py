@@ -4,7 +4,7 @@
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import numpy as np
 import torch
@@ -16,6 +16,8 @@ from comfy3d_tpu.core.io import ply as jply
 
 from comfy3d_tpu_torch.core import io as tio
 from comfy3d_tpu_torch.core import mesh as tmesh
+
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 
 
 def _np(x):

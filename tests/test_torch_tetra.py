@@ -6,7 +6,7 @@ analytic fields."""
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import warnings
 
@@ -19,6 +19,7 @@ from comfy3d_tpu.ops import tetra as jtet
 from comfy3d_tpu_torch.ops import tetra
 
 from tests.test_torch_volume import B, _grid, _np
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 
 
 # ------------------------------------------------------ marching tets

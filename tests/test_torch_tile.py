@@ -8,7 +8,7 @@ The render gradients of the tile backend are held against JAX in
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import functools
 
@@ -25,6 +25,7 @@ from comfy3d_tpu_torch.ops import binning, gs_tile
 from comfy3d_tpu_torch.ops import gs_render as G
 
 from tests.test_torch_gs_render import _np, both_cameras, make_scene
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 from tests.test_torch_kernels import (TILE_CASES, make_tiles_case,
                                       tile_rows_of)
 

@@ -6,7 +6,7 @@
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import dataclasses
 
@@ -21,6 +21,7 @@ from comfy3d_tpu_torch.ops import binning
 from comfy3d_tpu_torch.ops import gs_render as G
 
 from tests.test_torch_gs_render import _np, both_cameras, make_scene
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 
 
 def _crowded_scene(seed=5, n=160):

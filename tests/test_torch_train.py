@@ -6,7 +6,7 @@ gradients, SSIM, and the trainer's step, densify and opacity reset,
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import dataclasses
 import functools
@@ -32,6 +32,7 @@ from comfy3d_tpu_torch.ops import ssim as tssim
 from tests.test_torch_gs_render import _np, both_cameras, make_scene
 from tests.test_torch_kernels import CASES, _bwd_case, pair_splats
 from tests.test_torch_tile import jax_scatter
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 
 
 def _close_to_max(port, ref, atol, name=""):

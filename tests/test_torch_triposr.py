@@ -7,7 +7,7 @@ numpy inputs and weights (flax params carried across by
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import dataclasses
 
@@ -27,7 +27,8 @@ from comfy3d_tpu_torch.models.triposr import (TripoSR, TripoSRConfig,
                                               TripoSRPipeline)
 from comfy3d_tpu_torch.ops import volume
 
-from tests.test_torch_common import _load, _np, _params
+from tests.test_torch_common import (_load, _np, _params,
+                                     one_torch_thread)  # noqa: F401
 
 # tiny, with the ViT's grid (48 / 8 = 6²) unlike its checkpoint grid (4²)
 TINY = dict(cond_image_size=48, plane_size=8, token_channels=64,

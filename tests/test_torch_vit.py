@@ -5,7 +5,7 @@ against `comfy3d_tpu` on the same numpy inputs and weights."""
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +17,8 @@ from comfy3d_tpu.models import common as jc
 from comfy3d_tpu_torch import convert
 from comfy3d_tpu_torch.models import common as tc
 
-from tests.test_torch_common import _block_case, _load, _np, _params
+from tests.test_torch_common import (_block_case, _load, _np, _params,
+                                     one_torch_thread)  # noqa: F401
 
 
 @pytest.mark.parametrize("name", [

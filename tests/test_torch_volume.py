@@ -5,7 +5,7 @@ hierarchical decodes, and ray marching, `comfy3d_tpu_torch` against
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +15,8 @@ from comfy3d_tpu.ops import raymarch as jray
 from comfy3d_tpu.ops import volume as jvol
 
 from comfy3d_tpu_torch.ops import raymarch, volume
+
+from tests.test_torch_common import one_torch_thread  # noqa: F401
 
 
 B = 0.87           # TripoSR's box

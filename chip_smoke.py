@@ -133,10 +133,44 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      after (K1′ 24, the others 0), K1′ against its plain version on view 0
      with phase 3's gates, its time and bound there, the per-splat box, the
      share of splats over k = 4 bins (reported), the orbit's time, and text
-     → 24 views end to end on the host's clock.
+     → 24 views end to end on the host's clock. The orbit's cameras are
+     the converter's (`algorithms/gs_to_mesh.py::orbit_cameras`).
+ 15. the GS→mesh converter (`algorithms/gs_to_mesh.py::convert` at
+     `GSToMeshConfig()`, the Convert_3DGS_to_Mesh node's defaults: 24 views
+     at 256², a 384-iteration NeRF fit at `NGPConfig()` widths, a 192³
+     grid, σ threshold 10, clean, decimation to 100k faces, the LSCM atlas,
+     a 1024² bake). a. the card against the CPU with TF32 off at small
+     widths (4 levels of 2^12 entries, 1,024 rays × 32 steps, hidden 16):
+     the hash-grid encode and its table gradient, the losses of five fit
+     iterations from the same draws, and `density_grid` at 48³ of one
+     field, each within 1e-3 (each fit's own parameters, occupancy grid
+     and density grid are reported, not gated: float rounding decides the
+     fit's discrete turns, the occupancy threshold and Adam's steps near
+     its ε, so the tables drift apart while the losses agree);
+     `extract_isosurface` of one shared grid (equal faces, vertices within
+     1e-5); one shared mesh and atlas rasterized in UV space at 256² (face
+     ids agree on ≥ 99.9 % of texels) and baked by `bake_color_fn` (within
+     1e-4 where they agree); b. a coloured shell of 20,000 splats of radius
+     0.5 (opacity 0.076 each: a wall passes ~30 % of the light, so the fit
+     sees the inside) through `convert` with the fit cut to 128 iterations
+     (widths kept) and the launch counts reset just before
+     and read just after (K1′ 24, the others 0): the fit's loss below 0.5×
+     its first, a non-empty mesh of at most 100k faces whose mean vertex
+     radius is within 0.1 of 0.5, the albedo finite in [0, 1], the mesh
+     through GLB and back, K1′ on view 0 against its plain version (phase
+     3's gates) with its time and bound; c. text → phase 14's splats (the
+     same seed) → mesh at every default, on the host's clock, in one run
+     under the profiler split by `convert`'s stage spans (host and device
+     ms), with K1′'s 24 launches, the face counts, the unwrap that ran and
+     peak memory (finite and in [0, 1], not gated further: random weights
+     make no meaningful surface); d. one NeRF step at full width
+     (4,096 rays × 128 steps) by CUDA events and profiled: device-busy ms,
+     idle share, device ops, the top ops, the hash-grid gather
+     (`index_select`) and its scatter (`index_add_`).
 Phases 11–13 launch none of the compositor kernels (counted).
 It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
-`{"mesh_render": {...}}` and an `{"mvdream_lgm": {...}}` line, one
+`{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}` and a
+`{"gs_to_mesh": {...}}` line, one
 `{"kernels": [...]}` line, then the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -218,7 +252,9 @@ def profile_frames(fn, frames, rows=None):
     (the sum of the device ops' times, and `device_union_ms`, the time at
     least one ran: they differ where ops run concurrently), the profiled
     window's ms per frame on the host's clock, device-side ops per frame,
-    and the ops with the most device time. With
+    and the ops with the most device time; the device time and launches of
+    PyTorch's `index_add_` kernels, and the device time and calls of its
+    `index_select` ops. With
     `rows` (a shape [n, D]), also the row gathers per frame: the indexing
     ops (`aten::index`, `index_select`, `gather`, `take`) whose source has
     that shape, i.e. a gather of the per-splat rows a forward kernel reads
@@ -245,13 +281,20 @@ def profile_frames(fn, frames, rows=None):
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     ops.sort(key=dev_us, reverse=True)
-    # PyTorch's index_add_ kernels (indexFuncLargeIndex / SmallIndex)
+    # PyTorch's index_add_ kernels (indexFuncLargeIndex / SmallIndex), and
+    # the device time of its index_select ops (a gather kernel on the card)
     scatter = [e for e in ops if "indexFunc" in e.key]
+    gather = [e for e in prof.key_averages()
+              if e.key == "aten::index_select"
+              and e.device_type == DeviceType.CPU]
     out = dict(
         device_busy_ms=sum(dev_us(e) for e in ops) / 1e3 / frames,
         device_ops=sum(e.count for e in ops) / frames,
         index_add_ms=sum(dev_us(e) for e in scatter) / 1e3 / frames,
         index_add_launches=sum(e.count for e in scatter) / frames,
+        index_select_ms=sum(getattr(e, "device_time_total", 0)
+                            for e in gather) / 1e3 / frames,
+        index_select_calls=sum(e.count for e in gather) / frames,
         top=[dict(name=e.key[:80], ms=dev_us(e) / 1e3 / frames,
                   count=e.count / frames) for e in ops[:10]],
         window_ms=window_s * 1e3 / frames)
@@ -1472,8 +1515,15 @@ def mesh_area(v, f):
 
 def profile_spans(fn, names):
     """One call of fn under torch.profiler: its wall seconds and, for each
-    `record_function` span in `names`, the host ms the span lasted and the
-    device ms of the kernels launched inside it."""
+    `record_function` span in `names`, its calls, the host ms it lasted and
+    the device ms of the device ops launched while it lasted, from any
+    thread (the autograd engine launches the backward's kernels from its
+    own). Read from the profiler's raw Kineto events: a device op belongs
+    to the op that launched it (`linked_correlation_id`), and that op to
+    the span it started in; no event tree is built, so a trace of a
+    million events is read in seconds. Returns (fn's result, its wall
+    seconds, the spans, the seconds the profiler took to stop and be
+    read)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1483,20 +1533,26 @@ def profile_spans(fn, names):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "device_time_total",
-                       getattr(e, "cuda_time_total", 0))
-
-    spans = {}
-    for name in names:
-        evs = [e for e in prof.events()
-               if e.name == name and e.device_type == DeviceType.CPU]
-        spans[name] = {"calls": len(evs),
-                       "host_ms": sum(e.cpu_time_total for e in evs) / 1e3,
-                       "device_ms": sum(dev_us(e) for e in evs) / 1e3}
-    return out, wall_s, spans
+        t1 = time.perf_counter()
+    intervals = {name: [] for name in names}
+    op_start, dev_ns = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.name() in intervals:
+                intervals[e.name()].append((e.start_ns(), e.end_ns()))
+            op_start[e.correlation_id()] = e.start_ns()
+        else:
+            c = e.linked_correlation_id()
+            dev_ns[c] = dev_ns.get(c, 0) + e.duration_ns()
+    spans = {name: {"calls": len(iv),
+                    "host_ms": sum(b - a for a, b in iv) / 1e6,
+                    "device_ms": 0.0} for name, iv in intervals.items()}
+    for c, ns in dev_ns.items():
+        t = op_start.get(c)
+        for name, iv in intervals.items():
+            if t is not None and any(a <= t <= b for a, b in iv):
+                spans[name]["device_ms"] += ns / 1e6
+    return out, t1 - t0, spans, time.perf_counter() - t1
 
 
 def triposr_path(dev, asset_dir, smi_line):
@@ -1635,7 +1691,7 @@ def triposr_path(dev, asset_dir, smi_line):
         torch.cuda.synchronize()
         total_s = time.perf_counter() - tm
         # the split: the spans of one more call, profiled
-        _, profiled_s, spans = profile_spans(
+        _, profiled_s, spans, _ = profile_spans(
             lambda: pipe.extract_mesh(codes[0], **kw), EXTRACT_STAGES)
     overflow = [str(w.message) for w in caught if "overflow" in
                 str(w.message)]
@@ -1869,7 +1925,7 @@ def instantmesh_path(dev, asset_dir, smi_line):
             torch.cuda.synchronize()
             total_s, warm_rungs = time.perf_counter() - tm, \
                 rungs.calls - cold_rungs
-            _, profiled_s, spans = profile_spans(
+            _, profiled_s, spans, _ = profile_spans(
                 lambda: pipe.extract_mesh(planes[0], resolution=res),
                 EXTRACT_STAGES)
         overflow = [str(w.message) for w in caught
@@ -2157,22 +2213,10 @@ MV_ELEVATION = 0.0
 MV_PARAMS = {"unet": 859_520_964, "camera": 1_661_440, "vae": 83_653_863,
              "lgm": 412_958_240}
 SPLAT_FIELDS = ("xyz", "sh", "opacity_raw", "scale_raw", "rot_raw")
-GS_ORBIT_VIEWS = 24      # algorithms/gs_to_mesh.py::convert's supervision
+# gs_to_mesh's supervision orbit: `algorithms/gs_to_mesh.py::orbit_cameras`
+# at `GSToMeshConfig()` (24 views of 256², radius 2, fovy 49.1)
+GS_ORBIT_VIEWS = 24
 GS_ORBIT_SIZE = 256
-GS_ORBIT_RADIUS = 2.0
-GS_ORBIT_FOVY = 49.1
-
-
-def gs_to_mesh_orbit(device, n=GS_ORBIT_VIEWS, size=GS_ORBIT_SIZE):
-    """gs_to_mesh's supervision orbit: elevations −30/0/30 repeating,
-    azimuths i·360/n, radius 2, fovy 49.1."""
-    import numpy as np
-    from comfy3d_tpu_torch.core.camera import Camera
-    elevs = np.tile([-30.0, 0.0, 30.0], -(-n // 3))[:n].astype(np.float32)
-    azims = np.arange(n, dtype=np.float32) * np.float32(360.0 / n)
-    return Camera.from_orbit(elevs, azims, GS_ORBIT_RADIUS,
-                             fovy_deg=GS_ORBIT_FOVY, width=size, height=size,
-                             device=device)
 
 
 def coarse_overflow(inp):
@@ -2214,10 +2258,14 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
                                               plucker_rays)
     from comfy3d_tpu_torch.models.mvdream import (MVDreamConfig,
                                                   MVDreamPipeline)
+    from comfy3d_tpu_torch.algorithms.gs_to_mesh import (GSToMeshConfig,
+                                                         orbit_cameras)
     from comfy3d_tpu_torch.ops import gs_flat
     from comfy3d_tpu_torch.ops import gs_render as G
 
-    mv_cfg, lgm_cfg = MVDreamConfig(), LGMConfig()
+    mv_cfg, lgm_cfg, g2m_cfg = MVDreamConfig(), LGMConfig(), GSToMeshConfig()
+    check((g2m_cfg.n_views, g2m_cfg.render_size)
+          == (GS_ORBIT_VIEWS, GS_ORBIT_SIZE), f"orbit of {g2m_cfg}")
     steps, orbit_size = MV_STEPS, GS_ORBIT_SIZE
     v = mv_cfg.num_views
     lat = mv_cfg.image_size // mv_cfg.vae_factor
@@ -2381,7 +2429,7 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
 
     # d. gs_to_mesh's 24-view supervision orbit through K1′
     t0 = time.perf_counter()
-    cams = gs_to_mesh_orbit(dev, size=orbit_size)
+    cams = orbit_cameras(g2m_cfg, device=dev)
     kw = dict(background=(1.0, 1.0, 1.0), backend="flat")
     torch.cuda.synchronize()
     reset_launches()
@@ -2413,7 +2461,7 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
                    warmup=1)
     rec["orbit"] = {
         "views": GS_ORBIT_VIEWS, "size": orbit_size,
-        "radius": GS_ORBIT_RADIUS, "fovy": GS_ORBIT_FOVY,
+        "radius": g2m_cfg.radius, "fovy": g2m_cfg.fovy_deg,
         "launches": launches, "ms": orbit_ms,
         "ms_per_view": orbit_ms / GS_ORBIT_VIEWS,
         "overflow_views": int(out["overflow"].sum()),
@@ -2432,8 +2480,327 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
     rec["text_to_orbit_s"] = time.perf_counter() - te
     log(f"mvdream_lgm: text → 24 views in {rec['text_to_orbit_s']:.3f} s")
     rec["d_s"] = time.perf_counter() - t0
-    del mv, lgm, splat
+
+    def text_to_splats():
+        return lgm.forward_gaussians(text_to_views())
+
+    # phase 15 takes the splats and the models on
+    return rec, dict(splat=splat, text_to_splats=text_to_splats)
+
+
+# ------------------------------------------------------------------ #
+# The GS→mesh converter (phase 15)
+# ------------------------------------------------------------------ #
+TOL_G2M_REL = 1e-3       # card vs CPU, of the largest value, TF32 off
+TOL_UV_IDS = 0.999       # UV rasterization: texels whose face ids agree
+TOL_BAKE = 1e-4          # baked albedo, card vs CPU, where the ids agree
+LOSS_DROP_NGP = 0.5      # the fit's last reported loss < 0.5 × its first
+SHELL_SPLATS = 20_000    # the structured scene: a coloured shell of splats
+SHELL_RADIUS = 0.5
+SHELL_SCALE = 0.02
+# per splat: about 16 splats' Gaussian weight covers each point of the
+# wall, so a wall passes about 30 % of the light and the fit sees the
+# shell's inside (an opaque shell's inside, seen by no ray, fills at
+# σ ≈ 8-9, just under the threshold of 10, and its surface is foam:
+# `chip_gs_to_mesh_scenes.py`)
+SHELL_OPACITY = 0.076
+SMALL_GRID = dict(num_levels=4, log2_table_size=12)
+SMALL_NGP = dict(ray_batch=1024, num_steps=32, hidden=16, iterations=5)
+# 15b's fit iterations (GSToMeshConfig()'s 384, cut to keep the script's
+# time: the widths stay); 15c keeps every default
+G2M_ITERS = 128
+
+
+def shell_splat(device, n=SHELL_SPLATS, seed=0, opacity=SHELL_OPACITY,
+                filled=False):
+    """n splats on (or, when `filled`, inside) a sphere of radius 0.5,
+    directions from a seed, each coloured by its direction, isotropic
+    scale 0.02, of the given opacity."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.gaussian import GaussianSplat
+    rng = np.random.RandomState(seed)
+    d = rng.randn(n, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = rng.rand(n, 1) ** (1.0 / 3.0) * SHELL_RADIUS if filled \
+        else SHELL_RADIUS
+    s = GaussianSplat.from_points((d * r).astype(np.float32),
+                                  colors=(0.5 + 0.45 * d).astype(np.float32),
+                                  initial_scale=SHELL_SCALE, device=device)
+    return dataclasses.replace(s, opacity_raw=torch.full_like(
+        s.opacity_raw, math.log(opacity / (1.0 - opacity))))
+
+
+def gs_to_mesh_path(dev, asset_dir, smi_line, lgm):
+    """Phase 15: `algorithms/gs_to_mesh.py::convert` at `GSToMeshConfig()`
+    (24 views at 256², 384 iterations, `NGPConfig()` widths, 192³, σ 10,
+    100k faces, 1024²). `lgm` holds phase 14's splats and its text →
+    splats call."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.algorithms import gs_to_mesh as g2m
+    from comfy3d_tpu_torch.algorithms import ngp
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.ops import gs_flat, hashgrid, tetra, texture
+    from comfy3d_tpu_torch.ops import gs_render as G
+    from comfy3d_tpu_torch.ops import uv_atlas
+
+    cfg = g2m.GSToMeshConfig()
+    shell_cfg = dataclasses.replace(cfg, ngp_iters=G2M_ITERS)
+    rec = {"card": smi_line, "config": dataclasses.asdict(cfg),
+           "shell_ngp_iters": G2M_ITERS,
+           "ngp_config": dataclasses.asdict(ngp.NGPConfig(
+               iterations=cfg.ngp_iters)), "seed": 0}
+    cpu = torch.device("cpu")
+
+    # a. the card against the CPU at small widths, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    gcfg = hashgrid.HashGridConfig(**SMALL_GRID)
+    ncfg = ngp.NGPConfig(grid=gcfg, **SMALL_NGP)
+    rng = np.random.RandomState(0)
+    table = (rng.rand(gcfg.num_levels, gcfg.table_size,
+                      gcfg.features_per_level) - 0.5).astype(np.float32)
+    x = rng.rand(65536, 3).astype(np.float32)
+    cot = rng.randn(65536, gcfg.output_dim).astype(np.float32)
+    enc = {}
+    for d in (cpu, dev):
+        t = torch.tensor(table, device=d, requires_grad=True)
+        e = hashgrid.encode(t, torch.as_tensor(x, device=d), gcfg)
+        (e * torch.as_tensor(cot, device=d)).sum().backward()
+        enc[d.type] = (e.detach(), t.grad)
+    parity = {"encode_rel_err": rel_err(enc[dev.type][0], enc["cpu"][0]),
+              "table_grad_rel_err": rel_err(enc[dev.type][1], enc["cpu"][1])}
+    small = dataclasses.replace(cfg, n_views=6, render_size=32)
+    cams = g2m.orbit_cameras(small, device=cpu)
+    imgs = rng.rand(6, 32, 32, 3).astype(np.float32)
+    masks = (rng.rand(6, 32, 32) > 0.5).astype(np.float32)
+    init = ngp.init_params(ncfg, torch.Generator().manual_seed(0),
+                           device=cpu)
+    fits, losses = {}, {}
+    for d in (cpu, dev):
+        run = ngp.NGPFit(cams, imgs, masks, ncfg,
+                         init=copy.deepcopy(init), device=d)
+        if d == cpu:
+            draws = [run.draw(it) for it in range(ncfg.iterations)]
+        losses[d.type] = []
+        for it in range(ncfg.iterations):
+            losses[d.type].append(float(run.step(draws[it])))
+            run.occ_step(draws[it]["occ"])
+        fits[d.type] = run
+    parity["fit_loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
+        losses[dev.type], losses["cpu"]))
+    # one field (the CPU's fit) sampled on each device
+    shared_field = {"cpu": fits["cpu"].field,
+                    dev.type: copy.deepcopy(fits["cpu"].field).to(dev)}
+    grids = {d: ngp.density_grid(shared_field[d], ncfg, res=48)
+             for d in ("cpu", dev.type)}
+    parity["density_grid_48_rel_err"] = rel_err(grids[dev.type],
+                                                grids["cpu"])
+    for k, v in parity.items():
+        check(v <= TOL_G2M_REL, f"gs_to_mesh {k}: card vs CPU {v:.3g}")
+    # reported, not gated: each device's own fit. Float rounding decides
+    # discrete turns of a fit (a cell of the occupancy grid on either side
+    # of its threshold, Adam's step on a gradient near its ε), so the two
+    # tables drift apart by up to a step of lr per entry while the losses
+    # agree
+    fitted = {}
+    for k, p in fits["cpu"].field.state_dict().items():
+        fitted[f"{k}_rel_err"] = rel_err(
+            fits[dev.type].field.state_dict()[k], p)
+    fitted["occ_rel_err"] = rel_err(fits[dev.type].occ, fits["cpu"].occ)
+    fitted["density_grid_48_rel_err"] = rel_err(
+        ngp.density_grid(fits[dev.type].field, ncfg, res=48), grids["cpu"])
+    parity["own_fits"] = fitted
+    # one shared grid, swept on each device
+    shared = grids["cpu"]
+    iso = float(shared.quantile(0.95))
+    meshes = {d.type: tetra.extract_isosurface(shared.to(d), iso=iso,
+                                               max_tris=400_000)
+              for d in (cpu, dev)}
+    a, b = meshes[dev.type], meshes["cpu"]
+    check(a.num_faces == b.num_faces > 0 and np.array_equal(a.f, b.f),
+          f"extract_isosurface: card {a.num_faces}, CPU {b.num_faces} faces")
+    parity["extract_faces"] = a.num_faces
+    parity["extract_v_max_abs_err"] = float(np.abs(a.v - b.v).max())
+    check(parity["extract_v_max_abs_err"] <= TOL_MESH_V,
+          f"extract vertices {parity['extract_v_max_abs_err']:.3g}")
+    # one shared mesh and UV layout, rasterized and baked at 256²
+    sphere = tetra.extract_isosurface(
+        sphere_density(ngp.grid_points(41, 1.0, cpu)).reshape(41, 41, 41),
+        iso=0.0)
+    vt, ft = uv_atlas.atlas_unwrap(sphere.v, sphere.f)
+    uv, tex = {}, {}
+    for d in (cpu, dev):
+        uv[d.type] = texture.rasterize_uv(vt, ft, 256, device=d)
+        field = fits["cpu"].field if d == cpu else \
+            copy.deepcopy(fits["cpu"].field).to(d)
+
+        def color_fn(p, field=field):
+            return field.field(p, -p / torch.linalg.vector_norm(
+                p, dim=-1, keepdim=True).clamp_min(1e-8))[1]
+
+        tex[d.type] = texture.bake_color_fn(sphere.v, sphere.f, vt, ft,
+                                            color_fn, texture_size=256,
+                                            device=d).cpu()
+    ids_c, ids_h = uv[dev.type].face_id.cpu(), uv["cpu"].face_id
+    same = ids_c == ids_h
+    parity["uv_faces"] = sphere.num_faces
+    parity["uv_covered_share"] = float((ids_h >= 0).float().mean())
+    parity["uv_face_id_agree_share"] = float(same.float().mean())
+    covered = torch.flip(same & (ids_h >= 0), (0,))
+    parity["bake_max_abs_err"] = float(
+        (tex[dev.type] - tex["cpu"]).abs()[covered].max())
+    check(parity["uv_face_id_agree_share"] >= TOL_UV_IDS,
+          f"UV face ids agree on {parity['uv_face_id_agree_share']:.5f}")
+    check(parity["bake_max_abs_err"] <= TOL_BAKE,
+          f"bake_color_fn: card vs CPU {parity['bake_max_abs_err']:.3g}")
+    log(f"gs_to_mesh a. card vs CPU (small widths, TF32 off): {parity}")
+    rec["card_vs_cpu"] = parity
+    del enc, fits, shared_field, grids, meshes, uv, tex
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. a structured scene at the node's defaults
+    t0 = time.perf_counter()
+    shell = shell_splat(dev)
+    losses, info = [], {}
+    torch.cuda.synchronize()
+    reset_launches()
+    tb = time.perf_counter()
+    mesh = g2m.convert(shell, shell_cfg, progress=lambda it, m:
+                       losses.append((it, m["loss"])), info=info)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - tb
+    launches = read_launches()
+    expect_launches(launches, "flat", cfg.n_views, 0, "gs_to_mesh convert")
+    first, last = losses[0][1], losses[-1][1]
+    check(last < LOSS_DROP_NGP * first,
+          f"the fit's loss {first:.4g} → {last:.4g} did not halve")
+    check(0 < mesh.num_faces <= cfg.decimate_target,
+          f"{mesh.num_faces} faces")
+    radius = float(np.linalg.norm(mesh.v, axis=1).mean())
+    check(abs(radius - SHELL_RADIUS) <= 0.1, f"mean vertex radius {radius}")
+    check(mesh.albedo is not None and mesh.albedo.shape == (
+        cfg.texture_size, cfg.texture_size, 3), "no albedo")
+    check(bool(np.isfinite(mesh.albedo).all()) and mesh.albedo.min() >= 0
+          and mesh.albedo.max() <= 1, "albedo outside [0, 1]")
+    glb = os.path.join(asset_dir, "gs_to_mesh_shell.glb")
+    mesh.write(glb)
+    back = Mesh.load(glb)
+    check(np.array_equal(back.v[back.f], mesh.v[mesh.f])
+          and np.allclose(back.vt[back.ft], mesh.vt[mesh.ft], atol=1e-7,
+                          rtol=0)
+          and np.abs(back.albedo - mesh.albedo).max() <= 1.0 / 255,
+          "GLB round trip changed the mesh")
+    # K1′ on view 0 of the supervision orbit, against its plain version
+    cams = g2m.orbit_cameras(cfg, device=dev)
+    cam0 = Camera(c2w=cams.c2w[0], fovy_deg=cams.fovy_deg[0],
+                  width=cfg.render_size, height=cfg.render_size,
+                  near=cams.near, far=cams.far)
+    inp = flat_inputs(shell, cam0)
+    cmp, (_, _, stops), _ = kernel_vs_plain("gs_to_mesh_view0", inp, True)
+    box = flat_box_stats(inp, stops)
+    check_box(box, "gs_to_mesh view 0")
+    kargs, _ = flat_kernel_args(inp, True)
+    view0 = dict(cmp, box=box, bound=flat_fwd_bound(inp, stops, box),
+                 kernel_ms=cuda_ms(
+                     lambda: gs_flat.composite_bins_fwd_rows(*kargs), 20),
+                 plain_ms=cuda_ms(
+                     lambda: gs_flat.composite_bins_fwd_rows_plain(*kargs),
+                     5, warmup=1), **coarse_overflow(inp))
+    del inp, kargs
+    rec["shell"] = {
+        "splats": SHELL_SPLATS, "radius": SHELL_RADIUS,
+        "scale": SHELL_SCALE, "opacity": SHELL_OPACITY,
+        "ngp_iters": G2M_ITERS,
+        "launches": launches, "convert_s": convert_s, "losses": losses,
+        "nv": mesh.num_vertices, "nf": mesh.num_faces, "info": info,
+        "mean_vertex_radius": radius,
+        "albedo_mean": float(mesh.albedo.mean()),
+        "glb_bytes": os.path.getsize(glb), "view0": view0}
+    log(f"gs_to_mesh b. shell at the defaults: {rec['shell']}")
+    del mesh, back
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. text → phase 14's splats → mesh at the same defaults, one run
+    # under the profiler, split by `convert`'s stage spans
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    info, part = {}, {}
+
+    def text_to_mesh():
+        ts = time.perf_counter()
+        with torch.no_grad():
+            part["splat"] = lgm["text_to_splats"]()
+        torch.cuda.synchronize()
+        part["text_to_splats_s"] = time.perf_counter() - ts
+        return g2m.convert(part["splat"], cfg, info=info)
+
+    reset_launches()
+    mesh, text_to_mesh_s, spans, post_s = profile_spans(text_to_mesh,
+                                                        g2m.STAGES)
+    lgm_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(lgm_launches, "flat", cfg.n_views, 0,
+                    "gs_to_mesh convert of LGM's splats")
+    # the stages after the extraction run only on a non-empty mesh
+    check(all(spans[n]["calls"] == (1 if i < 4 or mesh.num_faces else 0)
+              for i, n in enumerate(g2m.STAGES)), f"convert's spans: {spans}")
+    check(bool(np.isfinite(mesh.v).all()), "non-finite vertices")
+    check(mesh.albedo is None or (bool(np.isfinite(mesh.albedo).all())
+                                  and mesh.albedo.min() >= 0
+                                  and mesh.albedo.max() <= 1),
+          "albedo outside [0, 1]")
+    rec["lgm"] = {
+        "launches": lgm_launches, "nv": mesh.num_vertices,
+        "nf": mesh.num_faces, "info": info, "peak_bytes": peak,
+        "text_to_mesh_s": text_to_mesh_s,
+        "text_to_splats_s": part["text_to_splats_s"],
+        "splats_vs_phase_14_max_abs": float(
+            (part["splat"].xyz - lgm["splat"].xyz).abs().max()),
+        "stages": {k.split(".")[-1]: v for k, v in spans.items()},
+        "stages_host_ms": sum(v["host_ms"] for v in spans.values()),
+        "stages_device_ms": sum(v["device_ms"] for v in spans.values()),
+        "profiler_post_s": post_s}
+    log(f"gs_to_mesh c. text → LGM splats → mesh: {rec['lgm']}")
+    del mesh, part
+    rec["c_s"] = time.perf_counter() - t0
+
+    # d. one NeRF step at full width, profiled
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = G.render(shell, cams, background=(1.0, 1.0, 1.0))
+    run = ngp.NGPFit(cams, out["image"], (out["alpha"] > 0.5).float(),
+                     ngp.NGPConfig(iterations=cfg.ngp_iters), device=dev)
+    draws = [run.draw(it) for it in range(4)]
+    for it in range(3):                                   # warm-up
+        run.step(draws[it])
+    step_ms = cuda_ms(lambda: run.step(draws[3]), 10, warmup=1)
+    prof = profile_frames(lambda: run.step(draws[3]), 3)
+    prof["device_idle_share"] = 1.0 - prof["device_union_ms"] \
+        / prof["window_ms"]
+    gather_ms = prof["index_select_ms"]
+    n = run.cfg.ray_batch * run.cfg.num_steps
+    rec["nerf_step"] = {
+        "samples": n, "gathered_rows": n * run.cfg.grid.num_levels * 8,
+        "ms": step_ms, "hashgrid_gather_ms": gather_ms,
+        "hashgrid_scatter_ms": prof["index_add_ms"],
+        "hashgrid_share": (gather_ms + prof["index_add_ms"])
+        / prof["device_busy_ms"],
+        "profile": {k: v for k, v in prof.items() if k != "top"},
+        "top": prof["top"]}
+    log(f"gs_to_mesh d. one NeRF step at full width: {rec['nerf_step']}")
+    del run, draws, shell
+    torch.cuda.empty_cache()
+    rec["d_s"] = time.perf_counter() - t0
     return rec
 
 
@@ -2728,12 +3095,24 @@ def main(out_path=None) -> int:
     # orbit, where K1′ launches once per view (counted in the phase)
     t0 = time.perf_counter()
     with torch.no_grad():
-        mvl = record["mvdream_lgm"] = mvdream_lgm_path(dev, asset_dir,
-                                                       smi_line)
+        mvl, lgm_out = mvdream_lgm_path(dev, asset_dir, smi_line)
+    record["mvdream_lgm"] = mvl
     mvl["s"] = time.perf_counter() - t0
     mvl["launches"] = mvl["orbit"]["launches"]
     mvl_view0 = mvl["orbit"]["view0"]
     lap("14_mvdream_lgm")
+
+    # 15. the GS→mesh converter on a structured shell and on phase 14's
+    # splats, where K1′ launches once per supervision view (counted in the
+    # phase)
+    t0 = time.perf_counter()
+    g2m = record["gs_to_mesh"] = gs_to_mesh_path(dev, asset_dir, smi_line,
+                                                 lgm_out)
+    g2m["s"] = time.perf_counter() - t0
+    g2m_view0 = g2m["shell"]["view0"]
+    del lgm_out
+    torch.cuda.empty_cache()
+    lap("15_gs_to_mesh")
 
     def by_path(name):
         return {"render_8_views": launches[name],
@@ -2743,7 +3122,9 @@ def main(out_path=None) -> int:
                 "triposr": record["triposr"]["launches"][name],
                 "instantmesh": record["instantmesh"]["launches"][name],
                 "mesh_render": record["mesh_render"]["launches"][name],
-                "mvdream_lgm_orbit_24": mvl["launches"][name]}
+                "mvdream_lgm_orbit_24": mvl["launches"][name],
+                "gs_to_mesh": g2m["shell"]["launches"][name],
+                "gs_to_mesh_lgm": g2m["lgm"]["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -2762,10 +3143,18 @@ def main(out_path=None) -> int:
             bound_by=mvl_view0["bound"]["bound_by"],
             max_abs_err=max(mvl_view0["max_abs_err_acc"],
                             mvl_view0["max_abs_err_trans"]),
-            launches=mvl["launches"]["gs_flat_fwd"])}
-    kernel["max_abs_err"] = max(kernel["max_abs_err"],
-                                kernel["by_path"]["mvdream_lgm_view0"][
-                                    "max_abs_err"])
+            launches=mvl["launches"]["gs_flat_fwd"]),
+        "gs_to_mesh_view0": dict(
+            ms=g2m_view0["kernel_ms"], plain_ms=g2m_view0["plain_ms"],
+            bound_ms=g2m_view0["bound"]["bound_ms"],
+            bound_by=g2m_view0["bound"]["bound_by"],
+            max_abs_err=max(g2m_view0["max_abs_err_acc"],
+                            g2m_view0["max_abs_err_trans"]),
+            launches=g2m["shell"]["launches"]["gs_flat_fwd"])}
+    kernel["max_abs_err"] = max(
+        kernel["max_abs_err"],
+        *(kernel["by_path"][k]["max_abs_err"]
+          for k in ("mvdream_lgm_view0", "gs_to_mesh_view0")))
     kernel_bwd = {
         "name": "gs_flat_bwd", "route": "cuda",
         "source": "comfy3d_tpu_torch/csrc/gs_flat_bwd.cu",
@@ -2857,6 +3246,7 @@ def main(out_path=None) -> int:
     print(json.dumps({"instantmesh": record["instantmesh"]}))
     print(json.dumps({"mesh_render": record["mesh_render"]}))
     print(json.dumps({"mvdream_lgm": mvl}))
+    print(json.dumps({"gs_to_mesh": g2m}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

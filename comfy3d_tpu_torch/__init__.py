@@ -7,11 +7,18 @@ tensor code is PyTorch; each kernel the JAX package wrote in Pallas becomes a
 hand-written CUDA kernel under `csrc/`, built with `nvcc` at first use.
 
 Layering:
-  core/      dataclasses of tensors (GaussianSplat, Camera), SH, GS-PLY I/O
-  ops/       3DGS projection, coarse (bin|depth) sort, bin compositor
-             (`ops/gs_flat.py` wraps `csrc/gs_flat_{fwd,bwd}.cu`), SSIM
-  algorithms/  the per-asset 3DGS trainer (`gs_trainer.py`)
-  convert    numpy arrays of the JAX containers → the port's tensors
+  core/      GaussianSplat, Camera, SH, Mesh (host numpy), texture dilation
+             (`image.py`), file I/O (GS-PLY, OBJ, GLB, mesh PLY)
+  ops/       3DGS projection, binning, the bin and tile compositors
+             (`gs_flat.py`, `gs_tile.py` wrap `csrc/*.cu`), SSIM, volume
+             decodes, marching tets and the weld, ray marching, the
+             hash-grid encoding, the mesh rasterizer and renderer, UV
+             unwrapping (`uv_atlas.py`, `texture.py`) and baking
+  models/    TripoSR, InstantMesh, the SD UNet / VAE / DDIM, MVDream, LGM
+  algorithms/  the 3DGS trainer, the Instant-NGP fit (`ngp.py`), the
+             GS→mesh converter (`gs_to_mesh.py`)
+  native/    host C++ mesh clean / decimate (g++ at first use, ctypes)
+  convert    numpy arrays of the JAX containers and params → the port's
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
@@ -20,7 +27,7 @@ __version__ = "0.1.0"
 
 import importlib as _importlib
 
-_SUBMODULES = ("core", "ops", "algorithms", "convert")
+_SUBMODULES = ("core", "ops", "algorithms", "convert", "native")
 
 
 def default_device():

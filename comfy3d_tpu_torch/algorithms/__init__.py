@@ -1,10 +1,11 @@
-"""Optimisers over splats: the per-asset 3DGS trainer.
+"""Per-asset optimisers: the 3DGS trainer, the Instant-NGP NeRF fit, and
+the GS→mesh converter built on it.
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("gs_trainer",)
+_SUBMODULES = ("gs_to_mesh", "gs_trainer", "ngp")
 
 
 def __getattr__(name):

@@ -9,8 +9,8 @@ handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
 dicts of arrays) become the port's native-layout state dicts
 (`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax`,
 `mvdream_state_dict_from_flax`, `lgm_state_dict_from_flax` and
-the per-block functions below them), so both packages can compute on
-identical inputs and weights.
+the per-block functions below them; `ngp_state_from_flax` for the NeRF
+field), so both packages can compute on identical inputs and weights.
 """
 
 from __future__ import annotations
@@ -400,3 +400,14 @@ def lgm_state_dict_from_flax(params) -> dict:
     return _tensors({
         **_join("unet", _renamed_state_dict(body, _LGM_RENAMES)),
         **_join("conv", _module_sd(params["conv_final"]))})
+
+
+def ngp_state_from_flax(params) -> dict:
+    """The JAX package's NeRF params (`algorithms/ngp.py::init_params`:
+    `table` [L, T, F] and the dense layers `sig1`, `sig2`, `col1`, `col2`
+    with `w` [in, out] and `b`) → `NGPField`'s state dict, numpy arrays."""
+    sd = {"table": np.array(params["table"], np.float32)}
+    for name in ("sig1", "sig2", "col1", "col2"):
+        sd[f"{name}.weight"] = np.array(params[name]["w"], np.float32).T
+        sd[f"{name}.bias"] = np.array(params[name]["b"], np.float32)
+    return sd

@@ -3,7 +3,8 @@
 Port of `comfy3d_tpu/ops/raymarch.py`: a fixed number of stratified samples
 per ray through the field, an optional occupancy grid as a multiplicative
 mask, and front-to-back compositing weights. Jitter comes from an explicit
-`torch.Generator`.
+`torch.Generator`, or is given by the caller as uniform [0, 1) draws
+(`jitter=`), so a test can feed the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,17 +26,32 @@ def ray_aabb(origins, dirs, bound: float = 1.0):
     return tmin.clamp_min(0.0), tmax
 
 
+def _uniform(shape, generator, jitter, device):
+    """The caller's uniform draws `jitter`, else `shape` drawn from
+    `generator` (on its device), else None; on `device`."""
+    if jitter is None and generator is not None:
+        jitter = torch.rand(shape, generator=generator,
+                            device=generator.device)
+    if jitter is None:
+        return None
+    if tuple(jitter.shape) != tuple(shape):
+        raise ValueError(f"jitter of shape {tuple(jitter.shape)}, expected "
+                         f"{tuple(shape)}")
+    return jitter.to(device)
+
+
 def sample_along_rays(origins, dirs, t_near, t_far, num_steps: int,
-                      generator: torch.Generator | None = None):
-    """Stratified fixed-count samples, jittered within each stratum when a
-    generator is given. Returns (xyz [N, S, 3], ts [N, S], dt [N, 1])."""
+                      generator: torch.Generator | None = None,
+                      jitter: torch.Tensor | None = None):
+    """Stratified fixed-count samples, jittered within each stratum by
+    `jitter` [N, S] uniform draws, or by draws from `generator` when one is
+    given. Returns (xyz [N, S, 3], ts [N, S], dt [N, 1])."""
     n = origins.shape[0]
     u = (torch.arange(num_steps, dtype=torch.float32, device=origins.device)
          + 0.5) / num_steps
     u = u[None, :].expand(n, num_steps)
-    if generator is not None:
-        noise = torch.rand((n, num_steps), generator=generator,
-                           device=generator.device).to(origins.device)
+    noise = _uniform((n, num_steps), generator, jitter, origins.device)
+    if noise is not None:
         u = u + (noise - 0.5) / num_steps
     span = (t_far - t_near).clamp_min(0.0)
     ts = t_near[:, None] + u * span[:, None]
@@ -65,15 +81,17 @@ def render_weights(sigma, dt):
 
 def march(field_fn: Callable, origins, dirs, occ_grid=None,
           bound: float = 1.0, num_steps: int = 128,
-          generator: torch.Generator | None = None):
+          generator: torch.Generator | None = None,
+          jitter: torch.Tensor | None = None):
     """Volume render of a batch of rays.
 
     field_fn: (xyz [M, 3], dirs [M, 3]) → (sigma [M], rgb [M, 3]).
+    `generator` or `jitter` [N, S]: `sample_along_rays`' jitter.
     Returns dict(rgb [N, 3], alpha [N], depth [N], weights [N, S],
     ts [N, S])."""
     t_near, t_far = ray_aabb(origins, dirs, bound)
     xyz, ts, dt = sample_along_rays(origins, dirs, t_near, t_far, num_steps,
-                                    generator)
+                                    generator, jitter)
     n, s, _ = xyz.shape
     flat_dirs = dirs[:, None, :].expand(n, s, 3).reshape(-1, 3)
     sigma, rgb = field_fn(xyz.reshape(-1, 3), flat_dirs)
@@ -89,9 +107,11 @@ def march(field_fn: Callable, origins, dirs, occ_grid=None,
 
 def update_occupancy(occ_values, density_fn: Callable, res: int,
                      bound: float = 1.0, decay: float = 0.95,
-                     generator: torch.Generator | None = None):
-    """EMA occupancy-grid update: one point per cell (jittered within it
-    when a generator is given), max with the decayed previous value.
+                     generator: torch.Generator | None = None,
+                     jitter: torch.Tensor | None = None):
+    """EMA occupancy-grid update: one point per cell (jittered within it by
+    `jitter` [R³, 3] uniform draws, or by draws from `generator`), max with
+    the decayed previous value.
 
     occ_values [R³] running density estimate; binarize the result with
     `> threshold` for `march`."""
@@ -99,9 +119,8 @@ def update_occupancy(occ_values, density_fn: Callable, res: int,
     lin = (torch.arange(res, dtype=torch.float32, device=dev) + 0.5) / res
     gx, gy, gz = torch.meshgrid(lin, lin, lin, indexing="ij")
     pts = torch.stack([gx, gy, gz], -1).reshape(-1, 3)
-    if generator is not None:
-        noise = torch.rand(pts.shape, generator=generator,
-                           device=generator.device).to(dev)
+    noise = _uniform(tuple(pts.shape), generator, jitter, dev)
+    if noise is not None:
         pts = pts + (noise - 0.5) / res
     sigma = density_fn((pts * 2.0 - 1.0) * bound)
     return torch.maximum(occ_values * decay, sigma)

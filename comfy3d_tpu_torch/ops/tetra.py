@@ -5,7 +5,9 @@ runs: the 16-case table derived at import (`_build_case_table`), the per-tet
 triangles (`_tet_triangles`), active cells → compacted soup
 (`_cells_to_tris`), `marching_tets_grid` and `marching_tets_deformed` (the
 same sweep over a deformed lattice), `grid_tets`, the host `weld`,
-`weld_device` and `extract_isosurface_device` with its capacity doubling.
+`weld_device` and `extract_isosurface_device` with its capacity doubling,
+and `extract_isosurface` (the sweep in blocks on the device, the weld on
+the host).
 
 Each cube splits into 6 tets around its 0→6 diagonal; each tet yields 0–2
 triangles, oriented away from its inside corners. Arrays are laid out
@@ -23,6 +25,9 @@ import warnings
 
 import numpy as np
 import torch
+
+from .. import resolve_device
+from ..core.mesh import Mesh
 
 # cube corners by bit pattern (x, y, z)
 _CORNERS = np.array([
@@ -380,3 +385,70 @@ def extract_isosurface_device(grid, iso: float = 0.0, bounds=(-1.0, 1.0),
         del v, f
         cap *= 2
     raise AssertionError("unreachable")
+
+
+def _soup_to_host(soup, count: int) -> np.ndarray:
+    """The first `count` triangles of a soup [cap, 3, 3], sliced on its
+    device before the copy, as a host [count, 3, 3] array."""
+    if not count:
+        return np.zeros((0, 3, 3), np.float32)
+    return soup[:count].cpu().numpy()
+
+
+def extract_isosurface(grid, iso: float = 0.0, bounds=(-1.0, 1.0),
+                       max_tris: int = 400_000, max_block: int = 288,
+                       on_overflow: str = "retry", device=None):
+    """Grid → welded `Mesh`: the sweep on the grid's device, the weld on
+    the host.
+
+    `grid` [R, R, R] is a tensor (swept on its own device) or an array
+    (swept on `device`, default: the card); inside where grid > iso. Grids
+    larger than `max_block` per axis are swept in overlapping y/z blocks
+    of `max_block`, then welded into one mesh. On overflow of a block,
+    `on_overflow` "retry" sweeps it again with doubled capacity (up to
+    8×), "raise" raises, "warn" warns and keeps the clipped soup."""
+    if on_overflow not in ("retry", "raise", "warn"):
+        raise ValueError(f"on_overflow must be retry, raise or warn, got "
+                         f"{on_overflow!r}")
+    if not torch.is_tensor(grid):
+        grid = torch.as_tensor(np.asarray(grid, np.float32),
+                               device=resolve_device(device))
+    r = grid.shape[0]
+    spacing = (bounds[1] - bounds[0]) / (r - 1)
+
+    def sweep_retry(sub, org, what):
+        cap = max_tris
+        for attempt in range(4):
+            soup, count, overflow = marching_tets_grid(
+                sub, iso=iso, origin=org, spacing=spacing, max_tris=cap)
+            if not overflow:
+                return _soup_to_host(soup, count)
+            if on_overflow == "raise":
+                raise RuntimeError(
+                    f"marching tets overflow: capacity {cap} hit ({what})")
+            if on_overflow != "retry" or attempt == 3:
+                warnings.warn(
+                    f"marching tets overflow: capacity {cap} hit ({what})")
+                return _soup_to_host(soup, count)
+            del soup
+            cap *= 2
+        raise AssertionError("unreachable")
+
+    if r <= max_block:
+        allsoup = sweep_retry(grid, (bounds[0],) * 3, "single block")
+    else:
+        nblocks = -(-(r - 1) // (max_block - 1))
+        soups = []
+        for bj in range(nblocks):
+            y0 = bj * (max_block - 1)
+            y1 = min(y0 + max_block, r)
+            for bi in range(nblocks):
+                z0 = bi * (max_block - 1)
+                z1 = min(z0 + max_block, r)
+                soups.append(sweep_retry(
+                    grid[:, y0:y1, z0:z1].contiguous(),
+                    (bounds[0], bounds[0] + y0 * spacing,
+                     bounds[0] + z0 * spacing), f"block {bj},{bi}"))
+        allsoup = np.concatenate(soups)
+    v, f = weld(allsoup, len(allsoup))
+    return Mesh(v=v, f=f)

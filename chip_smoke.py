@@ -167,10 +167,36 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      (4,096 rays × 128 steps) by CUDA events and profiled: device-busy ms,
      idle share, device ops, the top ops, the hash-grid gather
      (`index_select`) and its scatter (`index_add_`).
-Phases 11–13 launch none of the compositor kernels (counted).
+ 16. Zero123Plus → InstantMesh (config 3: the Zero123Plus_Diffusion_Model and
+     InstantMesh_Reconstruction_Model nodes' chain; `Zero123PlusPipeline` at
+     `Zero123PlusConfig()`: an SD-2.1 UNet with reference attention on a
+     960×640 canvas, the SD VAE; a CLIP vision encoder at `CLIPVisionConfig()`
+     widths with projection_dim 1024; ramping coefficients seeded in [0, 1];
+     `InstantMeshConfig()`; weights from seed 0; the nodes' defaults: 28
+     Euler-ancestral steps, CFG 4, seed 1234, six 320² views at radius 4, fovy
+     30). a. the card against the port's CPU path with TF32 off at one resnet
+     per block, 2 CLIP layers, a 192×128 canvas and a 128² condition image:
+     the CLIP conditioner, `encode_condition`, a UNet write pass and a read
+     pass on the CFG batch (the output and every written tensor), two guided
+     steps from the same draws, and three loop steps of each of the eight
+     samplers from the same noise (KDPM2's with their `aux`), each within 1e-3
+     of its largest value; b. full width on a seeded 512² image composited on
+     white over a disc mask: the parameter counts (gated), image → grid by
+     CUDA events (warm-up, then 2 runs; TF32 off, then on), peak memory, a
+     finite grid in [0, 1] and its clipped share, one denoise step (write +
+     read pass) timed, its FLOPs, a profile of it (device-busy ms, idle share,
+     device ops, top ops, the SDPA kernels that ran), the VAE encode and
+     decode and the CLIP encode timed; c. image → grid →
+     `split_image_grid(grid, 3, 2)` → the 320² resize → `forward_planes` →
+     `extract_mesh` on the host's clock, with the launch counts reset just
+     before and read just after (all 0), `forward_planes` timed, one more
+     `extract_mesh` split by its spans, the mesh through GLB and back (random
+     weights: the face count is reported, not gated).
+Phases 11–13 and 16 launch none of the compositor kernels (counted).
 It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
-`{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}` and a
-`{"gs_to_mesh": {...}}` line, one
+`{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
+`{"gs_to_mesh": {...}}` and a `{"zero123plus_instantmesh": {...}}` line,
+one
 `{"kernels": [...]}` line, then the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -247,7 +273,7 @@ def tf32_ms(fn, iters, warmup=1):
         torch.backends.cudnn.allow_tf32 = False
 
 
-def profile_frames(fn, frames, rows=None):
+def profile_frames(fn, frames, rows=None, match=()):
     """torch.profiler over `frames` calls of fn: device-busy ms per frame
     (the sum of the device ops' times, and `device_union_ms`, the time at
     least one ran: they differ where ops run concurrently), the profiled
@@ -258,7 +284,8 @@ def profile_frames(fn, frames, rows=None):
     `rows` (a shape [n, D]), also the row gathers per frame: the indexing
     ops (`aten::index`, `index_select`, `gather`, `take`) whose source has
     that shape, i.e. a gather of the per-splat rows a forward kernel reads
-    by index."""
+    by index. With `match` (substrings), also the device ops whose names
+    hold one of them, in lower case (`matched`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -301,6 +328,11 @@ def profile_frames(fn, frames, rows=None):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     out["device_union_ms"] = _union_ms([e.time_range for e in kernels]) \
         / frames
+    if match:
+        out["matched"] = [
+            dict(name=e.key[:80], ms=dev_us(e) / 1e3 / frames,
+                 count=e.count / frames) for e in ops
+            if any(m in e.key.lower() for m in match)]
     out["device_streams"] = sorted({e.device_resource_id for e in kernels})
     out["overlaps"] = _overlaps(kernels, frames)
     if rows is not None:
@@ -2804,6 +2836,364 @@ def gs_to_mesh_path(dev, asset_dir, smi_line, lgm):
     return rec
 
 
+# ------------------------------------------------------------------ #
+# Zero123Plus image → grid → six views → InstantMesh → mesh (phase 16)
+# ------------------------------------------------------------------ #
+TOL_Z123_REL = 1e-3      # card vs CPU, of the largest value, TF32 off
+Z123_STEPS = 28          # the Zero123Plus_Diffusion_Model node's defaults
+Z123_GUIDANCE = 4.0
+Z123_SEED = 1234
+# parameters of Zero123PlusConfig()'s UNet and VAE and of CLIP at
+# CLIPVisionConfig() widths with projection_dim 1024 (the JAX package's
+# `jax.eval_shape` counts; `tests/test_torch_zero123plus.py`)
+Z123_PARAMS = {"unet": 865_910_724, "vae": 83_653_863, "clip": 304_228_352}
+Z123_CLIP_PROJ = 1024
+# 16a's cut: one resnet per block, 2 CLIP layers, a 192×128 canvas and a
+# 128² condition image (the widths kept)
+Z123_SMALL = dict(height=192, width=128, cond_size=128)
+Z123_SMALL_CLIP_LAYERS = 2
+SAMPLER_STEPS = 3        # 16a: loop steps of each sampler, card vs CPU
+# kernels of `F.scaled_dot_product_attention` by name: flash, the
+# memory-efficient (CUTLASS fmha), cuDNN's; a math fallback shows as
+# softmax kernels between GEMMs
+SDPA_KERNELS = ("flash", "fmha", "efficient_attention", "sdpa",
+                "attention", "softmax")
+
+
+def clip_encoder(seed, cfg, device):
+    """A CLIP vision encoder with weights from `seed`: the JAX package's
+    scheme (`common.init_weights_`) for its linear, conv and norm layers,
+    the class token and positions normal with std 0.02."""
+    import torch
+    from comfy3d_tpu_torch.models import clip
+    from comfy3d_tpu_torch.models.common import init_weights_
+    with torch.device("meta"):
+        model = clip.CLIPVisionEncoder(cfg)
+    model = model.to_empty(device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    init_weights_(model, gen)
+    emb = model.embeddings
+    with torch.no_grad():
+        for p in (emb.class_embedding, emb.position_embedding.weight):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model.to(device).eval()
+
+
+def zero123plus_pipe(seed, cfg, clip_cfg, device):
+    """`Zero123PlusPipeline.init_random(seed, cfg)` with a seeded CLIP
+    vision encoder attached and ramping coefficients seeded in [0, 1] (the
+    JAX default's zeros would null the global term)."""
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.models import clip
+    from comfy3d_tpu_torch.models.zero123plus import Zero123PlusPipeline
+    pipe = Zero123PlusPipeline.init_random(seed, cfg, device=device)
+    enc = clip_encoder(seed + 1, clip_cfg, device)
+    pipe.set_vision_encoder(clip.make_vision_conditioner(enc))
+    pipe.ramping = torch.as_tensor(np.random.RandomState(seed).rand(
+        cfg.prompt_tokens).astype(np.float32))
+    return pipe, enc
+
+
+def reference_image(size, seed=3):
+    """A seeded [1, S, S, 3] image and the disc mask [1, S, S] that the
+    node composites on white."""
+    import numpy as np
+    img = np.random.RandomState(seed).rand(1, size, size, 3).astype(
+        np.float32)
+    yy, xx = np.mgrid[:size, :size] + 0.5 - size / 2
+    mask = ((yy ** 2 + xx ** 2) < (0.4 * size) ** 2)[None].astype(np.float32)
+    return img, mask
+
+
+def z123_draws(cfg, cond_batch, n_loop, seed, device):
+    """Seeded noise for `Zero123PlusPipeline.__call__(draws=...)`, drawn
+    on the CPU so both devices take the same."""
+    import torch
+    f = cfg.vae_factor
+    lh, lw, cs = cfg.height // f, cfg.width // f, cfg.cond_size // f
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+    return {"latents": draw(1, 4, lh, lw),
+            "cond": [draw(cond_batch, 4, cs, cs) for _ in range(n_loop)],
+            "step": [draw(1, 4, lh, lw) for _ in range(n_loop)]}
+
+
+def z123_step(pipe, image, guidance_scale, i=0, steps=Z123_STEPS):
+    """The body of `Zero123PlusPipeline.__call__`'s loop at step i, from
+    seeded noise: the condition latents re-noised and written, the guided
+    batch read, one Euler-ancestral step. Returns the closure."""
+    import torch
+    from comfy3d_tpu_torch.models.diffusion.schedulers import (
+        SchedulerConfig, make_scheduler)
+    cfg = pipe.cfg
+    sched = make_scheduler("EulerAncestralDiscreteScheduler", SchedulerConfig(
+        prediction_type="v_prediction", timestep_spacing="trailing"), steps)
+    cond_lat = torch.cat([pipe.encode_condition(torch.zeros_like(image)),
+                          pipe.encode_condition(image)])
+    states = torch.cat([pipe._f32(pipe.prompt_embeds)[None],
+                        pipe._encoder_states(image)])
+    d = z123_draws(cfg, 2, 1, 7, pipe.device)
+    latents = d["latents"] * sched.init_sigma
+    tvec = torch.full((2,), float(sched.timesteps[i]), device=pipe.device)
+    unet = pipe.model.unet
+
+    def step():
+        noisy = sched.scale_model_input(
+            sched.add_noise(cond_lat, d["cond"][0], i), i)
+        _, ref = unet(noisy, tvec, states, ref_mode="write")
+        out = unet(sched.scale_model_input(torch.cat([latents] * 2), i),
+                   tvec, states, ref_mode="read", ref_hidden=ref)
+        un, co = out.chunk(2)
+        return sched.step(un + guidance_scale * (co - un), i, latents,
+                          d["step"][0])
+    return step
+
+
+def sampler_run(name, device, shape, seed=11):
+    """SAMPLER_STEPS loop steps of one sampler (v-prediction, trailing)
+    from seeded model outputs and noise → the latents, the last step's
+    scaled model input and, for KDPM2's pair, `aux` (the held sample)."""
+    import torch
+    from comfy3d_tpu_torch.models.diffusion.schedulers import (
+        SchedulerConfig, make_scheduler)
+    sched = make_scheduler(name, SchedulerConfig(
+        prediction_type="v_prediction", timestep_spacing="trailing"),
+        SAMPLER_STEPS)
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw():
+        return torch.randn(shape, generator=gen).to(device)
+    lat = draw() * sched.init_sigma
+    aux = sched.init_aux(lat)
+    for i in range(SAMPLER_STEPS):
+        x_in = sched.scale_model_input(lat, i)
+        out, noise = draw(), draw()
+        lat, aux = sched.step_aux(out, i, lat, aux, noise)
+    out = {"latents": lat, "model_input": x_in}
+    if aux is not None:
+        out["aux"] = aux
+    return out
+
+
+def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
+    """Phase 16, at `Zero123PlusConfig()` (SD-2.1 widths, a 960×640
+    canvas) with a CLIP vision encoder at `CLIPVisionConfig()` widths
+    (projection_dim 1024) and `InstantMeshConfig()`, at the nodes'
+    defaults (28 Euler-ancestral steps, CFG 4, seed 1234; six 320² views,
+    radius 4, fovy 30). Runs under `torch.no_grad()`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.camera import ORBITPOSE_PRESETS
+    from comfy3d_tpu_torch.core.image import (composite_background,
+                                              resize_images,
+                                              split_image_grid)
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models import clip
+    from comfy3d_tpu_torch.models.diffusion.schedulers import SCHEDULERS
+    from comfy3d_tpu_torch.models.instantmesh import (
+        InstantMeshConfig, InstantMeshPipeline, orbit_poses_to_input_cameras)
+    from comfy3d_tpu_torch.models.instantmesh.pipeline import EXTRACT_STAGES
+    from comfy3d_tpu_torch.models.zero123plus import Zero123PlusConfig
+
+    cfg = Zero123PlusConfig()
+    clip_cfg = dataclasses.replace(clip.CLIPVisionConfig(),
+                                   projection_dim=Z123_CLIP_PROJ)
+    im_cfg = InstantMeshConfig()
+    node = dict(num_inference_steps=Z123_STEPS,
+                guidance_scale=Z123_GUIDANCE, seed=Z123_SEED)
+    rec = {"card": smi_line, "node": node,
+           "config": dataclasses.asdict(cfg),
+           "clip_config": dataclasses.asdict(clip_cfg),
+           "instantmesh_config": dataclasses.asdict(im_cfg),
+           "prompt_embeds": "zeros", "ramping": "seeded in [0, 1]"}
+    cpu = torch.device("cpu")
+    poses = [[1.2, e, a, 0.0, 0.0, 0.0]
+             for e, a in ORBITPOSE_PRESETS["Zero123Plus(6)"]]
+    p = np.asarray(poses, np.float32)
+    cams = orbit_poses_to_input_cameras(p[:, 2], p[:, 1], radius=4.0,
+                                        fov_deg=30.0)
+
+    # a. the card against the port's CPU path at small widths, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    small = dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, layers_per_block=1),
+        vae=dataclasses.replace(cfg.vae, layers_per_block=1), **Z123_SMALL)
+    small_clip = dataclasses.replace(clip_cfg, layers=Z123_SMALL_CLIP_LAYERS)
+    img_np, mask_np = reference_image(small.cond_size)
+    f = small.vae_factor
+    lat_shape = (1, 4, small.height // f, small.width // f)
+    cs = small.cond_size // f
+    rng = np.random.RandomState(5)
+    cond_np = rng.randn(2, 4, cs, cs).astype(np.float32)
+    lat_np = rng.randn(2, *lat_shape[1:]).astype(np.float32)
+    outs = {}
+    for d in (cpu, dev):
+        th = time.perf_counter()
+        pipe, enc = zero123plus_pipe(0, small, small_clip, d)
+        img = composite_background(torch.as_tensor(img_np, device=d),
+                                   torch.as_tensor(mask_np, device=d))
+        states = torch.cat([pipe._f32(pipe.prompt_embeds)[None],
+                            pipe._encoder_states(img)])
+        tvec = torch.full((2,), 999.0, device=d)
+        unet = pipe.model.unet
+        out_w, written = unet(torch.as_tensor(cond_np, device=d), tvec,
+                              states, ref_mode="write")
+        o = {"clip": pipe.vision_encoder(img),
+             "encode_condition": pipe.encode_condition(img),
+             "unet_write": out_w,
+             "unet_read": unet(torch.as_tensor(lat_np, device=d), tvec,
+                               states, ref_mode="read", ref_hidden=written),
+             "two_steps": pipe(img[0], num_inference_steps=2,
+                               guidance_scale=Z123_GUIDANCE,
+                               draws=z123_draws(small, 2, 2, 9, d))}
+        o.update({f"written_{k}": w[0] for k, w in written.items()})
+        for name in SCHEDULERS:
+            for k, v in sampler_run(name, d, lat_shape).items():
+                o[f"{name}_{k}"] = v
+        torch.cuda.synchronize()
+        outs[d.type] = o
+        outs[d.type + "_s"] = time.perf_counter() - th
+        del pipe, enc, written
+    parity = {"layers_per_block": 1, "clip_layers": Z123_SMALL_CLIP_LAYERS,
+              **Z123_SMALL, "written": len([k for k in outs["cpu"]
+                                            if k.startswith("written_")]),
+              "host_s": outs["cpu_s"], "card_s": outs[dev.type + "_s"]}
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"zero123plus a. card vs CPU (small widths, TF32 off): {parity}")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_Z123_REL,
+              f"zero123plus {k}: card vs CPU {parity[k + '_rel_err']:.3g} "
+              f"of the largest value")
+    rec["card_vs_cpu"] = parity
+    del outs
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. full width: image → grid by CUDA events, one step, the VAE, CLIP
+    t0 = time.perf_counter()
+    pipe, enc = zero123plus_pipe(0, cfg, clip_cfg, dev)
+    init_s = time.perf_counter() - t0
+    params = {"unet": count_params(pipe.model.unet),
+              "vae": count_params(pipe.model.vae), "clip": count_params(enc)}
+    check(params == Z123_PARAMS, f"parameters {params}, not {Z123_PARAMS}")
+    img_np, mask_np = reference_image(cfg.cond_size)
+    image = composite_background(torch.as_tensor(img_np, device=dev),
+                                 torch.as_tensor(mask_np, device=dev))
+
+    def image_to_grid():
+        return pipe(image[0], **node)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grid_ms = cuda_ms(image_to_grid, 2, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    grid_tf32_ms = tf32_ms(image_to_grid, 2)
+    grid = image_to_grid()
+    check(tuple(grid.shape) == (cfg.height, cfg.width, 3),
+          f"grid {tuple(grid.shape)}")
+    check(bool(torch.isfinite(grid).all()), "non-finite grid")
+    check(float(grid.min()) >= 0.0 and float(grid.max()) <= 1.0,
+          "grid outside [0, 1]")
+
+    one_step = z123_step(pipe, image, Z123_GUIDANCE)
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 3)
+    prof = profile_frames(one_step, 2, match=SDPA_KERNELS)
+    prof["device_idle_share"] = 1.0 - prof["device_union_ms"] \
+        / prof["window_ms"]
+    step_flops = flops_of(one_step)
+    f = cfg.vae_factor
+    z = torch.randn((1, 4, cfg.height // f, cfg.width // f),
+                    generator=torch.Generator().manual_seed(8)).to(dev)
+    encode_ms = cuda_ms(lambda: pipe.encode_condition(image), 3, warmup=1)
+    decode_ms = cuda_ms(lambda: pipe.model.vae.decode(z), 3, warmup=1)
+    clip_ms = cuda_ms(lambda: pipe.vision_encoder(image), 3, warmup=1)
+    decode_flops = flops_of(lambda: pipe.model.vae.decode(z))
+    rec["image_to_grid"] = {
+        "ms": grid_ms, "ms_tf32": grid_tf32_ms, "init_s": init_s,
+        "peak_bytes": peak, "params": params,
+        "weight_bytes": sum(p.numel() * p.element_size()
+                            for p in list(pipe.model.parameters())
+                            + list(enc.parameters())),
+        "clipped_share": float(((grid == 0) | (grid == 1)).float().mean()),
+        "mean": float(grid.mean()),
+        "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
+        "step_flops": step_flops,
+        "step_tflops_s": step_flops / step_ms / 1e9,
+        "step_tflops_s_tf32": step_flops / step_tf32_ms / 1e9,
+        "step_profile": {k: x for k, x in prof.items()
+                         if k not in ("top", "matched")},
+        "step_profile_top": prof["top"][:6],
+        "sdpa_kernels": prof["matched"],
+        "encode_condition_ms": encode_ms, "decode_ms": decode_ms,
+        "decode_flops": decode_flops,
+        "decode_tflops_s": decode_flops / decode_ms / 1e9,
+        "clip_ms": clip_ms}
+    log(f"zero123plus b. full width: {rec['image_to_grid']}")
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. image → grid → six views → InstantMesh → mesh, the compositor
+    # kernels' launches counted (none may launch)
+    t0 = time.perf_counter()
+    im = InstantMeshPipeline.init_random(0, im_cfg, device=dev)
+    cams_dev = torch.as_tensor(cams, device=dev)
+
+    def image_to_mesh():
+        grid = pipe(composite_background(
+            torch.as_tensor(img_np, device=dev),
+            torch.as_tensor(mask_np, device=dev))[0], **node)
+        views = resize_images(split_image_grid(grid, 3, 2), 320, 320)
+        planes = im.forward_planes(views[None], cams_dev[None])
+        return views, planes, im.extract_mesh(planes[0])
+
+    torch.cuda.synchronize()
+    reset_launches()
+    te = time.perf_counter()
+    views, planes, mesh = image_to_mesh()
+    torch.cuda.synchronize()
+    image_to_mesh_s = time.perf_counter() - te
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the Zero123Plus → InstantMesh path launched a compositor "
+          f"kernel: {launches}")
+    check(tuple(views.shape) == (6, 320, 320, 3), f"views {views.shape}")
+    planes_ms = cuda_ms(lambda: im.forward_planes(views[None],
+                                                  cams_dev[None]), 3,
+                        warmup=1)
+    _, extract_s, spans, _ = profile_spans(
+        lambda: im.extract_mesh(planes[0]), EXTRACT_STAGES)
+    check(all(sp["calls"] == 1 for sp in spans.values()),
+          f"extract_mesh's spans: {spans}")
+    check(mesh.num_vertices > 0 and mesh.num_faces > 0, "empty mesh")
+    check(bool(np.isfinite(mesh.v).all()), "non-finite vertices")
+    check(int(mesh.f.max()) < mesh.num_vertices, "faces past the vertices")
+    glb = os.path.join(asset_dir, "zero123plus_instantmesh.glb")
+    mesh.write(glb)
+    back = Mesh.load(glb)
+    check(np.array_equal(back.v, mesh.v) and np.array_equal(back.f, mesh.f),
+          "GLB round trip changed the mesh")
+    res = im_cfg.grid_res + 1
+    rec["mesh"] = {
+        "launches": launches, "image_to_mesh_s": image_to_mesh_s,
+        "forward_planes_ms": planes_ms, "resolution": res,
+        "capacity": im._cap_memo[res], "extract_total_s": extract_s,
+        "extract_stages": {k.split(".")[-1]: v for k, v in spans.items()},
+        "nv": mesh.num_vertices, "nf": mesh.num_faces,
+        "glb_bytes": os.path.getsize(glb), "poses": poses}
+    log(f"zero123plus c. grid → six views → InstantMesh: {rec['mesh']}")
+    rec["c_s"] = time.perf_counter() - t0
+    del pipe, enc, im, planes
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(out_path=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3114,6 +3504,16 @@ def main(out_path=None) -> int:
     torch.cuda.empty_cache()
     lap("15_gs_to_mesh")
 
+    # 16. Zero123Plus image → grid → six views → InstantMesh → mesh, where
+    # no compositor kernel may launch (counted in the phase)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        z123 = record["zero123plus_instantmesh"] = \
+            zero123plus_instantmesh_path(dev, asset_dir, smi_line)
+    z123["s"] = time.perf_counter() - t0
+    z123["launches"] = z123["mesh"]["launches"]
+    lap("16_zero123plus_instantmesh")
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
@@ -3124,7 +3524,8 @@ def main(out_path=None) -> int:
                 "mesh_render": record["mesh_render"]["launches"][name],
                 "mvdream_lgm_orbit_24": mvl["launches"][name],
                 "gs_to_mesh": g2m["shell"]["launches"][name],
-                "gs_to_mesh_lgm": g2m["lgm"]["launches"][name]}
+                "gs_to_mesh_lgm": g2m["lgm"]["launches"][name],
+                "zero123plus_instantmesh": z123["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -3247,6 +3648,7 @@ def main(out_path=None) -> int:
     print(json.dumps({"mesh_render": record["mesh_render"]}))
     print(json.dumps({"mvdream_lgm": mvl}))
     print(json.dumps({"gs_to_mesh": g2m}))
+    print(json.dumps({"zero123plus_instantmesh": z123}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

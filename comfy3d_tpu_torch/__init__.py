@@ -7,20 +7,28 @@ tensor code is PyTorch; each kernel the JAX package wrote in Pallas becomes a
 hand-written CUDA kernel under `csrc/`, built with `nvcc` at first use.
 
 Layering:
-  core/      GaussianSplat, Camera, SH, Mesh (host numpy), texture dilation
-             (`image.py`), file I/O (GS-PLY, OBJ, GLB, mesh PLY)
+  core/      GaussianSplat, Camera, SH, Mesh (host numpy), image utilities
+             (`image.py`: compositing, resizing, grids, texture dilation),
+             file I/O (GS-PLY, OBJ, GLB, mesh PLY)
   ops/       3DGS projection, binning, the bin and tile compositors
              (`gs_flat.py`, `gs_tile.py` wrap `csrc/*.cu`), SSIM, volume
              decodes, marching tets and the weld, ray marching, the
              hash-grid encoding, the mesh rasterizer and renderer, UV
              unwrapping (`uv_atlas.py`, `texture.py`) and baking
-  models/    TripoSR, InstantMesh, the SD UNet / VAE / DDIM, MVDream, LGM
+  models/    TripoSR, InstantMesh, the SD UNet / VAE / samplers, MVDream,
+             LGM, CLIP's vision encoder, Zero123Plus
   algorithms/  the 3DGS trainer, the Instant-NGP fit (`ngp.py`), the
              GS→mesh converter (`gs_to_mesh.py`)
   native/    host C++ mesh clean / decimate (g++ at first use, ctypes)
   convert    numpy arrays of the JAX containers and params → the port's
 
 Entry points run on the card unless the caller passes `device="cpu"`.
+
+Tests: `python -m pytest tests/test_torch_*.py` holds each module against
+the JAX package on the CPU at tiny widths (Zero123Plus → InstantMesh and
+the samplers: `tests/test_torch_{zero123plus,schedulers}.py`);
+`python3 chip_smoke.py` drives every path on the card (phase 16, about two
+minutes there: Zero123Plus → InstantMesh at the nodes' defaults).
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,8 @@ handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
 / `GSTrainState` with the same state. The JAX package's model params (nested
 dicts of arrays) become the port's native-layout state dicts
 (`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax`,
-`mvdream_state_dict_from_flax`, `lgm_state_dict_from_flax` and
+`mvdream_state_dict_from_flax`, `lgm_state_dict_from_flax`,
+`zero123plus_state_dict_from_flax`, `clip_vision_state_dict_from_flax` and
 the per-block functions below them; `ngp_state_from_flax` for the NeRF
 field), so both packages can compute on identical inputs and weights.
 """
@@ -391,6 +392,36 @@ def mvdream_state_dict_from_flax(params) -> dict:
             **_join("vae", vae_state_dict_from_flax(params["vae"])),
             **_tensors({**_join("camera_embed.0", _dense(cam["linear_1"])),
                         **_join("camera_embed.2", _dense(cam["linear_2"]))})}
+
+
+def zero123plus_state_dict_from_flax(params) -> dict:
+    """The JAX package's Zero123Plus params, `{"unet", "vae"}` → the port's
+    `Zero123Plus` state dict: `unet.*` and `vae.*` (diffusers' names)."""
+    return {**_join("unet", unet_state_dict_from_flax(params["unet"])),
+            **_join("vae", vae_state_dict_from_flax(params["vae"]))}
+
+
+# the JAX package's CLIP vision names → a CLIPVisionModelWithProjection's
+# (without its `vision_model.` prefix)
+_CLIP_RENAMES = (
+    (r"^patch_embedding", "embeddings.patch_embedding"),
+    (r"^layers_(\d+)/(q|k|v|out)_proj",
+     r"encoder.layers.\1.self_attn.\2_proj"),
+    (r"^layers_(\d+)/(fc\d)", r"encoder.layers.\1.mlp.\2"),
+    (r"^layers_(\d+)/", r"encoder.layers.\1."),
+)
+
+
+def clip_vision_state_dict_from_flax(params) -> dict:
+    """The JAX package's `CLIPVisionEncoder` params → the port's
+    `CLIPVisionEncoder` state dict (HF names, `models/clip.py`)."""
+    modules = {k: v for k, v in params.items()
+               if k not in ("class_embedding", "position_embedding")}
+    return _tensors({
+        **_renamed_state_dict(modules, _CLIP_RENAMES),
+        "embeddings.class_embedding": np.asarray(params["class_embedding"]),
+        "embeddings.position_embedding.weight": np.asarray(
+            params["position_embedding"])})
 
 
 def lgm_state_dict_from_flax(params) -> dict:

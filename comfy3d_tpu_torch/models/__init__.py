@@ -1,13 +1,14 @@
 """The model zoo: shared transformer blocks (`common`), the diffusion
-substrate (`diffusion`: UNet, VAE, DDIM) and the model families
-(`triposr`, `instantmesh`, `mvdream`, `lgm`).
+substrate (`diffusion`: UNet, VAE, the samplers), CLIP's vision encoder
+(`clip`) and the model families (`triposr`, `instantmesh`, `mvdream`,
+`lgm`, `zero123plus`).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("common", "diffusion", "instantmesh", "lgm", "mvdream",
-               "triposr")
+_SUBMODULES = ("clip", "common", "diffusion", "instantmesh", "lgm",
+               "mvdream", "triposr", "zero123plus")
 
 
 def __getattr__(name):

@@ -59,10 +59,14 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim,
                                                bias=out_bias)])
 
-    def forward(self, x, context=None, mask=None):
+    def forward(self, x, context=None, mask=None, extra_kv=None):
         """x [B, Nq, query_dim]; context [B, Nk, kv_dim]; mask [B, Nk] bool
-        (True = attend), applied as a -1e9 bias as in the JAX package."""
+        (True = attend), applied as a -1e9 bias as in the JAX package;
+        extra_kv [B, Ne, kv_dim] appended to the keys' and values' tokens
+        (reference attention), the queries unchanged."""
         ctx = x if context is None else context
+        if extra_kv is not None:
+            ctx = torch.cat([ctx, extra_kv], dim=1)
         bias = None
         if mask is not None:
             bias = torch.where(mask[:, None, None, :], 0.0, -1e9).to(x.dtype)
@@ -97,7 +101,12 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """LayerNorm→self-attn→LayerNorm→cross-attn→LayerNorm→GEGLU-FF, each
-    with a residual."""
+    with a residual.
+
+    Reference attention (Zero123Plus): `ref_mode="write"` runs plain
+    self-attention and returns (x, norm1(x)); `ref_mode="read"` appends
+    `ref_hidden`, a tensor an earlier write recorded, to attn1's keys and
+    values (never to attn2's)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None):
@@ -113,12 +122,18 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context=None, mask=None, context_mask=None):
-        x = x + self.attn1(self.norm1(x), mask=mask)
+    def forward(self, x, context=None, mask=None, context_mask=None,
+                ref_mode=None, ref_hidden=None):
+        if ref_mode not in (None, "write", "read"):
+            raise ValueError(f"ref_mode {ref_mode!r}")
+        h = self.norm1(x)
+        x = x + self.attn1(h, mask=mask, extra_kv=ref_hidden
+                           if ref_mode == "read" else None)
         if self.attn2 is not None:
             x = x + self.attn2(self.norm2(x), context=context,
                                mask=context_mask)
-        return x + self.ff(self.norm3(x))
+        x = x + self.ff(self.norm3(x))
+        return (x, h) if ref_mode == "write" else x
 
 
 class Transformer1D(nn.Module):

@@ -1,5 +1,5 @@
-"""The diffusion substrate: the conditional UNet, the VAE and the DDIM
-sampler (ports of `comfy3d_tpu/models/diffusion/{unet,vae,schedulers}.py`)."""
+"""The diffusion substrate: the conditional UNet, the VAE and the samplers
+(ports of `comfy3d_tpu/models/diffusion/{unet,vae,schedulers}.py`)."""
 
 from . import schedulers, unet, vae
 from .schedulers import DDIM, SchedulerConfig, make_scheduler, sample_loop

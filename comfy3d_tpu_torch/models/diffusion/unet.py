@@ -14,6 +14,13 @@ MVDream's 3D self-attention (`mv_views > 1`) folds the views of each
 sample into one token sequence; the cross-attention of a fold reads only
 its first view's context, as the JAX package does.
 
+Zero123Plus's reference attention: a call with `ref_mode="write"` returns
+(output, written), `written` holding what each spatial transformer's
+blocks recorded (their norm1 outputs, a list per transformer) under the
+keys `sa_0, sa_1, …` in call order (down blocks, mid, up blocks); a call
+with `ref_mode="read"` and that dict as `ref_hidden` appends each entry to
+the keys and values of its block's self-attention.
+
 The arithmetic is the JAX package's: GroupNorm eps 1e-5 in the resnets and
 `conv_norm_out`, 1e-6 in the spatial transformers, LayerNorm eps 1e-6, the
 feed-forward's GEGLU gated by the tanh GELU (`models/common.py`). Token
@@ -23,8 +30,10 @@ Not ported: the options of the other UNet families. Each raises
 NotImplementedError naming its ROADMAP item: Wonder3D's `cd_joint`, Era3D's
 `mv_rowwise` and `pose_hook`, ImageDream's `ip_dim`, Hunyuan's `use_ma` /
 `use_ra`, MV-Adapter's `mv_decoupled`, SDXL's `addition_embed_type` and
-per-block `transformer_depth`, Zero123Plus's reference attention
-(`ref_mode`), and the ControlNet / T2I-Adapter residuals.
+per-block `transformer_depth`, the reference scale of Hunyuan's and
+MV-Adapter's reference branches (`ref_scale`), and the ControlNet /
+T2I-Adapter residuals. Reference attention over a multi-view fold
+(`ref_mode` with `mv_views > 1`), which no family uses, raises too.
 """
 
 from __future__ import annotations
@@ -91,6 +100,8 @@ _UNPORTED_FIELDS = (
     ("use_ma", "Hunyuan paint's multiview attention", "A.6.6"),
     ("use_ra", "Hunyuan paint's reference attention", "A.6.6"),
     ("mv_decoupled", "MV-Adapter's decoupled attention", "A.6.6"),
+    ("ref_scale", "the reference branches' scale (Hunyuan, MV-Adapter)",
+     "A.6.6"),
     ("addition_embed_type", "SDXL's added embedding", "A.6.6"),
 )
 
@@ -160,7 +171,10 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth)])
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x, context, mv_views: int = 1):
+    def forward(self, x, context, mv_views: int = 1, ref_mode=None,
+                ref_hidden=None):
+        """→ the output, or (output, the list of what the blocks wrote)
+        with `ref_mode="write"`; `ref_hidden` is such a list."""
         b, c, h, w = x.shape
         hid = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         hid = self.proj_in(hid)
@@ -168,10 +182,18 @@ class SpatialTransformer(nn.Module):
         if v > 1:
             hid = hid.reshape(b // v, v * h * w, c)
             context = context.reshape(b // v, v, *context.shape[1:])[:, 0]
-        for block in self.transformer_blocks:
-            hid = block(hid, context=context)
+        written = []
+        for i, block in enumerate(self.transformer_blocks):
+            if ref_mode == "write":
+                hid, wr = block(hid, context=context, ref_mode=ref_mode)
+                written.append(wr)
+            else:
+                hid = block(hid, context=context, ref_mode=ref_mode,
+                            ref_hidden=None if ref_hidden is None
+                            else ref_hidden[i])
         hid = self.proj_out(hid.reshape(b, h * w, c))
-        return hid.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+        out = hid.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+        return (out, written) if ref_mode == "write" else out
 
 
 class Downsample(nn.Module):
@@ -287,10 +309,12 @@ class UNet2DCondition(nn.Module):
                 intrablock_residuals=None):
         """sample [B, Cin, H, W]; timesteps [B]; context [B, T, D];
         class_emb [B, 4·C0] added to the time embedding (MVDream's camera);
-        `mv_views` overrides the config's per call. → [B, Cout, H, W]."""
+        `mv_views` overrides the config's per call. → [B, Cout, H, W], or
+        with `ref_mode="write"` (output, written): the norm1 outputs of
+        every spatial transformer's blocks, a list under `sa_{k}` for the
+        k-th transformer called. `ref_mode="read"` appends `ref_hidden`
+        (such a dict) to each block's self-attention keys and values."""
         for name, val, item in (
-                ("ref_mode", ref_mode, "A.6.6"),
-                ("ref_hidden", ref_hidden, "A.6.6"),
                 ("down_residuals", down_residuals, "A.6.6"),
                 ("mid_residual", mid_residual, "A.6.6"),
                 ("adapter_residuals", adapter_residuals, "A.6.4"),
@@ -303,6 +327,21 @@ class UNet2DCondition(nn.Module):
         c = self.cfg
         v = c.mv_views if mv_views is None else mv_views
         ctx = encoder_hidden_states
+        if ref_mode is not None and v > 1:
+            raise _unported("reference attention over a multi-view fold "
+                            "(ref_mode with mv_views > 1)", "A.6.6")
+        written, n_called = {}, [0]
+
+        def attend(attn, h):
+            """One spatial transformer, its entry in `written` or
+            `ref_hidden` the next `sa_{k}`."""
+            key = f"sa_{n_called[0]}"
+            n_called[0] += 1
+            if ref_mode == "write":
+                h, written[key] = attn(h, ctx, v, ref_mode="write")
+                return h
+            return attn(h, ctx, v, ref_mode=ref_mode,
+                        ref_hidden=(ref_hidden or {}).get(key))
 
         te = self.time_embedding
         temb = timestep_embedding(timesteps, c.block_out_channels[0])
@@ -317,7 +356,7 @@ class UNet2DCondition(nn.Module):
             for li, res in enumerate(block["resnets"]):
                 h = res(h, temb)
                 if len(attns):
-                    h = attns[li](h, ctx, v)
+                    h = attend(attns[li], h)
                 skips.append(h)
             for ds in block["downsamplers"]:
                 h = ds(h)
@@ -325,7 +364,7 @@ class UNet2DCondition(nn.Module):
 
         mid = self.mid_block
         h = mid["resnets"][0](h, temb)
-        h = mid["attentions"][0](h, ctx, v)
+        h = attend(mid["attentions"][0], h)
         h = mid["resnets"][1](h, temb)
 
         for block in self.up_blocks:
@@ -333,8 +372,9 @@ class UNet2DCondition(nn.Module):
             for li, res in enumerate(block["resnets"]):
                 h = res(torch.cat([h, skips.pop()], dim=1), temb)
                 if len(attns):
-                    h = attns[li](h, ctx, v)
+                    h = attend(attns[li], h)
             for us in block["upsamplers"]:
                 h = us(h)
 
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        out = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return (out, written) if ref_mode == "write" else out

@@ -4,8 +4,9 @@ Port of `comfy3d_tpu/models/mvdream/pipeline.py`'s text path (the
 reference's MVDream_Model node, which feeds LGM): an SD-1.5-class UNet
 with 3D self-attention across the four views (`UNetConfig.mv_views`) and a
 camera embedding — each view's flattened 4×4 c2w through a small MLP —
-added to the time embedding; DDIM sampling with classifier-free guidance
-over a batch [uncond; cond] of 2·V frames, `un + g·(co − un)`; the first V
+added to the time embedding; sampling (DDIM by default, any sampler of
+the registry by `scheduler_name`) with classifier-free guidance over a
+batch [uncond; cond] of 2·V frames, `un + g·(co − un)`; the first V
 latents decoded by the VAE.
 
 Text conditioning is passed in as `prompt_embeds` [77, 768] (a CLIP text
@@ -18,13 +19,13 @@ protocol holds them, [V, S, S, 3] in [0, 1].
 Not ported, each raising NotImplementedError naming its ROADMAP item:
 ImageDream's image conditioning (`image=`, `cfg.ip_dim`, the Resampler,
 the pinned extra frame), CRM's stage-2 `pixel_images` and T2I-Adapter
-`adapter_residuals` (A.6.4), and every scheduler but DDIM (A.6.5).
+`adapter_residuals` (A.6.4).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -184,19 +185,29 @@ class MVDreamPipeline:
                        guidance_scale: float = 7.0,
                        generator: Optional[torch.Generator] = None,
                        latents: Optional[torch.Tensor] = None,
-                       elevation: Optional[float] = None):
-        """The guided DDIM loop → the V denoised latents."""
+                       elevation: Optional[float] = None,
+                       step_noise: Optional[Callable] = None):
+        """The guided sampling loop → the V denoised latents. A stochastic
+        sampler's noise for step i is `step_noise(i)` ([V, 4, S/8, S/8]),
+        or else drawn on the CPU with `generator` (default: seed 0) after
+        the initial latents, step by step, and moved."""
         cond = self.conditioning(prompt_embeds, negative_embeds, elevation)
         sched = make_scheduler(self.scheduler_name, SchedulerConfig(),
                                num_inference_steps)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         if latents is None:
             latents = self.initial_latents(generator)
         latents = torch.as_tensor(latents, dtype=torch.float32,
                                   device=self.device) * sched.init_sigma
+        if step_noise is None:
+            def step_noise(i):
+                return torch.randn(latents.shape,
+                                   generator=generator).to(latents.device)
         return sample_loop(
             sched, lambda x, i, t: self.guided_eps(x, t, cond,
                                                    guidance_scale),
-            latents)
+            latents, noise=step_noise)
 
     @torch.no_grad()
     def __call__(self, prompt_embeds=None, negative_embeds=None, image=None,
@@ -204,12 +215,14 @@ class MVDreamPipeline:
                  generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None,
                  elevation: Optional[float] = None,
-                 adapter_residuals=None, pixel_images=None):
+                 adapter_residuals=None, pixel_images=None,
+                 step_noise: Optional[Callable] = None):
         """→ [V, S, S, 3] images in [0, 1].
 
         prompt_embeds / negative_embeds: [T, D] (zeros when None).
         latents: the initial noise [V, 4, S/8, S/8]; when None it is drawn
-        with `generator` (`initial_latents`)."""
+        with `generator` (`initial_latents`). step_noise: a stochastic
+        sampler's noise by step (`sample_latents`)."""
         if image is not None:
             raise _image_dream("image conditioning (ImageDream)")
         if pixel_images is not None:
@@ -218,6 +231,6 @@ class MVDreamPipeline:
             raise _image_dream("adapter_residuals (T2I-Adapter)")
         latents = self.sample_latents(
             prompt_embeds, negative_embeds, num_inference_steps,
-            guidance_scale, generator, latents, elevation)
+            guidance_scale, generator, latents, elevation, step_noise)
         img = self.model.vae.decode(latents)
         return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)

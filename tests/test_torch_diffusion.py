@@ -163,7 +163,8 @@ def test_ddim_and_its_loop_match_jax():
     """Timesteps and ᾱ equal element for element (also the linear and
     shifted-SNR schedules); a step and a 5-step loop driven by a fixed
     linear `denoise_fn`, for ε-prediction with leading spacing and
-    v-prediction with trailing spacing; only DDIM is made by name."""
+    v-prediction with trailing spacing; `make_scheduler` makes the JAX
+    package's class for every name, None and an unknown one included."""
     rng = np.random.RandomState(4)
     x = rng.randn(2, 4, 6, 6).astype(np.float32)
     out = rng.randn(2, 4, 6, 6).astype(np.float32)
@@ -193,9 +194,12 @@ def test_ddim_and_its_loop_match_jax():
         js.make_alphas(js.SchedulerConfig(**shifted)))
     assert isinstance(ts.make_scheduler("DDIMScheduler,", num_steps=3),
                       ts.DDIM)
-    for name in (None, "EulerAncestralDiscreteScheduler", "LCMScheduler"):
-        with pytest.raises(NotImplementedError, match="A.6.5"):
-            ts.make_scheduler(name)
+    for name in (None, "", "EulerAncestralDiscreteScheduler",
+                 "LCMScheduler", "KDPM2DiscreteScheduler,",
+                 "NoSuchScheduler"):
+        assert type(ts.make_scheduler(name)).__name__ \
+            == type(js.make_scheduler(name)).__name__, name
+    assert type(ts.make_scheduler(None)) is ts.EulerAncestral
 
 
 def test_state_dicts_round_trip_through_the_jax_converters():
@@ -232,7 +236,7 @@ def test_other_families_options_raise():
     base = tiny_unet_cfg()
     for field, val in (("cd_joint", True), ("mv_rowwise", True),
                        ("ip_dim", 4), ("use_ma", True), ("use_ra", True),
-                       ("mv_decoupled", True),
+                       ("mv_decoupled", True), ("ref_scale", 0.5),
                        ("addition_embed_type", "text_time"),
                        ("transformer_depth", (1, 2))):
         with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
@@ -240,7 +244,7 @@ def test_other_families_options_raise():
                 dataclasses.replace(base, **{field: val})))
     model = tu.UNet2DCondition(port_unet_cfg(base))
     args = (torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 7, 16))
-    for kw in (dict(ref_mode="write"), dict(adapter_residuals=[]),
-               dict(down_residuals=[]), dict(pose_hook=len)):
+    for kw in (dict(adapter_residuals=[]), dict(down_residuals=[]),
+               dict(pose_hook=len)):
         with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
             model(*args, **kw)

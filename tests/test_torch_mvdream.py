@@ -248,9 +248,12 @@ def test_full_config_parameter_counts_match_jax():
 
 
 def test_unported_conditioning_raises():
-    """ImageDream, stage-2 and T2I-Adapter conditioning, and any sampler
-    but DDIM, raise naming their ROADMAP item."""
-    _, pipe = tiny_pipelines()
+    """ImageDream, stage-2 and T2I-Adapter conditioning raise naming their
+    ROADMAP item; the Euler-ancestral sampler runs as the JAX pipeline's
+    does (two steps under CFG 5, its initial noise and `sample_loop`'s
+    per-step keys `fold_in(PRNGKey(seed), i)` replayed): the views within
+    1e-4 of their largest value."""
+    jpipe, pipe = tiny_pipelines()
     for kw in (dict(image=np.zeros((32, 32, 3), np.float32)),
                dict(pixel_images=np.zeros((4, 32, 32, 3), np.float32)),
                dict(adapter_residuals=[])):
@@ -260,9 +263,22 @@ def test_unported_conditioning_raises():
                dict(unet=dataclasses.replace(pipe.cfg.unet, in_channels=8))):
         with pytest.raises(NotImplementedError, match="A.6.4"):
             tp.MVDream(dataclasses.replace(pipe.cfg, **kw))
-    pipe.scheduler_name = "EulerAncestralDiscreteScheduler"
-    with pytest.raises(NotImplementedError, match="A.6.5"):
-        pipe(num_inference_steps=1)
+    name, seed = "EulerAncestralDiscreteScheduler", 5
+    kw = dict(num_inference_steps=2, guidance_scale=5.0, elevation=0.0)
+
+    def run(p):
+        j = jp.MVDreamPipeline(p, jpipe.cfg)
+        j.scheduler_name = name
+        lat = pipe.cfg.image_size // pipe.cfg.vae_factor
+        noise = [jax.random.normal(jax.random.fold_in(
+            jax.random.PRNGKey(seed), i), (4, lat, lat, 4)) for i in range(2)]
+        return j(seed=seed, **kw), noise
+
+    ref, noise = jax.jit(run, compiler_options=QUICK_XLA)(jpipe.params)
+    pipe.scheduler_name = name
+    out = pipe(latents=jax_latents(seed, pipe.cfg), step_noise=lambda i:
+               torch.as_tensor(np.array(noise[i])).permute(0, 3, 1, 2), **kw)
+    _close(out, ref, what=name)
 
 
 def test_entry_points_default_to_the_card():

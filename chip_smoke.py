@@ -192,11 +192,36 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      before and read just after (all 0), `forward_planes` timed, one more
      `extract_mesh` split by its spans, the mesh through GLB and back (random
      weights: the face count is reported, not gated).
-Phases 11–13 and 16 launch none of the compositor kernels (counted).
+ 17. Hunyuan3D-2.1 shape (config 5's first half: the Hunyuan3D_21_ShapeGen
+     node; `Hunyuan3DShapePipeline` at `Hunyuan3DShapeConfig()`:
+     DINOv2-giant at 224², the flow DiT of 16 + 32 blocks at width 1,024 on
+     3,072 latents, the ShapeVAE of 16 layers; weights from seed 0; the
+     node's defaults: seed 1234, 30 steps, CFG 7.5, octree 256, num_chunks
+     65,536). a. the parameter counts on `meta` (gated) and the card against
+     the port's CPU path with TF32 off at 1 + 2 DiT blocks, 2 DINOv2 layers
+     and 1 VAE layer: `encode_cond`, one DiT call on the CFG pair, two guided
+     steps from the same noise, the VAE transformer, a dense 17³ decode and
+     an 8 → 32 octree decode, each within 1e-3 of its largest value; b.
+     `reference_image(512)` on white over its disc through the node's
+     background estimate and white composite → latents → grid → mesh → the
+     node's cleanup (`native.clean_mesh`, normals), stage by stage on the
+     host's clock with each stage's peak memory and the compositor kernels'
+     launches counted (all 0), then `pipe(image, ...)` once more split by its
+     profiler spans (`SHAPE_STAGES`, the decode's levels, the extraction's
+     sweep and weld); the 30 steps by CUDA events f32 and TF32, one guided
+     step timed, profiled (device-busy ms, idle share, the SDPA kernel) and
+     its FLOPs counted, `encode_cond`, the VAE transformer and one decode
+     chunk of 65,536 points timed; the mesh through GLB (random weights: the
+     triangle counts are reported, not gated); c. the octree decode of an
+     analytic sphere at 256 from 64 against the dense 257³ grid on the card:
+     equal within 1e-5 where |dense| < 0.04, ≥ 99.9 % of signs where |dense|
+     > 0.2, < 0.6 × 257³ queries, the extracted vertices within 0.03 of
+     radius 0.5.
+Phases 11–13, 16 and 17 launch none of the compositor kernels (counted).
 It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
-`{"gs_to_mesh": {...}}` and a `{"zero123plus_instantmesh": {...}}` line,
-one
+`{"gs_to_mesh": {...}}`, a `{"zero123plus_instantmesh": {...}}` and a
+`{"hunyuan3d_shape": {...}}` line, one
 `{"kernels": [...]}` line, then the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -3194,6 +3219,326 @@ def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
     return rec
 
 
+# ------------------------------------------------------------------ #
+# Hunyuan3D-2.1 shape: image → latents → octree grid → mesh (phase 17)
+# ------------------------------------------------------------------ #
+TOL_HY3D_REL = 1e-3      # card vs CPU, of the largest value, TF32 off
+TOL_HY3D_BAND = 1e-5     # 17c: octree vs dense grid near the surface
+HY3D_STEPS = 30          # the Hunyuan3D_21_ShapeGen node's defaults
+HY3D_GUIDANCE = 7.5
+HY3D_SEED = 1234
+HY3D_OCTREE = 256
+HY3D_CHUNKS = 65536      # the pipeline's num_chunks default
+# parameters of Hunyuan3DShapeConfig()'s DiT, ShapeVAE and DINOv2-giant
+# (the JAX package's `jax.eval_shape` counts, `tests/test_torch_hunyuan3d.py`;
+# DINOv2 without HF's mask_token, which the JAX model lacks)
+HY3D_PARAMS = {"dit": 1_113_274_432, "vae": 214_260_737,
+               "cond": 1_136_479_232}
+# 17a's cut (the widths kept): DiT blocks, DINOv2 layers, VAE layers, the
+# dense decode's and the octree decode's resolutions
+HY3D_SMALL = dict(depth=1, depth_single_blocks=2, cond_layers=2,
+                  vae_layers=1, dense=16, coarse=8, octree=32)
+HY3D_IMAGE = 512         # reference_image's size, as phase 16's
+HY3D_BG_DIST = 0.12      # the node's background-distance threshold
+
+
+def estimate_alpha(img):
+    """The Hunyuan3D nodes' foreground mask of [H, W, 3] (numpy): distance
+    from the border's median colour over 0.12 (`comfy3d_tpu/nodes/
+    nodes_hunyuan3d.py::_estimate_alpha`, until the port's node layer)."""
+    import numpy as np
+    border = np.concatenate([img[0], img[-1], img[:, 0], img[:, -1]])
+    dist = np.linalg.norm(img - np.median(border, axis=0), axis=-1)
+    return (dist > HY3D_BG_DIST).astype(np.float32)
+
+
+def hy3d_node_image(size):
+    """`reference_image(size)` on white over its disc, then the
+    Hunyuan3D_21_ShapeGen node's preprocessing: its background estimate and
+    a white composite. Returns [S, S, 3] float32 and the mask's share."""
+    img, mask = reference_image(size)
+    img = img[0] * mask[0, ..., None] + (1.0 - mask[0, ..., None])
+    alpha = estimate_alpha(img)
+    return (img * alpha[..., None] + (1.0 - alpha[..., None])).astype(
+        "float32"), float(alpha.mean())
+
+
+def hy3d_cleanup(mesh):
+    """The node's cleanup: `native.clean_mesh(weld_eps=0,
+    min_component_frac=0.05)`, then vertex normals."""
+    from comfy3d_tpu_torch import native
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    v, f = native.clean_mesh(mesh.v, mesh.f, weld_eps=0.0,
+                             min_component_frac=0.05)
+    return Mesh(v=v, f=f).auto_normal()
+
+
+def hunyuan3d_shape_path(dev, asset_dir, smi_line):
+    """Phase 17, at `Hunyuan3DShapeConfig()` (DINOv2-giant at 224², the DiT
+    of 16 + 32 blocks at width 1,024 on 3,072 latents, the ShapeVAE of 16
+    layers) with the Hunyuan3D_21_ShapeGen node's defaults (seed 1234, 30
+    steps, CFG 7.5, octree 256; `num_chunks` 65,536). Runs under
+    `torch.no_grad()`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models.hunyuan3d import (Hunyuan3DShape,
+                                                    Hunyuan3DShapeConfig,
+                                                    Hunyuan3DShapePipeline)
+    from comfy3d_tpu_torch.models.hunyuan3d.pipeline import SHAPE_STAGES
+    from comfy3d_tpu_torch.models.vecset import vae as V
+    from comfy3d_tpu_torch.ops.tetra import EXTRACT_SPANS
+
+    cfg = Hunyuan3DShapeConfig()
+    node = dict(seed=HY3D_SEED, num_steps=HY3D_STEPS,
+                guidance_scale=HY3D_GUIDANCE, octree_resolution=HY3D_OCTREE,
+                num_chunks=HY3D_CHUNKS)
+    rec = {"card": smi_line, "node": node,
+           "config": dataclasses.asdict(cfg)}
+    cpu = torch.device("cpu")
+
+    # a. the card against the port's CPU path at cut depth, TF32 off; the
+    # full config's parameter counts on `meta`
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    with torch.device("meta"):
+        meta = Hunyuan3DShape(cfg)
+    params = {name: count_params(getattr(meta, name))
+              for name in ("dit", "vae", "cond")}
+    params["cond"] -= meta.cond.embeddings.mask_token.numel()
+    del meta
+    check(params == HY3D_PARAMS, f"parameters {params}, not {HY3D_PARAMS}")
+    s = HY3D_SMALL
+    small = dataclasses.replace(
+        cfg, dit=dataclasses.replace(cfg.dit, depth=s["depth"],
+                                     depth_single_blocks=s[
+                                         "depth_single_blocks"]),
+        cond=dataclasses.replace(cfg.cond, layers=s["cond_layers"]),
+        vae=dataclasses.replace(cfg.vae, num_decoder_layers=s["vae_layers"]))
+    image, _ = hy3d_node_image(cfg.image_size)
+    gen = torch.Generator().manual_seed(7)
+    noise = torch.randn((1, cfg.vae.num_latents, cfg.vae.embed_dim),
+                        generator=gen)
+    x_np = torch.randn((2, cfg.vae.num_latents, cfg.vae.embed_dim),
+                       generator=gen)
+    outs = {}
+    for d in (cpu, dev):
+        th = time.perf_counter()
+        pipe = Hunyuan3DShapePipeline.init_random(0, small, device=d)
+        cond = pipe.encode_cond(image)
+        t = torch.full((2,), 0.3, device=d)
+        decoded = pipe.model.vae(x_np[:1].to(d) / cfg.vae.scale_factor)
+        o = {"encode_cond": cond,
+             "dit": pipe.model.dit(x_np.to(d), t, cond),
+             "two_steps": pipe.sample_latents(
+                 image, num_steps=2, guidance_scale=HY3D_GUIDANCE,
+                 noise=noise),
+             "vae_transformer": decoded,
+             "dense_decode": V.decode_volume(
+                 pipe.model.vae.query, decoded,
+                 octree_resolution=s["dense"]),
+             "octree_decode": V.decode_volume_hierarchical(
+                 pipe.model.vae.query, decoded,
+                 octree_resolution=s["octree"],
+                 coarse_resolution=s["coarse"])}
+        torch.cuda.synchronize()
+        outs[d.type] = o
+        outs[d.type + "_s"] = time.perf_counter() - th
+        del pipe
+    parity = {**s, "tokens": list(outs["cpu"]["encode_cond"].shape),
+              "host_s": outs["cpu_s"], "card_s": outs[dev.type + "_s"]}
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"hunyuan3d a. card vs CPU (cut depth, TF32 off): {parity}")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_HY3D_REL,
+              f"hunyuan3d {k}: card vs CPU {parity[k + '_rel_err']:.3g} "
+              f"of the largest value")
+    rec["params"] = params
+    rec["card_vs_cpu"] = parity
+    del outs, decoded
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. the node's defaults at full width
+    t0 = time.perf_counter()
+    pipe = Hunyuan3DShapePipeline.init_random(0, cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    image, fg_share = hy3d_node_image(HY3D_IMAGE)
+
+    # image → mesh as `pipe(image, **node)` runs it, stage by stage on the
+    # host's clock with each stage's peak memory, then the node's cleanup
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    stages, peaks = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - ts
+        peaks[name] = torch.cuda.max_memory_allocated()
+        return out
+
+    lat = stage("sample_latents", lambda: pipe.sample_latents(
+        image, node["seed"], node["num_steps"], node["guidance_scale"]))
+    grid = stage("decode_grid", lambda: pipe.decode_grid(
+        lat, node["octree_resolution"], num_chunks=node["num_chunks"]))
+    raw = stage("grid_to_mesh", lambda: V.grid_to_mesh(grid[0]))
+    clean = stage("clean", lambda: hy3d_cleanup(raw))
+    image_to_mesh_s = sum(stages.values())
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the Hunyuan3D shape path launched a compositor kernel: "
+          f"{launches}")
+    check(bool(torch.isfinite(grid).all()), "non-finite grid")
+    for m in (raw, clean):
+        check(m.num_vertices > 0 and m.num_faces > 0, "empty mesh")
+        check(bool(np.isfinite(m.v).all()), "non-finite vertices")
+        check(int(m.f.max()) < m.num_vertices, "faces past the vertices")
+    grid_stats = {"inside_share": float((grid > 0).float().mean()),
+                  "min": float(grid.min()), "max": float(grid.max())}
+    del grid
+
+    # the entry point once more, split by its spans (host and device ms);
+    # it must give the same mesh
+    levels = int(math.log2(HY3D_OCTREE // 64))
+    span_names = (SHAPE_STAGES + ("vecset.decode_volume",)
+                  + tuple(f"vecset.decode_level{i}" for i in range(levels))
+                  + EXTRACT_SPANS)
+    meshes, spans_s, spans, _ = profile_spans(lambda: pipe(image, **node),
+                                              span_names)
+    check(meshes[0].num_faces == raw.num_faces,
+          f"a second call gave {meshes[0].num_faces} faces, not "
+          f"{raw.num_faces}")
+    del meshes
+    k_lvl = [min((64 << i) ** 3, max(4096, 14 * (64 << i) ** 2))
+             for i in range(levels)]
+    points = {"vecset.decode_volume": 65 ** 3,
+              **{f"vecset.decode_level{i}": 27 * k
+                 for i, k in enumerate(k_lvl)}}
+    for name, n in points.items():
+        spans[name]["points"] = n
+    rec["points_total"] = sum(points.values())
+    rec["points_dense_257"] = 257 ** 3
+    glb = os.path.join(asset_dir, "hunyuan3d_shape.glb")
+    clean.write(glb)
+    back = Mesh.load(glb)
+    check(np.array_equal(back.v, clean.v) and np.array_equal(back.f, clean.f),
+          "GLB round trip changed the mesh")
+
+    # the 30 steps alone by CUDA events, f32 and TF32; one guided step
+    cond = pipe.encode_cond(image)
+    noise = torch.randn((1, cfg.vae.num_latents, cfg.vae.embed_dim),
+                        generator=torch.Generator().manual_seed(HY3D_SEED)
+                        ).to(dev)
+
+    def denoise():
+        return pipe.denoise(cond, noise, HY3D_GUIDANCE, HY3D_STEPS)
+
+    steps_ms = cuda_ms(denoise, 1, warmup=0)
+    steps_tf32_ms = tf32_ms(denoise, 1, warmup=0)
+    x2 = torch.cat([noise, noise])
+    t2 = torch.full((2,), 0.5, device=dev)
+
+    def one_step():
+        return pipe.model.dit(x2, t2, cond)
+
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 3)
+    prof = profile_frames(one_step, 2, match=SDPA_KERNELS)
+    prof["device_idle_share"] = 1.0 - prof["device_union_ms"] \
+        / prof["window_ms"]
+    step_flops = flops_of(one_step)
+    encode_ms = cuda_ms(lambda: pipe.encode_cond(image), 3, warmup=1)
+    vae_ms = cuda_ms(lambda: pipe.model.vae(lat / cfg.vae.scale_factor), 3,
+                     warmup=1)
+    # one decode chunk of 65,536 points: its SDPA kernel and FLOPs
+    decoded = pipe.model.vae(lat / cfg.vae.scale_factor)
+    pts = (torch.rand((1, HY3D_CHUNKS, 3), generator=torch.Generator()
+                      .manual_seed(9)) * 2.02 - 1.01).to(dev)
+
+    def one_chunk():
+        return pipe.model.vae.query(decoded, pts)
+
+    chunk_ms = cuda_ms(one_chunk, 3, warmup=1)
+    chunk_prof = profile_frames(one_chunk, 3, match=SDPA_KERNELS)
+    chunk_flops = flops_of(one_chunk)
+    rec["image_to_mesh"] = {
+        "init_s": init_s, "image": HY3D_IMAGE, "foreground_share": fg_share,
+        "image_to_mesh_s": image_to_mesh_s, "stages_s": stages,
+        "peak_bytes": max(peaks.values()), "stage_peak_bytes": peaks,
+        "launches": launches, "grid": grid_stats,
+        "weight_bytes": sum(p.numel() * p.element_size()
+                            for p in pipe.model.parameters()),
+        "profiled_s": spans_s, "spans": spans,
+        "raw_nv": raw.num_vertices, "raw_nf": raw.num_faces,
+        "nv": clean.num_vertices, "nf": clean.num_faces,
+        "glb_bytes": os.path.getsize(glb),
+        "steps_ms": steps_ms, "steps_ms_tf32": steps_tf32_ms,
+        "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
+        "step_flops": step_flops,
+        "step_tflops_s": step_flops / step_ms / 1e9,
+        "step_tflops_s_tf32": step_flops / step_tf32_ms / 1e9,
+        "step_profile": {k: x for k, x in prof.items()
+                         if k not in ("top", "matched")},
+        "step_profile_top": prof["top"][:6],
+        "sdpa_kernels": prof["matched"],
+        "encode_cond_ms": encode_ms, "vae_transformer_ms": vae_ms,
+        "decode_chunk_ms": chunk_ms, "decode_chunk_flops": chunk_flops,
+        "decode_chunk_tflops_s": chunk_flops / chunk_ms / 1e9,
+        "decode_chunk_top": chunk_prof["top"][:6],
+        "decode_chunk_sdpa": chunk_prof["matched"]}
+    log(f"hunyuan3d b. the node's defaults: {rec['image_to_mesh']}")
+    del pipe, cond, noise, decoded, lat, x2
+    torch.cuda.empty_cache()
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. the octree decode on the card: an analytic sphere at 256 from 64
+    # against the dense 257³ grid
+    t0 = time.perf_counter()
+    calls = {"points": 0}
+
+    def sphere(decoded, pts):
+        calls["points"] += pts.shape[0] * pts.shape[1]
+        return sphere_density(pts)
+
+    zeros = torch.zeros((1, 4, 8), device=dev)
+    dense = V.decode_volume(sphere, zeros, octree_resolution=HY3D_OCTREE,
+                            bounds=1.0, num_chunks=HY3D_CHUNKS)
+    calls["points"] = 0
+    hier = V.decode_volume_hierarchical(
+        sphere, zeros, octree_resolution=HY3D_OCTREE, coarse_resolution=64,
+        bounds=1.0, num_chunks=HY3D_CHUNKS)
+    band = dense.abs() < 0.04
+    far = dense.abs() > 0.2
+    band_err = float((hier - dense)[band].abs().max())
+    far_agree = float((hier[far].sign() == dense[far].sign()).float().mean())
+    sm = V.grid_to_mesh(hier[0], bounds=1.0)
+    radius = np.linalg.norm(sm.v, axis=-1)
+    rec["octree_sphere"] = {
+        "band_points": int(band.sum()), "band_max_abs_err": band_err,
+        "far_sign_agreement": far_agree, "queries": calls["points"],
+        "query_share": calls["points"] / (HY3D_OCTREE + 1) ** 3,
+        "nv": sm.num_vertices, "nf": sm.num_faces,
+        "radius_max_dev": float(np.abs(radius - 0.5).max())}
+    log(f"hunyuan3d c. octree vs dense sphere: {rec['octree_sphere']}")
+    o = rec["octree_sphere"]
+    check(band_err <= TOL_HY3D_BAND,
+          f"octree vs dense near the surface: {band_err:.3g}")
+    check(far_agree >= 0.999, f"far-field signs agree on {far_agree:.5f}")
+    check(o["query_share"] < 0.6, f"{o['queries']} queries, not < 0.6 × "
+          f"{HY3D_OCTREE + 1}³")
+    check(o["radius_max_dev"] <= 0.03,
+          f"sphere vertices {o['radius_max_dev']:.4f} off radius 0.5")
+    rec["c_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main(out_path=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3514,6 +3859,16 @@ def main(out_path=None) -> int:
     z123["launches"] = z123["mesh"]["launches"]
     lap("16_zero123plus_instantmesh")
 
+    # 17. Hunyuan3D-2.1 shape image → latents → octree grid → mesh, where
+    # no compositor kernel may launch (counted in the phase)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hy3d = record["hunyuan3d_shape"] = hunyuan3d_shape_path(
+            dev, asset_dir, smi_line)
+    hy3d["s"] = time.perf_counter() - t0
+    hy3d["launches"] = hy3d["image_to_mesh"]["launches"]
+    lap("17_hunyuan3d_shape")
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
@@ -3525,7 +3880,8 @@ def main(out_path=None) -> int:
                 "mvdream_lgm_orbit_24": mvl["launches"][name],
                 "gs_to_mesh": g2m["shell"]["launches"][name],
                 "gs_to_mesh_lgm": g2m["lgm"]["launches"][name],
-                "zero123plus_instantmesh": z123["launches"][name]}
+                "zero123plus_instantmesh": z123["launches"][name],
+                "hunyuan3d_shape": hy3d["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -3649,6 +4005,7 @@ def main(out_path=None) -> int:
     print(json.dumps({"mvdream_lgm": mvl}))
     print(json.dumps({"gs_to_mesh": g2m}))
     print(json.dumps({"zero123plus_instantmesh": z123}))
+    print(json.dumps({"hunyuan3d_shape": hy3d}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ Layering:
              hash-grid encoding, the mesh rasterizer and renderer, UV
              unwrapping (`uv_atlas.py`, `texture.py`) and baking
   models/    TripoSR, InstantMesh, the SD UNet / VAE / samplers, MVDream,
-             LGM, CLIP's vision encoder, Zero123Plus
+             LGM, CLIP's vision encoder, Zero123Plus, DINOv2, the vecset
+             substrate (ShapeVAE with its octree decode, the flow DiT) and
+             Hunyuan3D-2.1 shape generation; checkpoint files (`loader`)
   algorithms/  the 3DGS trainer, the Instant-NGP fit (`ngp.py`), the
              GS→mesh converter (`gs_to_mesh.py`)
   native/    host C++ mesh clean / decimate (g++ at first use, ctypes)
@@ -25,10 +27,9 @@ Layering:
 Entry points run on the card unless the caller passes `device="cpu"`.
 
 Tests: `python -m pytest tests/test_torch_*.py` holds each module against
-the JAX package on the CPU at tiny widths (Zero123Plus → InstantMesh and
-the samplers: `tests/test_torch_{zero123plus,schedulers}.py`);
-`python3 chip_smoke.py` drives every path on the card (phase 16, about two
-minutes there: Zero123Plus → InstantMesh at the nodes' defaults).
+the JAX package on the CPU at tiny widths (Hunyuan3D-2.1 shape:
+`tests/test_torch_hunyuan3d.py`); `python3 chip_smoke.py` drives every
+path on the card (phase 17: Hunyuan3D-2.1 shape at the node's defaults).
 """
 
 __version__ = "0.1.0"

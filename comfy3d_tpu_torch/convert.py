@@ -9,8 +9,10 @@ handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
 dicts of arrays) become the port's native-layout state dicts
 (`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax`,
 `mvdream_state_dict_from_flax`, `lgm_state_dict_from_flax`,
-`zero123plus_state_dict_from_flax`, `clip_vision_state_dict_from_flax` and
-the per-block functions below them; `ngp_state_from_flax` for the NeRF
+`zero123plus_state_dict_from_flax`, `clip_vision_state_dict_from_flax`,
+`hunyuan3d_shape_state_dict_from_flax` (with `dinov2_`, `shape_vae_` and
+`hunyuan3d_dit_state_dict_from_flax`) and the per-block functions below
+them; `ngp_state_from_flax` for the NeRF
 field), so both packages can compute on identical inputs and weights.
 """
 
@@ -299,7 +301,21 @@ def _modules(tree, path=()):
         yield "/".join(path), tree
         return
     for name, sub in tree.items():
-        yield from _modules(sub, path + (name,))
+        if isinstance(sub, Mapping):
+            yield from _modules(sub, path + (name,))
+
+
+def _loose(tree, path=()):
+    """(flax path, array) for every param a module declared itself (cls
+    tokens, position grids, LayerScale, the qk norms' scales): the array
+    leaves that are no Dense's, Conv's or norm's."""
+    if "kernel" in tree or "scale" in tree:
+        return
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _loose(sub, path + (name,))
+        else:
+            yield "/".join(path + (name,)), np.asarray(sub)
 
 
 def _module_sd(p) -> dict:
@@ -317,16 +333,26 @@ def _module_sd(p) -> dict:
     return _dense(p)
 
 
+def _rename(path: str, renames) -> str:
+    for pattern, repl in renames:
+        path = re.sub(pattern, repl, path)
+    return path.replace("/", ".")
+
+
 def _renamed_state_dict(tree, renames) -> dict:
     """Every module of a flax tree under its torch name: the flax path
     with each (regex, replacement) of `renames` applied in order, then
     "/" → "."."""
     sd = {}
     for path, p in _modules(tree):
-        for pattern, repl in renames:
-            path = re.sub(pattern, repl, path)
-        sd.update(_join(path.replace("/", "."), _module_sd(p)))
+        sd.update(_join(_rename(path, renames), _module_sd(p)))
     return sd
+
+
+def _renamed_params(tree, renames) -> dict:
+    """`_renamed_state_dict`, and every `_loose` param renamed alike."""
+    return {**_renamed_state_dict(tree, renames),
+            **{_rename(path, renames): a for path, a in _loose(tree)}}
 
 
 def _tensors(sd) -> dict:
@@ -442,3 +468,74 @@ def ngp_state_from_flax(params) -> dict:
         sd[f"{name}.weight"] = np.array(params[name]["w"], np.float32).T
         sd[f"{name}.bias"] = np.array(params[name]["b"], np.float32)
     return sd
+
+
+# ------------------------------------------------ DINOv2, the vecset models
+# the JAX package's DINOv2 names → `transformers.Dinov2Model`'s
+_DINOV2_RENAMES = (
+    (r"^patch_embed$", "embeddings.patch_embeddings.projection"),
+    (r"^cls_token$", "embeddings.cls_token"),
+    (r"^pos_embed$", "embeddings.position_embeddings"),
+    (r"^register_tokens$", "embeddings.register_tokens"),
+    (r"^ln_final$", "layernorm"),
+    (r"^layer_(\d+)/(layer_scale\d)$", r"encoder.layer.\1.\2.lambda1"),
+    (r"^layer_(\d+)/(query|key|value)$",
+     r"encoder.layer.\1.attention.attention.\2"),
+    (r"^layer_(\d+)/attn_out$", r"encoder.layer.\1.attention.output.dense"),
+    (r"^layer_(\d+)/(fc\d|weights_in|weights_out)$",
+     r"encoder.layer.\1.mlp.\2"),
+    (r"^layer_(\d+)/(norm\d)_mod$",
+     r"encoder.layer.\1.\2_modulation.linear2"),
+    (r"^layer_(\d+)/", r"encoder.layer.\1."),
+)
+# the vecset VAE's: resblocks_i → resblocks.i, the qk LayerNorms'
+# q_norm_scale → attention.q_norm.weight
+_SHAPE_VAE_RENAMES = (
+    (r"resblocks_(\d+)", r"resblocks.\1"),
+    (r"(q|k)_norm_scale$", r"attention.\1_norm.weight"),
+    (r"(q|k)_norm_bias$", r"attention.\1_norm.bias"),
+)
+# the DiT's: the upstream module paths the JAX package flattened with "_"
+_DIT_RENAMES = (
+    (r"^(double|single)_blocks_(\d+)", r"\1_blocks.\2"),
+    (r"(img|txt)_mod_lin", r"\1_mod.lin"),
+    (r"(img|txt)_attn_(qkv|proj|norm)", r"\1_attn.\2"),
+    (r"(img|txt)_mlp_(\d)", r"\1_mlp.\2"),
+    (r"modulation_lin", "modulation.lin"),
+    (r"adaLN_modulation_1", "adaLN_modulation.1"),
+    (r"(query|key)_norm_scale$", r"\1_norm.scale"),
+)
+
+
+def dinov2_state_dict_from_flax(params) -> dict:
+    """The JAX package's `Dinov2` params → the port's `Dinov2` state dict
+    (`transformers.Dinov2Model` names). HF's `mask_token`, which the JAX
+    model lacks and nothing reads, gets zeros, and so does the final
+    LayerNorm of a `return_prenorm` model (weight 1, bias 0)."""
+    sd = _renamed_params(params, _DINOV2_RENAMES)
+    h = sd["embeddings.cls_token"].shape[-1]
+    sd["embeddings.mask_token"] = np.zeros((1, h), np.float32)
+    sd.setdefault("layernorm.weight", np.ones((h,), np.float32))
+    sd.setdefault("layernorm.bias", np.zeros((h,), np.float32))
+    return _tensors(sd)
+
+
+def shape_vae_state_dict_from_flax(params) -> dict:
+    """The JAX package's `ShapeVAE` params → the port's `ShapeVAE` state
+    dict (upstream names: `post_kl`, `transformer.resblocks.{i}`,
+    `geo_decoder.*`)."""
+    return _tensors(_renamed_params(params, _SHAPE_VAE_RENAMES))
+
+
+def hunyuan3d_dit_state_dict_from_flax(params) -> dict:
+    """The JAX package's `Hunyuan3DDiT` params → the port's state dict
+    (upstream names: `double_blocks.{i}.img_attn.qkv`, …)."""
+    return _tensors(_renamed_params(params, _DIT_RENAMES))
+
+
+def hunyuan3d_shape_state_dict_from_flax(params) -> dict:
+    """The JAX package's Hunyuan3D shape params, `{"cond", "dit", "vae"}` →
+    the port's `Hunyuan3DShape` state dict: `cond.*`, `dit.*`, `vae.*`."""
+    return {**_join("cond", dinov2_state_dict_from_flax(params["cond"])),
+            **_join("dit", hunyuan3d_dit_state_dict_from_flax(params["dit"])),
+            **_join("vae", shape_vae_state_dict_from_flax(params["vae"]))}

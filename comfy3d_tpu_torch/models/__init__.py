@@ -1,14 +1,17 @@
 """The model zoo: shared transformer blocks (`common`), the diffusion
 substrate (`diffusion`: UNet, VAE, the samplers), CLIP's vision encoder
-(`clip`) and the model families (`triposr`, `instantmesh`, `mvdream`,
-`lgm`, `zero123plus`).
+(`clip`), DINOv2 (`dinov2`), the vecset substrate (`vecset`: ShapeVAE and
+its octree decode, the flow DiT and its schedule), checkpoint files
+(`loader`) and the model families (`triposr`, `instantmesh`, `mvdream`,
+`lgm`, `zero123plus`, `hunyuan3d`).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("clip", "common", "diffusion", "instantmesh", "lgm",
-               "mvdream", "triposr", "zero123plus")
+_SUBMODULES = ("clip", "common", "diffusion", "dinov2", "hunyuan3d",
+               "instantmesh", "lgm", "loader", "mvdream", "triposr", "vecset",
+               "zero123plus")
 
 
 def __getattr__(name):

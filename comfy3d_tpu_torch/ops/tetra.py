@@ -7,7 +7,7 @@ triangles (`_tet_triangles`), active cells → compacted soup
 same sweep over a deformed lattice), `grid_tets`, the host `weld`,
 `weld_device` and `extract_isosurface_device` with its capacity doubling,
 and `extract_isosurface` (the sweep in blocks on the device, the weld on
-the host).
+the host, under the `record_function` spans of `EXTRACT_SPANS`).
 
 Each cube splits into 6 tets around its 0→6 diagonal; each tet yields 0–2
 triangles, oriented away from its inside corners. Arrays are laid out
@@ -25,9 +25,14 @@ import warnings
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import resolve_device
 from ..core.mesh import Mesh
+
+# `extract_isosurface`'s profiler spans: the sweep (with the soups' copy
+# to the host) and the host weld
+EXTRACT_SPANS = ("extract_isosurface.sweep", "extract_isosurface.weld")
 
 # cube corners by bit pattern (x, y, z)
 _CORNERS = np.array([
@@ -434,21 +439,23 @@ def extract_isosurface(grid, iso: float = 0.0, bounds=(-1.0, 1.0),
             cap *= 2
         raise AssertionError("unreachable")
 
-    if r <= max_block:
-        allsoup = sweep_retry(grid, (bounds[0],) * 3, "single block")
-    else:
-        nblocks = -(-(r - 1) // (max_block - 1))
-        soups = []
-        for bj in range(nblocks):
-            y0 = bj * (max_block - 1)
-            y1 = min(y0 + max_block, r)
-            for bi in range(nblocks):
-                z0 = bi * (max_block - 1)
-                z1 = min(z0 + max_block, r)
-                soups.append(sweep_retry(
-                    grid[:, y0:y1, z0:z1].contiguous(),
-                    (bounds[0], bounds[0] + y0 * spacing,
-                     bounds[0] + z0 * spacing), f"block {bj},{bi}"))
-        allsoup = np.concatenate(soups)
-    v, f = weld(allsoup, len(allsoup))
+    with record_function(EXTRACT_SPANS[0]):
+        if r <= max_block:
+            allsoup = sweep_retry(grid, (bounds[0],) * 3, "single block")
+        else:
+            nblocks = -(-(r - 1) // (max_block - 1))
+            soups = []
+            for bj in range(nblocks):
+                y0 = bj * (max_block - 1)
+                y1 = min(y0 + max_block, r)
+                for bi in range(nblocks):
+                    z0 = bi * (max_block - 1)
+                    z1 = min(z0 + max_block, r)
+                    soups.append(sweep_retry(
+                        grid[:, y0:y1, z0:z1].contiguous(),
+                        (bounds[0], bounds[0] + y0 * spacing,
+                         bounds[0] + z0 * spacing), f"block {bj},{bi}"))
+            allsoup = np.concatenate(soups)
+    with record_function(EXTRACT_SPANS[1]):
+        v, f = weld(allsoup, len(allsoup))
     return Mesh(v=v, f=f)

@@ -15,6 +15,7 @@ import pytest
 # CPU parity tier of the port; kept out of the smoke manifest
 pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
+import concurrent.futures
 import dataclasses
 import functools
 import math
@@ -100,22 +101,31 @@ def port_cfg(jcfg):
     return Zero123PlusConfig(**kw)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3),
+                   compiler_options=QUICK_XLA)
+def _jax_noise(seed, n_loop, cond_batch, sizes):
+    """`jax_draws`'s arrays, NHWC, in one compiled call per shape."""
+    lh, lw, cs = sizes
+    key = jax.random.PRNGKey(seed)
+    key, k_init = jax.random.split(key)
+    cond, step = [], []
+    for _ in range(n_loop):
+        key, k_cond, k_step = jax.random.split(key, 3)
+        cond.append(jax.random.normal(k_cond, (cond_batch, cs, cs, 4)))
+        step.append(jax.random.normal(k_step, (1, lh, lw, 4)))
+    return jax.random.normal(k_init, (1, lh, lw, 4)), cond, step
+
+
 def jax_draws(seed, n_loop, cond_batch, jcfg):
     """The JAX pipeline's noise for `seed`, NCHW: `split(PRNGKey(seed))`
     gives the initial latents' key, then each loop step
     `split(key, 3)` its condition-latent and sampler keys."""
     f = jcfg.vae_factor
-    lh, lw, cs = jcfg.height // f, jcfg.width // f, jcfg.cond_size // f
-    key = jax.random.PRNGKey(seed)
-    key, k_init = jax.random.split(key)
-    draws = {"latents": nchw(jax.random.normal(k_init, (1, lh, lw, 4))),
-             "cond": [], "step": []}
-    for _ in range(n_loop):
-        key, k_cond, k_step = jax.random.split(key, 3)
-        draws["cond"].append(nchw(jax.random.normal(
-            k_cond, (cond_batch, cs, cs, 4))))
-        draws["step"].append(nchw(jax.random.normal(k_step, (1, lh, lw, 4))))
-    return draws
+    latents, cond, step = _jax_noise(
+        seed, n_loop, cond_batch,
+        (jcfg.height // f, jcfg.width // f, jcfg.cond_size // f))
+    return {"latents": nchw(latents), "cond": [nchw(c) for c in cond],
+            "step": [nchw(s) for s in step]}
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +133,11 @@ def pipes():
     """Both tiny pipelines with the same redrawn weights, prompt embedding
     and ramping coefficients in [0, 1], each with a tiny CLIP vision
     encoder attached; the JAX pipeline's call jitted once per
-    (steps, guidance) and shared with the node."""
+    (steps, guidance) and shared with the node. The JAX pipeline's grids
+    and keys for `test_pipeline_matches_jax` (its two compiles, with and
+    without CFG; the chain test's node reuses the CFG one) are computed on
+    two more threads beside the tests before it (`jax_refs`, futures by
+    guidance scale)."""
     jcfg = jax_cfg()
     f = jcfg.vae_factor
     lat = jnp.zeros((1, jcfg.height // f, jcfg.width // f, 4))
@@ -151,8 +165,17 @@ def pipes():
     jcall = jax.jit(jpipe.__call__, compiler_options=QUICK_XLA,
                     static_argnames=("num_inference_steps", "guidance_scale",
                                      "output_type"))
-    return dict(jcfg=jcfg, params=params, clip_p=clip_p, jpipe=jpipe,
-                pipe=pipe, clip=clip, jcall=jcall)
+    image = np.random.RandomState(3).rand(32, 32, 3).astype(np.float32)
+
+    def jax_ref(g):
+        return (np.asarray(jcall(image, num_inference_steps=STEPS,
+                                 guidance_scale=g, seed=SEED)),
+                jax_draws(SEED, STEPS, 2 if g > 1 else 1, jcfg))
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield dict(jcfg=jcfg, params=params, clip_p=clip_p, jpipe=jpipe,
+                   pipe=pipe, clip=clip, jcall=jcall, image=image,
+                   jax_refs={g: pool.submit(jax_ref, g) for g in (4.0, 1.0)})
 
 
 def test_unet_reference_write_and_read_match_jax(pipes):
@@ -265,12 +288,9 @@ def test_pipeline_matches_jax(pipes):
     node's seed, with CFG 4 (the negative condition latent first) and
     without: the grids within 1e-4 of their largest value, in [0, 1];
     without `draws`, the noise comes from a generator seeded with `seed`."""
-    pipe, jcfg = pipes["pipe"], pipes["jcfg"]
-    img = np.random.RandomState(3).rand(32, 32, 3).astype(np.float32)
+    pipe, img = pipes["pipe"], pipes["image"]
     for guidance in (4.0, 1.0):
-        ref = pipes["jcall"](img, num_inference_steps=STEPS,
-                             guidance_scale=guidance, seed=SEED)
-        draws = jax_draws(SEED, STEPS, 2 if guidance > 1 else 1, jcfg)
+        ref, draws = pipes["jax_refs"][guidance].result()
         out = pipe(img, num_inference_steps=STEPS, guidance_scale=guidance,
                    draws=draws)
         assert tuple(out.shape) == (48, 32, 3)
@@ -416,7 +436,8 @@ def test_state_dicts_round_trip_and_full_config_counts(pipes):
     `unet_rules` (under `unet.`), `vae_rules` (under `vae.`) and
     `clip_rules` → the same params leaf for leaf; `Zero123PlusConfig()`
     and `CLIPVisionConfig(projection_dim=1024)` count the JAX package's
-    parameters (`jax.eval_shape`) and the figures of record; the weights
+    parameters (`jax.eval_shape`; CLIP's from one and two of its alike
+    layers) and the figures of record; the weights
     wait for A.6.3, and the entry points default to the card."""
     params, clip_p = pipes["params"], pipes["clip_p"]
     sd = pipes["pipe"].model.state_dict()
@@ -441,23 +462,31 @@ def test_state_dicts_round_trip_and_full_config_counts(pipes):
     full = jz.Zero123PlusConfig()
     assert dataclasses.asdict(Zero123PlusConfig()) == dataclasses.asdict(full)
     z, key = jnp.zeros, jax.random.PRNGKey(0)
-    shapes = {
-        "unet": jax.eval_shape(JUNet(full.unet).init, key,
-                               z((1, 120, 80, 4)), z((1,)), z((1, 77, 1024))),
-        "vae": jax.eval_shape(JVAE(full.vae).init, key, z((1, 64, 64, 3))),
-        "clip": jax.eval_shape(jclip.CLIPVisionEncoder(
-            jclip.CLIPVisionConfig(projection_dim=1024)).init, key,
-            z((1, 224, 224, 3)))}
+
+    def count(module, *args):
+        shapes = jax.eval_shape(module.init, key, *args)["params"]
+        return sum(math.prod(a.shape) for a in jax.tree.leaves(shapes))
+
+    def clip_count(layers):
+        return count(jclip.CLIPVisionEncoder(jclip.CLIPVisionConfig(
+            projection_dim=1024, layers=layers)), z((1, 224, 224, 3)))
+
+    # CLIP's 24 layers are alike, so its count is affine in their number:
+    # traced with one and two layers, extended to 24
+    clip1 = clip_count(1)
+    n_jax = {"unet": count(JUNet(full.unet), z((1, 120, 80, 4)), z((1,)),
+                           z((1, 77, 1024))),
+             "vae": count(JVAE(full.vae), z((1, 64, 64, 3))),
+             "clip": clip1 + (jclip.CLIPVisionConfig().layers - 1)
+             * (clip_count(2) - clip1)}
     with torch.device("meta"):
         model = Zero123Plus(Zero123PlusConfig())
         clip = tclip.CLIPVisionEncoder(tclip.CLIPVisionConfig(
             projection_dim=1024))
     for name, mod in (("unet", model.unet), ("vae", model.vae),
                       ("clip", clip)):
-        n_jax = sum(math.prod(a.shape)
-                    for a in jax.tree.leaves(shapes[name]["params"]))
         n_port = sum(p.numel() for p in mod.parameters())
-        assert n_port == n_jax == FULL_PARAMS[name], name
+        assert n_port == n_jax[name] == FULL_PARAMS[name], name
     assert isinstance(model.unet, tu.UNet2DCondition)
 
     with pytest.raises(NotImplementedError, match="A.6.3"):

@@ -217,11 +217,35 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      equal within 1e-5 where |dense| < 0.04, ≥ 99.9 % of signs where |dense|
      > 0.2, < 0.6 × 257³ queries, the extracted vertices within 0.03 of
      radius 0.5.
-Phases 11–13, 16 and 17 launch none of the compositor kernels (counted).
+ 18. Hunyuan3D-2.1 paint (config 5's second half: the
+     Load_Hunyuan3D_21_TexGen_Pipeline and Hunyuan3D_21_TexGen nodes;
+     `Hunyuan3DPaintPipeline` at `PaintConfig(pbr_settings=("albedo",
+     "mr"))`: the 2.5D multi-view UNet and the dual UNet at SD-2.1 widths,
+     the SD VAE, six 512² views, 1024² textures; weights from seed 0; the
+     nodes' defaults: 8 steps, CFG 3.0, seed 0, the remesh to 40,000 faces)
+     on phase 17c's sphere. a. the parameter counts on `meta` (gated) and
+     the card against the port's CPU path with TF32 off at one resnet per
+     block, 128² views and 256² textures: the dual write pass, the uncond
+     and cond passes on 12 rows, one guided step from the same draws, the
+     VAE encode and decode, `project_colors` and `bake_projection`, each
+     within 1e-3 of its largest value; b. `reference_image(512)` on white
+     over its disc → `pipe(mesh, image, ...)` on the host's clock, split by
+     its profiler spans (`PAINT_STAGES`, `color_project.BAKE_SPANS`), the
+     compositor kernels' launches counted (all 0), the textures finite in
+     [0, 1] and through GLB (the metallicRoughness texture kept); the
+     stages once more with each stage's peak memory, the 8 steps by CUDA
+     events f32 and TF32, one guided step timed, profiled (device-busy ms,
+     idle share, the SDPA kernel) and its FLOPs counted, the FLOPs of the
+     uncond pass's skipped `attn_refview`, the write pass timed (random
+     weights: the textures' statistics are reported, not gated); c. the
+     mesh's own position maps baked as the six views: the vertex colours
+     and the albedo at the vertices' UVs give back v·0.5 + 0.5 (mean error
+     ≤ 0.005, 99th percentile ≤ 0.03) with ≥ 99 % of the vertices seen.
+Phases 11–13 and 16–18 launch none of the compositor kernels (counted).
 It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
-`{"gs_to_mesh": {...}}`, a `{"zero123plus_instantmesh": {...}}` and a
-`{"hunyuan3d_shape": {...}}` line, one
+`{"gs_to_mesh": {...}}`, a `{"zero123plus_instantmesh": {...}}`, a
+`{"hunyuan3d_shape": {...}}` and a `{"hunyuan3d_paint": {...}}` line, one
 `{"kernels": [...]}` line, then the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
@@ -3278,7 +3302,8 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     of 16 + 32 blocks at width 1,024 on 3,072 latents, the ShapeVAE of 16
     layers) with the Hunyuan3D_21_ShapeGen node's defaults (seed 1234, 30
     steps, CFG 7.5, octree 256; `num_chunks` 65,536). Runs under
-    `torch.no_grad()`."""
+    `torch.no_grad()`. Returns the record and 17c's sphere mesh, which
+    phase 18 paints."""
     import dataclasses
 
     import numpy as np
@@ -3536,6 +3561,379 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     check(o["radius_max_dev"] <= 0.03,
           f"sphere vertices {o['radius_max_dev']:.4f} off radius 0.5")
     rec["c_s"] = time.perf_counter() - t0
+    return rec, sm
+
+
+# ------------------------------------------------------------------ #
+# Hunyuan3D-2.1 paint: mesh + image → six views → PBR textures (phase 18)
+# ------------------------------------------------------------------ #
+PAINT_STEPS = 8          # the Turbo default of Load_Hunyuan3D_21_TexGen_Pipeline
+PAINT_GUIDANCE = 3.0     # Hunyuan3DPaintPipeline.__call__'s defaults
+PAINT_SEED = 0
+PAINT_PBR = ("albedo", "mr")
+PAINT_REMESH_FACES = 40_000   # the Hunyuan3D_21_TexGen node's use_remesh
+PAINT_IMAGE = 512        # reference_image's size
+# parameters of PaintConfig(pbr_settings=PAINT_PBR) (the JAX package's
+# `jax.eval_shape` counts, `tests/test_torch_hunyuan3d_paint.py`): the
+# generation UNet (of which its 2.5D attentions), the dual UNet, the VAE,
+# the camera table and the learned tokens (gen, ref, albedo, mr)
+PAINT_PARAMS = {"unet": 965_081_924, "unet_multiview_refview": 99_148_160,
+                "unet_dual": 865_910_724, "vae": 83_653_863,
+                "class_embedding": 62_720, "tokens": 315_392}
+# 18a's cut (the widths kept): one resnet per block in the UNets and the
+# VAE, 128² views (16² latents), 256² textures, the mesh decimated further
+PAINT_SMALL = dict(layers_per_block=1, render_size=128, texture_size=256,
+                   faces=2_000)
+# 18c: the bake of the mesh's own position maps must give back v·0.5 + 0.5
+TOL_BAKE_MEAN = 0.005
+TOL_BAKE_P99 = 0.03
+BAKE_SEEN_SHARE = 0.99
+
+
+def paint_params(model):
+    """The parts of a `Hunyuan3DPaint`'s parameters as `PAINT_PARAMS` names
+    them."""
+    unet = model.unet
+    cls = unet.class_embedding.weight.numel()
+    tokens = sum(p.numel() for p in unet.parameters(recurse=False))
+    return {"unet": count_params(unet) - cls - tokens,
+            "unet_multiview_refview": sum(
+                p.numel() for k, p in unet.named_parameters()
+                if ".attn_multiview." in k or ".attn_refview." in k),
+            "unet_dual": count_params(model.unet_dual),
+            "vae": count_params(model.vae), "class_embedding": cls,
+            "tokens": tokens}
+
+
+def texgen_remesh(mesh, faces):
+    """The Hunyuan3D_21_TexGen node's remesh (`use_remesh`,
+    `comfy3d_tpu/nodes/nodes_texture.py:166-175`): QEM decimation to
+    `faces`, then vertex normals."""
+    from comfy3d_tpu_torch import native
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    v, f = native.decimate_mesh(mesh.v, mesh.f, faces)
+    return Mesh(v=v, f=f).auto_normal()
+
+
+def texgen_image(size):
+    """`reference_image(size)` as the texgen node takes an RGBA image: its
+    disc the alpha, composited on white (`nodes_texture.py:177-182`)."""
+    img, mask = reference_image(size)
+    a = mask[0, ..., None]
+    return (img[0] * a + (1.0 - a)).astype("float32")
+
+
+def err_stats(err):
+    """Mean, 99th percentile and max of |err| (a CPU tensor)."""
+    import torch
+    e = err.abs().flatten().double()
+    return {"mean": float(e.mean()), "p99": float(torch.quantile(e, 0.99)),
+            "max": float(e.max())}
+
+
+def tex_stats(t):
+    import numpy as np
+    t = np.asarray(t)
+    return {"shape": list(t.shape), "mean": float(t.mean()),
+            "std": float(t.std()), "min": float(t.min()),
+            "max": float(t.max())}
+
+
+def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
+    """Phase 18, at `PaintConfig(pbr_settings=("albedo", "mr"))` (the
+    Load_Hunyuan3D_21_TexGen_Pipeline node's: SD-2.1 widths, six 512²
+    views, 1024² textures; weights from seed 0) with the Hunyuan3D_21_TexGen
+    node's defaults (8 steps, CFG 3.0, seed 0, the remesh to 40,000 faces)
+    on `shape_mesh`, phase 17c's octree sphere. Runs under
+    `torch.no_grad()`."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.algorithms import color_project as CP
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models.diffusion.schedulers import make_scheduler
+    from comfy3d_tpu_torch.models.hunyuan3d import (Hunyuan3DPaint,
+                                                    Hunyuan3DPaintPipeline,
+                                                    PaintConfig)
+    from comfy3d_tpu_torch.models.hunyuan3d.paint import PAINT_STAGES
+    from comfy3d_tpu_torch.ops import rasterize as R
+
+    cfg = PaintConfig(pbr_settings=PAINT_PBR)
+    node = dict(num_steps=PAINT_STEPS, guidance_scale=PAINT_GUIDANCE,
+                seed=PAINT_SEED)
+    rec = {"card": smi_line, "node": node,
+           "config": dataclasses.asdict(cfg)}
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    mesh = texgen_remesh(shape_mesh, PAINT_REMESH_FACES)
+    rec["mesh"] = {"shape_nf": shape_mesh.num_faces,
+                   "nv": mesh.num_vertices, "nf": mesh.num_faces,
+                   "remesh_s": time.perf_counter() - t0}
+    check(0 < mesh.num_faces <= PAINT_REMESH_FACES,
+          f"remesh gave {mesh.num_faces} faces")
+
+    # a. the card against the port's CPU path at cut depth, TF32 off; the
+    # full config's parameter counts on `meta`
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    with torch.device("meta"):
+        meta = Hunyuan3DPaint(cfg)
+    params = paint_params(meta)
+    del meta
+    check(params == PAINT_PARAMS, f"parameters {params}, not {PAINT_PARAMS}")
+    s = PAINT_SMALL
+    small = dataclasses.replace(
+        cfg, render_size=s["render_size"], texture_size=s["texture_size"],
+        unet=dataclasses.replace(cfg.unet,
+                                 layers_per_block=s["layers_per_block"]),
+        vae=dataclasses.replace(cfg.vae,
+                                layers_per_block=s["layers_per_block"]))
+    small_mesh = texgen_remesh(mesh, s["faces"])
+    lat = small.render_size // small.vae_factor
+    rows = len(PAINT_PBR) * small.num_views
+    gen = torch.Generator().manual_seed(11)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen)
+    x, img_lat, geom_lat = (draw(rows, 12, lat, lat), draw(1, 4, lat, lat),
+                            draw(small.num_views, 8, lat, lat))
+    images = torch.rand((3, small.render_size, small.render_size, 3),
+                        generator=gen)
+    views = torch.rand((small.num_views, small.render_size,
+                        small.render_size, 3), generator=gen)
+    draws = {"latents": draw(rows, 4, lat, lat),
+             "step": [draw(rows, 4, lat, lat)]}
+    t_a = time.perf_counter()
+    model = Hunyuan3DPaintPipeline.init_random(0, small, device=cpu).model
+    init_small_s = time.perf_counter() - t_a
+    outs = {}
+    for d in (cpu, dev):
+        th = time.perf_counter()
+        pipe = Hunyuan3DPaintPipeline(
+            model if d.type == "cpu" else copy.deepcopy(model).to(d))
+        unet = pipe.model.unet
+        ref = pipe.write_reference(img_lat.to(d))
+        cls, ctx_u, ctx_c = pipe.conditioning()
+        t = torch.full((rows,), 601.0, device=d)
+        o = {f"write_{k}": w[0] for k, w in ref.items()}
+        o["uncond"] = unet(x.to(d), t, ctx_u, class_emb=cls)
+        o["cond"] = unet(x.to(d), t, ctx_c, class_emb=cls, ref_mode="read",
+                         ref_hidden=ref)
+        o["guided_step"] = pipe.denoise(geom_lat.to(d), img_lat.to(d), 1,
+                                        PAINT_GUIDANCE, draws=draws)
+        o["vae_encode"] = pipe.encode(images)
+        o["vae_decode"] = pipe.decode(x[:2, :4].to(d))
+        cams = pipe.cameras()
+        o["project_colors"], o["project_confidence"] = CP.project_colors(
+            small_mesh, views, cams, small.bake_exp,
+            view_weights=small.view_weights, device=d)
+        o["bake_projection"] = torch.as_tensor(CP.bake_projection(
+            small_mesh, views, cams, texture_size=small.texture_size,
+            cos_power=small.bake_exp, view_weights=small.view_weights,
+            device=d).albedo)
+        torch.cuda.synchronize()
+        outs[d.type] = o
+        outs[d.type + "_s"] = time.perf_counter() - th
+        del pipe, ref
+    del model
+    parity = {**s, "rows": rows, "latent": lat, "init_s": init_small_s,
+              "written": len([k for k in outs["cpu"]
+                              if k.startswith("write_")]),
+              "host_s": outs["cpu_s"], "card_s": outs[dev.type + "_s"]}
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"hunyuan3d paint a. card vs CPU (cut depth, TF32 off): {parity}")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_HY3D_REL,
+              f"hunyuan3d paint {k}: card vs CPU "
+              f"{parity[k + '_rel_err']:.3g} of the largest value")
+    rec["params"] = params
+    rec["card_vs_cpu"] = parity
+    del outs
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. the node's defaults at full width: `pipe(mesh, image, ...)` once on
+    # the host's clock, split by its profiler spans, the compositor
+    # kernels' launches counted (none may launch)
+    t0 = time.perf_counter()
+    pipe = Hunyuan3DPaintPipeline.init_random(0, cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    image = texgen_image(PAINT_IMAGE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    info = {}
+    out, call_s, spans, _ = profile_spans(
+        lambda: pipe(mesh, image, info=info, **node),
+        PAINT_STAGES + CP.BAKE_SPANS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(launches.values()),
+          f"the Hunyuan3D paint path launched a compositor kernel: "
+          f"{launches}")
+    ts = cfg.texture_size
+    for name in ("albedo", "metallic_roughness"):
+        tex = getattr(out, name)
+        check(tex is not None and tex.shape == (ts, ts, 3),
+              f"{name}: {None if tex is None else tex.shape}")
+        check(bool(np.isfinite(tex).all()) and tex.min() >= 0.0
+              and tex.max() <= 1.0, f"{name} not finite in [0, 1]")
+    check(out.vt is not None and out.ft is not None and out.vn is not None,
+          "no UVs or normals on the painted mesh")
+    check(all(sp["calls"] >= 1 for sp in spans.values()),
+          f"spans not entered: {spans}")
+    glb = os.path.join(asset_dir, "hunyuan3d_paint.glb")
+    out.write(glb)
+    back = Mesh.load(glb)
+    check(back.metallic_roughness is not None
+          and back.metallic_roughness.shape == out.metallic_roughness.shape,
+          "GLB round trip lost the metallicRoughness texture")
+    check(back.albedo is not None and back.albedo.shape == out.albedo.shape,
+          "GLB round trip lost the albedo")
+
+    # the same stages once more, each with its peak memory and its time on
+    # the host's clock (the denoise also by CUDA events); the denoise takes
+    # the write stage's reference, so no stage is counted twice
+    stages, peaks = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ts_ = time.perf_counter()
+        ev0.record()
+        res = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        stages[name] = {"s": time.perf_counter() - ts_,
+                        "cuda_ms": ev0.elapsed_time(ev1)}
+        peaks[name] = torch.cuda.max_memory_allocated()
+        return res
+
+    img_t = pipe._f32(image)[None]
+    normals, positions = stage("render_geometry",
+                               lambda: pipe.render_geometry(mesh))
+    geom, ilat = stage("encode", lambda: (torch.cat(
+        [pipe.encode(normals), pipe.encode(positions)], 1),
+        pipe.encode(img_t)))
+    ref = stage("write_reference", lambda: pipe.write_reference(ilat))
+    latents = stage("denoise", lambda: pipe.denoise(
+        geom, ilat, PAINT_STEPS, PAINT_GUIDANCE, PAINT_SEED, ref=ref))
+    views = stage("decode", lambda: pipe.decode(latents))
+    nv = cfg.num_views
+    baked = stage("bake", lambda: pipe.bake(mesh, {
+        a: views[i * nv:(i + 1) * nv] for i, a in enumerate(PAINT_PBR)}))
+    repeat_diff = float(max(np.abs(baked.albedo - out.albedo).max(),
+                            np.abs(baked.metallic_roughness
+                                   - out.metallic_roughness).max()))
+    steps_tf32_ms = tf32_ms(lambda: pipe.denoise(
+        geom, ilat, PAINT_STEPS, PAINT_GUIDANCE, PAINT_SEED, ref=ref), 1,
+        warmup=0)
+
+    # one guided step (the uncond and cond passes, the sampler), timed,
+    # profiled and its FLOPs counted; the uncond pass's skipped
+    # `attn_refview` (the JAX package scales it by 0) counted alone
+    sched = make_scheduler(pipe.scheduler_name, cfg.scheduler, PAINT_STEPS)
+    cond = pipe.conditioning()
+    g2 = torch.Generator().manual_seed(12)
+    x0 = (torch.randn(latents.shape, generator=g2).to(dev)
+          * sched.init_sigma)
+    noise = torch.randn(latents.shape, generator=g2).to(dev)
+    geom_rows = geom.repeat(len(PAINT_PBR), 1, 1, 1)
+
+    def one_step():
+        eps = pipe.guided_eps(sched.scale_model_input(x0, 0),
+                              sched.timesteps[0], geom_rows, ref, cond,
+                              PAINT_GUIDANCE)
+        return sched.step(eps, 0, x0, noise)
+
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 3)
+    prof = profile_frames(one_step, 2, match=SDPA_KERNELS)
+    prof["device_idle_share"] = 1.0 - prof["device_union_ms"] \
+        / prof["window_ms"]
+    step_flops = flops_of(one_step)
+    inp = torch.cat([sched.scale_model_input(x0, 0), geom_rows], 1)
+    tvec = torch.full((inp.shape[0],), float(sched.timesteps[0]),
+                      device=dev)
+    cls, ctx_u, _ = cond
+    unet = pipe.model.unet
+    refview_flops = flops_of(lambda: unet(
+        inp, tvec, ctx_u, class_emb=cls, ref_mode="read",
+        ref_hidden=ref)) - flops_of(lambda: unet(inp, tvec, ctx_u,
+                                                 class_emb=cls))
+    write_ms = cuda_ms(lambda: pipe.write_reference(ilat), 3, warmup=1)
+    write_flops = flops_of(lambda: pipe.write_reference(ilat))
+    decode_flops = flops_of(lambda: pipe.decode(latents))
+    rec["b"] = {
+        "init_s": init_s, "image": PAINT_IMAGE, "call_s": call_s,
+        "peak_bytes": peak, "spans": spans, "launches": launches,
+        "unwrap": info.get("unwrap"), "stages": stages,
+        "stage_peak_bytes": peaks,
+        "image_to_textures_s": sum(v["s"] for v in stages.values()),
+        "repeat_max_abs_diff": repeat_diff,
+        "weight_bytes": sum(p.numel() * p.element_size()
+                            for p in pipe.model.parameters()),
+        "steps_ms": stages["denoise"]["cuda_ms"],
+        "steps_ms_tf32": steps_tf32_ms,
+        "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
+        "step_flops": step_flops,
+        "step_tflops_s": step_flops / step_ms / 1e9,
+        "step_tflops_s_tf32": step_flops / step_tf32_ms / 1e9,
+        "uncond_refview_flops_skipped": refview_flops,
+        "step_profile": {k: v for k, v in prof.items()
+                         if k not in ("top", "matched")},
+        "step_profile_top": prof["top"][:6],
+        "sdpa_kernels": prof["matched"],
+        "write_ms": write_ms, "write_flops": write_flops,
+        "decode_flops": decode_flops,
+        "albedo": tex_stats(out.albedo),
+        "metallic_roughness": tex_stats(out.metallic_roughness),
+        "glb_bytes": os.path.getsize(glb)}
+    log(f"hunyuan3d paint b. the node's defaults: {rec['b']}")
+    del latents, views, x0, noise, geom_rows, inp, out, baked, back
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. the bake on a known field: the mesh's own position maps as the six
+    # views must give back v·0.5 + 0.5 at the vertices and in the albedo
+    t0 = time.perf_counter()
+    cams = pipe.cameras()
+    colors, conf = CP.project_colors(mesh, positions, cams, cfg.bake_exp,
+                                     view_weights=cfg.view_weights,
+                                     device=dev)
+    info = {}
+    baked = CP.bake_projection(mesh, positions, cams,
+                               texture_size=cfg.texture_size,
+                               cos_power=cfg.bake_exp,
+                               view_weights=cfg.view_weights, device=dev,
+                               info=info)
+    truth = torch.as_tensor(mesh.v) * 0.5 + 0.5
+    seen = (conf > 1e-3).cpu()
+    corners = seen[torch.as_tensor(mesh.f).long()]        # [M, 3]
+    uv = torch.as_tensor(baked.vt)[torch.as_tensor(baked.ft).long()]
+    sampled = R.texture_sample(torch.as_tensor(baked.albedo), uv,
+                               mode="clamp")             # [M, 3, 3]
+    corner_truth = truth[torch.as_tensor(mesh.f).long()]
+    rec["c"] = {
+        "seen_share": float(seen.float().mean()), "unwrap": info["unwrap"],
+        "vertex": err_stats((colors.cpu() - truth)[seen]),
+        "vertex_inpainted": err_stats(torch.as_tensor(baked.vc)[seen]
+                                      - truth[seen]),
+        "albedo_at_uv": err_stats((sampled - corner_truth)[corners])}
+    log(f"hunyuan3d paint c. the bake of the position maps: {rec['c']}")
+    c = rec["c"]
+    check(c["seen_share"] >= BAKE_SEEN_SHARE,
+          f"{c['seen_share']:.4f} of the vertices seen")
+    for k in ("vertex", "vertex_inpainted", "albedo_at_uv"):
+        check(c[k]["mean"] <= TOL_BAKE_MEAN and c[k]["p99"] <= TOL_BAKE_P99,
+              f"known-field bake, {k}: {c[k]}")
+    rec["c_s"] = time.perf_counter() - t0
+    del pipe, normals, positions, geom, ilat, ref
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3863,11 +4261,22 @@ def main(out_path=None) -> int:
     # no compositor kernel may launch (counted in the phase)
     t0 = time.perf_counter()
     with torch.no_grad():
-        hy3d = record["hunyuan3d_shape"] = hunyuan3d_shape_path(
-            dev, asset_dir, smi_line)
+        hy3d, hy3d_sphere = hunyuan3d_shape_path(dev, asset_dir, smi_line)
+    record["hunyuan3d_shape"] = hy3d
     hy3d["s"] = time.perf_counter() - t0
     hy3d["launches"] = hy3d["image_to_mesh"]["launches"]
     lap("17_hunyuan3d_shape")
+
+    # 18. Hunyuan3D-2.1 paint of phase 17's sphere → PBR textures, where no
+    # compositor kernel may launch (counted in the phase)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        paint = record["hunyuan3d_paint"] = hunyuan3d_paint_path(
+            dev, asset_dir, smi_line, hy3d_sphere)
+    paint["s"] = time.perf_counter() - t0
+    paint["launches"] = paint["b"]["launches"]
+    del hy3d_sphere
+    lap("18_hunyuan3d_paint")
 
     def by_path(name):
         return {"render_8_views": launches[name],
@@ -3881,7 +4290,8 @@ def main(out_path=None) -> int:
                 "gs_to_mesh": g2m["shell"]["launches"][name],
                 "gs_to_mesh_lgm": g2m["lgm"]["launches"][name],
                 "zero123plus_instantmesh": z123["launches"][name],
-                "hunyuan3d_shape": hy3d["launches"][name]}
+                "hunyuan3d_shape": hy3d["launches"][name],
+                "hunyuan3d_paint": paint["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -4006,6 +4416,7 @@ def main(out_path=None) -> int:
     print(json.dumps({"gs_to_mesh": g2m}))
     print(json.dumps({"zero123plus_instantmesh": z123}))
     print(json.dumps({"hunyuan3d_shape": hy3d}))
+    print(json.dumps({"hunyuan3d_paint": paint}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

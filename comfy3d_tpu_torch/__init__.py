@@ -18,18 +18,22 @@ Layering:
   models/    TripoSR, InstantMesh, the SD UNet / VAE / samplers, MVDream,
              LGM, CLIP's vision encoder, Zero123Plus, DINOv2, the vecset
              substrate (ShapeVAE with its octree decode, the flow DiT) and
-             Hunyuan3D-2.1 shape generation; checkpoint files (`loader`)
+             Hunyuan3D-2.1 shape generation and paint; checkpoint files
+             and directories (`loader`)
   algorithms/  the 3DGS trainer, the Instant-NGP fit (`ngp.py`), the
-             GS→mesh converter (`gs_to_mesh.py`)
-  native/    host C++ mesh clean / decimate (g++ at first use, ctypes)
+             GS→mesh converter (`gs_to_mesh.py`), the multi-view colour
+             projection and bake (`color_project.py`)
+  native/    host C++ mesh clean / decimate / vertex inpaint (g++ at first
+             use, ctypes)
   convert    numpy arrays of the JAX containers and params → the port's
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 
 Tests: `python -m pytest tests/test_torch_*.py` holds each module against
-the JAX package on the CPU at tiny widths (Hunyuan3D-2.1 shape:
-`tests/test_torch_hunyuan3d.py`); `python3 chip_smoke.py` drives every
-path on the card (phase 17: Hunyuan3D-2.1 shape at the node's defaults).
+the JAX package on the CPU at tiny widths (Hunyuan3D-2.1 shape and paint:
+`tests/test_torch_hunyuan3d{,_paint}.py`); `python3 chip_smoke.py` drives
+every path on the card (phases 17–18: Hunyuan3D-2.1 shape, then paint, at
+the nodes' defaults).
 """
 
 __version__ = "0.1.0"

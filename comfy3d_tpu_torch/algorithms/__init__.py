@@ -1,11 +1,12 @@
 """Per-asset optimisers: the 3DGS trainer, the Instant-NGP NeRF fit, and
-the GS→mesh converter built on it.
+the GS→mesh converter built on it; the multi-view colour projection and
+bake of Hunyuan3D paint (`color_project`).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("gs_to_mesh", "gs_trainer", "ngp")
+_SUBMODULES = ("color_project", "gs_to_mesh", "gs_trainer", "ngp")
 
 
 def __getattr__(name):

@@ -11,7 +11,8 @@ dicts of arrays) become the port's native-layout state dicts
 `mvdream_state_dict_from_flax`, `lgm_state_dict_from_flax`,
 `zero123plus_state_dict_from_flax`, `clip_vision_state_dict_from_flax`,
 `hunyuan3d_shape_state_dict_from_flax` (with `dinov2_`, `shape_vae_` and
-`hunyuan3d_dit_state_dict_from_flax`) and the per-block functions below
+`hunyuan3d_dit_state_dict_from_flax`), `hunyuan3d_paint_state_dict_from_flax`
+and the per-block functions below
 them; `ngp_state_from_flax` for the NeRF
 field), so both packages can compute on identical inputs and weights.
 """
@@ -539,3 +540,32 @@ def hunyuan3d_shape_state_dict_from_flax(params) -> dict:
     return {**_join("cond", dinov2_state_dict_from_flax(params["cond"])),
             **_join("dit", hunyuan3d_dit_state_dict_from_flax(params["dit"])),
             **_join("vae", shape_vae_state_dict_from_flax(params["vae"]))}
+
+
+def hunyuan3d_paint_state_dict_from_flax(params,
+                                         pbr_settings=("albedo", "mr")
+                                         ) -> dict:
+    """The JAX package's Hunyuan3D paint params, `{"unet", "unet_dual",
+    "vae", "cls", "text_gen", "text_ref"[, "attr_embeds"]}` → the port's
+    `Hunyuan3DPaint` state dict: `unet.*` (its 2.5D blocks'
+    `attn_multiview` / `attn_refview` under the blocks' names, the camera
+    table `unet.class_embedding`, the learned tokens
+    `unet.learned_text_clip_{gen,ref}` and, one per name of `pbr_settings`,
+    `unet.learned_text_clip_{attr}` from `attr_embeds`), `unet_dual.*` and
+    `vae.*`."""
+    tokens = {"gen": params["text_gen"], "ref": params["text_ref"]}
+    if "attr_embeds" in params:
+        attr = np.asarray(params["attr_embeds"])
+        if len(attr) != len(pbr_settings):
+            raise ValueError(f"{len(attr)} attribute token sets for "
+                             f"{pbr_settings}")
+        tokens.update(zip(pbr_settings, attr))
+    unet = {**unet_state_dict_from_flax(params["unet"]),
+            **_tensors({"class_embedding.weight":
+                        np.asarray(params["cls"]["embedding"]),
+                        **{f"learned_text_clip_{k}": np.asarray(v)
+                           for k, v in tokens.items()}})}
+    return {**_join("unet", unet),
+            **_join("unet_dual", unet_state_dict_from_flax(
+                params["unet_dual"])),
+            **_join("vae", vae_state_dict_from_flax(params["vae"]))}

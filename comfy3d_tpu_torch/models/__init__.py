@@ -3,7 +3,7 @@ substrate (`diffusion`: UNet, VAE, the samplers), CLIP's vision encoder
 (`clip`), DINOv2 (`dinov2`), the vecset substrate (`vecset`: ShapeVAE and
 its octree decode, the flow DiT and its schedule), checkpoint files
 (`loader`) and the model families (`triposr`, `instantmesh`, `mvdream`,
-`lgm`, `zero123plus`, `hunyuan3d`).
+`lgm`, `zero123plus`, `hunyuan3d`: shape generation and paint).
 
 Lazy imports, as in the package root."""
 

@@ -21,6 +21,18 @@ keys `sa_0, sa_1, …` in call order (down blocks, mid, up blocks); a call
 with `ref_mode="read"` and that dict as `ref_hidden` appends each entry to
 the keys and values of its block's self-attention.
 
+Hunyuan paint's 2.5D blocks (`use_ma`, `use_ra`; upstream's
+`Basic2p5DTransformerBlock`): self-attention `attn1` stays per view and
+reads no extra keys. Beside it, reading the same norm1 output and adding
+to the residual, `attn_refview` cross-attends to the block's entry of
+`ref_hidden` (scaled by `ref_scale` on a read; one reference row serves
+all the rows of its group) and `attn_multiview` self-attends over the
+`mv_views` consecutive rows of each group as one token sequence (scaled by
+`mva_scale`). The spatial transformers then do not fold the views. Off a
+read, the JAX package runs `attn_refview` on the block's own tokens and
+multiplies it by 0; the port skips it, which gives the same result for
+finite values.
+
 The arithmetic is the JAX package's: GroupNorm eps 1e-5 in the resnets and
 `conv_norm_out`, 1e-6 in the spatial transformers, LayerNorm eps 1e-6, the
 feed-forward's GEGLU gated by the tanh GELU (`models/common.py`). Token
@@ -28,12 +40,12 @@ sequences are flattened row-major over (H, W) with the channels last.
 
 Not ported: the options of the other UNet families. Each raises
 NotImplementedError naming its ROADMAP item: Wonder3D's `cd_joint`, Era3D's
-`mv_rowwise` and `pose_hook`, ImageDream's `ip_dim`, Hunyuan's `use_ma` /
-`use_ra`, MV-Adapter's `mv_decoupled`, SDXL's `addition_embed_type` and
-per-block `transformer_depth`, the reference scale of Hunyuan's and
-MV-Adapter's reference branches (`ref_scale`), and the ControlNet /
-T2I-Adapter residuals. Reference attention over a multi-view fold
-(`ref_mode` with `mv_views > 1`), which no family uses, raises too.
+`mv_rowwise` and `pose_hook`, ImageDream's `ip_dim`, MV-Adapter's
+`mv_decoupled` (with its reference branch's `ref_scale`), SDXL's
+`addition_embed_type` and per-block `transformer_depth`, and the ControlNet
+/ T2I-Adapter residuals. Reference attention over MVDream's multi-view fold
+(`ref_mode` with `mv_views > 1` and neither 2.5D attention), which no
+family uses, raises too.
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..common import BasicTransformerBlock
+from ..common import Attention, BasicTransformerBlock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,11 +109,7 @@ _UNPORTED_FIELDS = (
     ("cd_joint", "Wonder3D's cross-domain attention", "A.6.6"),
     ("mv_rowwise", "Era3D's row-wise attention", "A.6.6"),
     ("ip_dim", "ImageDream's IP-adapter tokens", "A.6.4"),
-    ("use_ma", "Hunyuan paint's multiview attention", "A.6.6"),
-    ("use_ra", "Hunyuan paint's reference attention", "A.6.6"),
     ("mv_decoupled", "MV-Adapter's decoupled attention", "A.6.6"),
-    ("ref_scale", "the reference branches' scale (Hunyuan, MV-Adapter)",
-     "A.6.6"),
     ("addition_embed_type", "SDXL's added embedding", "A.6.6"),
 )
 
@@ -155,20 +163,71 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
+class Basic2p5DBlock(BasicTransformerBlock):
+    """Hunyuan paint's 2.5D transformer block: `BasicTransformerBlock` (its
+    attn1 per view, without reference keys) plus `attn_refview` (with
+    `use_ra`) and `attn_multiview` (with `use_ma`), both reading norm1's
+    output. Upstream nests the wrapped block's layers under `.transformer.`
+    in its checkpoints; here they sit beside the two attentions."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: int, use_ma: bool, use_ra: bool,
+                 mva_scale: float = 1.0, ref_scale: float = 1.0):
+        super().__init__(dim, heads, dim_head,
+                         cross_attention_dim=cross_attention_dim)
+        self.mva_scale, self.ref_scale = mva_scale, ref_scale
+        self.attn_refview = (Attention(dim, heads, dim_head)
+                             if use_ra else None)
+        self.attn_multiview = (Attention(dim, heads, dim_head)
+                               if use_ma else None)
+
+    def forward(self, x, context=None, ref_mode=None, ref_hidden=None,
+                mv_views: int = 1):
+        if ref_mode not in (None, "write", "read"):
+            raise ValueError(f"ref_mode {ref_mode!r}")
+        h = self.norm1(x)
+        x = x + self.attn1(h)
+        if (self.attn_refview is not None and ref_mode == "read"
+                and ref_hidden is not None):
+            ref = ref_hidden
+            if ref.shape[0] != h.shape[0]:
+                # one reference row conditions every row of its group
+                ref = ref.repeat_interleave(h.shape[0] // ref.shape[0], 0)
+            x = x + self.ref_scale * self.attn_refview(h, context=ref)
+        if self.attn_multiview is not None:
+            b, t, c = h.shape
+            out = self.attn_multiview(h.reshape(b // mv_views,
+                                                mv_views * t, c))
+            x = x + self.mva_scale * out.reshape(b, t, c)
+        x = x + self.attn2(self.norm2(x), context=context)
+        x = x + self.ff(self.norm3(x))
+        return (x, h) if ref_mode == "write" else x
+
+
 class SpatialTransformer(nn.Module):
     """diffusers `Transformer2DModel`: GN → linear proj_in → blocks →
     proj_out, + the input. With `mv_views` > 1 the views of each sample
-    are one token sequence, and its context is its first view's."""
+    are one token sequence, and its context is its first view's; with
+    Hunyuan's 2.5D attentions (`use_ma`, `use_ra`) the blocks are
+    `Basic2p5DBlock`s and the views stay apart."""
 
     def __init__(self, channels: int, heads: int, dim_head: int,
-                 context_dim: int, depth: int = 1, norm_groups: int = 32):
+                 context_dim: int, depth: int = 1, norm_groups: int = 32,
+                 use_ma: bool = False, use_ra: bool = False,
+                 mva_scale: float = 1.0, ref_scale: float = 1.0):
         super().__init__()
         self.norm = nn.GroupNorm(norm_groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
-        self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, dim_head,
-                                  cross_attention_dim=context_dim)
-            for _ in range(depth)])
+        self.is_2p5d = use_ma or use_ra
+        if self.is_2p5d:
+            blocks = [Basic2p5DBlock(channels, heads, dim_head, context_dim,
+                                     use_ma, use_ra, mva_scale, ref_scale)
+                      for _ in range(depth)]
+        else:
+            blocks = [BasicTransformerBlock(channels, heads, dim_head,
+                                            cross_attention_dim=context_dim)
+                      for _ in range(depth)]
+        self.transformer_blocks = nn.ModuleList(blocks)
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x, context, mv_views: int = 1, ref_mode=None,
@@ -178,19 +237,21 @@ class SpatialTransformer(nn.Module):
         b, c, h, w = x.shape
         hid = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         hid = self.proj_in(hid)
-        v = mv_views
+        # the 2.5D blocks take the views apart and fold them themselves
+        kw = {"mv_views": mv_views} if self.is_2p5d else {}
+        v = 1 if self.is_2p5d else mv_views
         if v > 1:
             hid = hid.reshape(b // v, v * h * w, c)
             context = context.reshape(b // v, v, *context.shape[1:])[:, 0]
         written = []
         for i, block in enumerate(self.transformer_blocks):
             if ref_mode == "write":
-                hid, wr = block(hid, context=context, ref_mode=ref_mode)
+                hid, wr = block(hid, context=context, ref_mode=ref_mode, **kw)
                 written.append(wr)
             else:
                 hid = block(hid, context=context, ref_mode=ref_mode,
                             ref_hidden=None if ref_hidden is None
-                            else ref_hidden[i])
+                            else ref_hidden[i], **kw)
         hid = self.proj_out(hid.reshape(b, h * w, c))
         out = hid.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
         return (out, written) if ref_mode == "write" else out
@@ -238,7 +299,10 @@ class UNet2DCondition(nn.Module):
             return SpatialTransformer(ch, heads, dim_head,
                                       c.cross_attention_dim,
                                       depth=c.transformer_depth,
-                                      norm_groups=g)
+                                      norm_groups=g, use_ma=c.use_ma,
+                                      use_ra=c.use_ra,
+                                      mva_scale=c.mva_scale,
+                                      ref_scale=c.ref_scale)
 
         self.time_embedding = nn.ModuleDict({
             "linear_1": nn.Linear(ch0, temb_dim),
@@ -327,7 +391,7 @@ class UNet2DCondition(nn.Module):
         c = self.cfg
         v = c.mv_views if mv_views is None else mv_views
         ctx = encoder_hidden_states
-        if ref_mode is not None and v > 1:
+        if ref_mode is not None and v > 1 and not (c.use_ma or c.use_ra):
             raise _unported("reference attention over a multi-view fold "
                             "(ref_mode with mv_views > 1)", "A.6.6")
         written, n_called = {}, [0]

@@ -1,9 +1,11 @@
 """ctypes bindings of the native host-side mesh ops (`mesh_ops.cpp`).
 
 The port's copy of `comfy3d_tpu/native/`: the same C++ source, bound for
-the two functions the GS→mesh converter calls, `clean_mesh` and
-`decimate_mesh`. The source also holds `inpaint_vertex_colors` and
-`isotropic_remesh`, unbound until a path of the port calls them.
+the functions the port's paths call: `clean_mesh` and `decimate_mesh` (the
+GS→mesh converter, the Hunyuan3D nodes' cleanup and remesh) and
+`inpaint_vertex_colors` (the Hunyuan3D paint bake,
+`algorithms/color_project.py`). The source also holds `isotropic_remesh`,
+unbound until a path of the port calls it.
 
 The library is built with g++ at first use into `comfy3d_tpu_torch/_build/`
 (listed in `.gitignore`), named after a hash of the source and the flags,
@@ -84,6 +86,10 @@ def load() -> ctypes.CDLL:
         lib.decimate_mesh.argtypes = [
             _f32p(), ctypes.c_int, _i32p(), ctypes.c_int, ctypes.c_int,
             _f32p(), _i32p(), _i32p(), _i32p()]
+        lib.inpaint_vertex_colors.restype = ctypes.c_int
+        lib.inpaint_vertex_colors.argtypes = [
+            _f32p(), ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+            ctypes.c_int, _i32p(), ctypes.c_int, ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -135,3 +141,25 @@ def decimate_mesh(verts: np.ndarray, faces: np.ndarray, target_faces: int):
                       len(faces), int(target_faces), _ptr(ov, _f32p),
                       _ptr(of, _i32p), ctypes.byref(nv), ctypes.byref(nf))
     return ov[:nv.value].copy(), of[:nf.value].copy()
+
+
+def inpaint_vertex_colors(colors: np.ndarray, mask: np.ndarray,
+                          faces: np.ndarray, max_rounds: int = 256):
+    """Diffuse painted vertex colours into the unpainted vertices over the
+    mesh's edges: each round, every unpainted vertex with a painted
+    neighbour takes their mean (the Hunyuan mesh-inpaint processor's
+    role). colors [N, C] float32, mask [N] (nonzero = painted), faces [M, 3].
+    Returns (colours [N, C], the filled mask [N] bool), both new arrays."""
+    colors = np.array(colors, np.float32, order="C", copy=True)
+    m = np.array(np.asarray(mask) != 0, np.uint8, order="C")
+    faces = np.ascontiguousarray(faces, np.int32)
+    if colors.ndim != 2 or m.shape != (colors.shape[0],):
+        raise ValueError(f"colors {colors.shape} and mask {m.shape}, "
+                         "expected [N, C] and [N]")
+    if faces.ndim != 2 or faces.shape[1] != 3:
+        raise ValueError(f"faces of shape {faces.shape}, expected [M, 3]")
+    load().inpaint_vertex_colors(
+        _ptr(colors, _f32p), m.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        colors.shape[0], colors.shape[1], _ptr(faces, _i32p), len(faces),
+        int(max_rounds))
+    return colors, m.astype(bool)

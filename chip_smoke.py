@@ -115,10 +115,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
  14. MVDream text → four views → LGM → splats → gs_to_mesh's supervision
      orbit (`MVDreamPipeline`, `MVDreamConfig()` widths: an SD-1.5 UNet
      with 4-view attention and a camera MLP, the SD VAE; `LGMPipeline`,
-     `LGMConfig()`; weights from seed 0; the MVDream_Model node's
-     defaults: 30 DDIM steps, CFG 5, elevation 0, seed 0, zero prompt
-     embeddings). a. the card against the port's CPU path with TF32 off at
-     one resnet per block: a UNet call on the CFG batch at the first
+     `LGMConfig()`; weights from seed 0 drawn on the card, as the loader
+     nodes draw them, so phase 19d's graph has them too; the MVDream_Model
+     node's defaults: 30 DDIM steps, CFG 5, elevation 0, seed 0, zero
+     prompt embeddings). a. the card against the port's CPU path with TF32
+     off at one resnet per block: a UNet call on the CFG batch at the first
      timestep, two guided DDIM steps, the VAE decode of one latent, LGM on
      four 256² views with their Plücker rays and `forward_gaussians`'
      splat fields, each within 1e-3 of its largest value; b. full depth:
@@ -158,12 +159,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      its first, a non-empty mesh of at most 100k faces whose mean vertex
      radius is within 0.1 of 0.5, the albedo finite in [0, 1], the mesh
      through GLB and back, K1′ on view 0 against its plain version (phase
-     3's gates) with its time and bound; c. text → phase 14's splats (the
-     same seed) → mesh at every default, on the host's clock, in one run
-     under the profiler split by `convert`'s stage spans (host and device
-     ms), with K1′'s 24 launches, the face counts, the unwrap that ran and
-     peak memory (finite and in [0, 1], not gated further: random weights
-     make no meaningful surface); d. one NeRF step at full width
+     3's gates) with its time and bound; c. text → phase 14's splats → mesh
+     at every default is phase 19d's graph; d. one NeRF step at full width
      (4,096 rays × 128 steps) by CUDA events and profiled: device-busy ms,
      idle share, device ops, the top ops, the hash-grid gather
      (`index_select`) and its scatter (`index_add_`).
@@ -202,13 +199,18 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      and 1 VAE layer: `encode_cond`, one DiT call on the CFG pair, two guided
      steps from the same noise, the VAE transformer, a dense 17³ decode and
      an 8 → 32 octree decode, each within 1e-3 of its largest value; b.
-     `reference_image(512)` on white over its disc through the node's
-     background estimate and white composite → latents → grid → mesh → the
-     node's cleanup (`native.clean_mesh`, normals), stage by stage on the
-     host's clock with each stage's peak memory and the compositor kernels'
-     launches counted (all 0), then `pipe(image, ...)` once more split by its
-     profiler spans (`SHAPE_STAGES`, the decode's levels, the extraction's
-     sweep and weld); the 30 steps by CUDA events f32 and TF32, one guided
+     the ShapeGen graph of phase 19e (`reference_image(512)` on white over
+     its disc as a PNG → the node's background estimate and white
+     composite → latents → grid → mesh → the node's cleanup → Save 3D
+     Mesh), once on the host's clock split by its nodes', the pipeline's
+     and the cleanup's profiler spans (`SHAPE_STAGES`, the decode's levels,
+     the extraction's sweep and weld, "hunyuan3d.clean"), the compositor
+     kernels' launches counted (all 0), the saved GLB read back equal;
+     then, on the loader's weights and the node's processed image, the
+     pipeline's stages and the cleanup one by one with each stage's peak
+     memory (the grid finite, the raw and clean meshes well formed, the
+     clean mesh's faces as many as the graph's), the 30 steps by CUDA
+     events f32 and TF32, one guided
      step timed, profiled (device-busy ms, idle share, the SDPA kernel) and
      its FLOPs counted, `encode_cond`, the VAE transformer and one decode
      chunk of 65,536 points timed; the mesh through GLB (random weights: the
@@ -228,12 +230,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      block, 128² views and 256² textures: the dual write pass, the uncond
      and cond passes on 12 rows, one guided step from the same draws, the
      VAE encode and decode, `project_colors` and `bake_projection`, each
-     within 1e-3 of its largest value; b. `reference_image(512)` on white
-     over its disc → `pipe(mesh, image, ...)` on the host's clock, split by
-     its profiler spans (`PAINT_STAGES`, `color_project.BAKE_SPANS`), the
+     within 1e-3 of its largest value; b. the TexGen graph of phase 19e
+     (the sphere as GLB → Load 3D Mesh, phase 19's white-composited PNG →
+     LoadImage → the TexGen node with `use_remesh` and `create_pbr` → Save
+     3D Mesh) on the host's clock, split by its nodes' and the pipeline's
+     profiler spans (`PAINT_STAGES`, `color_project.BAKE_SPANS`), the
      compositor kernels' launches counted (all 0), the textures finite in
-     [0, 1] and through GLB (the metallicRoughness texture kept); the
-     stages once more with each stage's peak memory, the 8 steps by CUDA
+     [0, 1] and through GLB (the metallicRoughness texture kept); on the
+     loader's weights, the stages once more with each stage's peak memory
+     (the bake against the graph's), the 8 steps by CUDA
      events f32 and TF32, one guided step timed, profiled (device-busy ms,
      idle share, the SDPA kernel) and its FLOPs counted, the FLOPs of the
      uncond pass's skipped `attn_refview`, the write pass timed (random
@@ -241,12 +246,41 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      mesh's own position maps baked as the six views: the vertex colours
      and the albedo at the vertices' UVs give back v·0.5 + 0.5 (mean error
      ≤ 0.005, 99th percentile ≤ 0.03) with ≥ 99 % of the vertices seen.
+ 19. the workflows: configs 1–5 and a 3DGS fit as ComfyUI graphs
+     (`config_graph`) through `comfy3d_tpu_torch.nodes.run_workflow(...,
+     device="cuda")` at the nodes' defaults and full width, every loader
+     drawing its weights on the card (no checkpoint under the nodes'
+     root), each graph once under the profiler (`run_graph`): its host
+     seconds, each node's host and device ms from its `node#<id> <type>`
+     span, peak memory and the compositor kernels' launches; every node
+     ran, none returned None, every GS_PLY's tensors on the card. a. config
+     1: phase 13's UV cube as GLB → the mesh orbit renderer at 512², phase
+     4's GS-PLY → the GS orbit renderer at 800², 8 views (equal to
+     `render` on the same cameras, ≥ 60 dB; K1′ 8); b. config 2: an RGBA
+     PNG → InvertMask → TripoSR → Switch Mesh Axis → Save 3D Mesh with the
+     threshold at the 99.9th percentile of σ (the default 25 is far over a
+     random-weight field's σ): the saved triangles equal a direct call of
+     the loader's model; c. config 3: Load Diffusers Pipeline
+     (Zero123Plus) → 28 steps → six views → InstantMesh → Save 3D Mesh; d.
+     config 4: MVDream (30 steps) → LGM → Save 3DGS, the GS→mesh converter
+     at its defaults → Save 3D Mesh (phase 15c's fields: K1′ 24, the
+     converter's stage spans, the splats against phase 14's); e. config
+     5's ShapeGen and TexGen graphs, run as phases 17b and 18b (the linked
+     graph is held on the CPU: on the card it would decimate a 14.5 M-
+     triangle random-weight surface before painting); f. a 3DGS fit:
+     phase 13's sphere → 8 views at 256² → Gaussian Splatting 3D (300
+     iterations through `overrides`, batch 1) → its 8 renders (K1′ 308,
+     K3′ 300); K1′ and K3′ on the fitted splat from the fit's view 0
+     against their plain versions (phases 3 and 5's tolerances). The
+     graphs' images and records go to chiprun_out/workflows/.
 Phases 11–13 and 16–18 launch none of the compositor kernels (counted).
 It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
 `{"gs_to_mesh": {...}}`, a `{"zero123plus_instantmesh": {...}}`, a
-`{"hunyuan3d_shape": {...}}` and a `{"hunyuan3d_paint": {...}}` line, one
-`{"kernels": [...]}` line, then the `nvidia-smi` line, and as its last
+`{"hunyuan3d_shape": {...}}` and a `{"hunyuan3d_paint": {...}}` line, a
+`{"workflows": {...}}` line (each graph's seconds, per-node split, peak
+memory and launches), one `{"kernels": [...]}` line (the graphs' counts in
+`launches_by_path`), then the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
 Without a CUDA device, or without the repository beside this file, it exits
@@ -255,9 +289,11 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -751,6 +787,16 @@ def bwd_vs_plain(label, inp, fwd, seed):
     rows, idx = walked_pair_rows(
         inp, fwd[2], gs_flat.composite_bins_bwd_plain(*pair_args))
     return splat_rows_vs_plain(label, k, p, rows, idx)
+
+
+def pipe_on(pipe, device):
+    """A pipeline drawn on the CPU, on `device`: `pipe` itself on the CPU,
+    else a pipeline around a copy of its model. One seed draws different
+    weights from the CPU's and the card's generators, so a card-vs-CPU
+    check draws once, on the CPU."""
+    if device.type == "cpu":
+        return pipe
+    return type(pipe)(copy.deepcopy(pipe.model).to(device))
 
 
 def synthetic_views(dev, size, n_views=4):
@@ -1671,8 +1717,8 @@ def triposr_path(dev, asset_dir, smi_line):
         h_codes = host.scene_codes(img)
         h_sig, h_rgb = host.model.query(h_codes[0], torch.as_tensor(probe_np))
     host_s = time.perf_counter() - th
+    card = pipe_on(host, dev)
     del host
-    card = TripoSRPipeline.init_random(0, small, device=dev)
     with torch.no_grad():
         c_codes = card.scene_codes(img)
         c_sig, c_rgb = card.model.query(c_codes[0],
@@ -1900,10 +1946,11 @@ def instantmesh_path(dev, asset_dir, smi_line):
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
     small = dataclasses.replace(cfg, vit_layers=CPU_LAYERS,
                                 transformer_layers=CPU_LAYERS)
+    host = InstantMeshPipeline.init_random(0, small, device=cpu)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
-        pipe = InstantMeshPipeline.init_random(0, small, device=d)
+        pipe = pipe_on(host, d)
         with torch.no_grad():
             planes = pipe.forward_planes(imgs, cams)
             sdf, deform = pipe.model.query_geometry(planes[0], probe.to(d))
@@ -1927,7 +1974,7 @@ def instantmesh_path(dev, asset_dir, smi_line):
               f"instantmesh {k}: card vs CPU {parity[k + '_rel_err']:.3g} "
               f"of the largest value")
     rec["card_vs_cpu"] = parity
-    del outs, h, c
+    del outs, h, c, host
     rec["a_s"] = time.perf_counter() - t0
 
     # b. full depth: forward_planes by CUDA events, peak memory
@@ -2373,11 +2420,12 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
         mv_cfg, unet=dataclasses.replace(mv_cfg.unet, layers_per_block=1),
         vae=dataclasses.replace(mv_cfg.vae, layers_per_block=1))
     small_lgm = dataclasses.replace(lgm_cfg, layers_per_block=1)
+    host_mv = MVDreamPipeline.init_random(0, small_mv, device=cpu)
+    host_lgm = LGMPipeline.init_random(0, small_lgm, device=cpu)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
-        mv = MVDreamPipeline.init_random(0, small_mv, device=d)
-        lgm = LGMPipeline.init_random(0, small_lgm, device=d)
+        mv, lgm = pipe_on(host_mv, d), pipe_on(host_lgm, d)
         x = torch.as_tensor(x_np, device=d)
         states, cam2 = mv.conditioning(elevation=MV_ELEVATION)
         o = {"unet": mv.model.unet(
@@ -2408,11 +2456,13 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
               f"mvdream_lgm {k}: card vs CPU {parity[k + '_rel_err']:.3g} "
               f"of the largest value")
     rec["card_vs_cpu"] = parity
-    del outs
+    del outs, host_mv, host_lgm
     rec["a_s"] = time.perf_counter() - t0
 
     # b. full depth: text → four views by CUDA events, one denoise step
     t0 = time.perf_counter()
+    # drawn on the card, as the loader nodes draw them: phase 19d's graph
+    # builds the same weights
     mv = MVDreamPipeline.init_random(0, mv_cfg, device=dev)
     lgm = LGMPipeline.init_random(0, lgm_cfg, device=dev)
     init_s = time.perf_counter() - t0
@@ -2562,11 +2612,8 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
     log(f"mvdream_lgm: text → 24 views in {rec['text_to_orbit_s']:.3f} s")
     rec["d_s"] = time.perf_counter() - t0
 
-    def text_to_splats():
-        return lgm.forward_gaussians(text_to_views())
-
-    # phase 15 takes the splats and the models on
-    return rec, dict(splat=splat, text_to_splats=text_to_splats)
+    # phase 19d's graph runs text → splats with these weights and compares
+    return rec, splat
 
 
 # ------------------------------------------------------------------ #
@@ -2614,12 +2661,11 @@ def shell_splat(device, n=SHELL_SPLATS, seed=0, opacity=SHELL_OPACITY,
         s.opacity_raw, math.log(opacity / (1.0 - opacity))))
 
 
-def gs_to_mesh_path(dev, asset_dir, smi_line, lgm):
+def gs_to_mesh_path(dev, asset_dir, smi_line):
     """Phase 15: `algorithms/gs_to_mesh.py::convert` at `GSToMeshConfig()`
     (24 views at 256², 384 iterations, `NGPConfig()` widths, 192³, σ 10,
-    100k faces, 1024²). `lgm` holds phase 14's splats and its text →
-    splats call."""
-    import copy
+    100k faces, 1024²); text → phase 14's splats → mesh at those defaults
+    runs as phase 19d's graph."""
     import dataclasses
 
     import numpy as np
@@ -2810,52 +2856,8 @@ def gs_to_mesh_path(dev, asset_dir, smi_line, lgm):
     del mesh, back
     rec["b_s"] = time.perf_counter() - t0
 
-    # c. text → phase 14's splats → mesh at the same defaults, one run
-    # under the profiler, split by `convert`'s stage spans
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    info, part = {}, {}
-
-    def text_to_mesh():
-        ts = time.perf_counter()
-        with torch.no_grad():
-            part["splat"] = lgm["text_to_splats"]()
-        torch.cuda.synchronize()
-        part["text_to_splats_s"] = time.perf_counter() - ts
-        return g2m.convert(part["splat"], cfg, info=info)
-
-    reset_launches()
-    mesh, text_to_mesh_s, spans, post_s = profile_spans(text_to_mesh,
-                                                        g2m.STAGES)
-    lgm_launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    expect_launches(lgm_launches, "flat", cfg.n_views, 0,
-                    "gs_to_mesh convert of LGM's splats")
-    # the stages after the extraction run only on a non-empty mesh
-    check(all(spans[n]["calls"] == (1 if i < 4 or mesh.num_faces else 0)
-              for i, n in enumerate(g2m.STAGES)), f"convert's spans: {spans}")
-    check(bool(np.isfinite(mesh.v).all()), "non-finite vertices")
-    check(mesh.albedo is None or (bool(np.isfinite(mesh.albedo).all())
-                                  and mesh.albedo.min() >= 0
-                                  and mesh.albedo.max() <= 1),
-          "albedo outside [0, 1]")
-    rec["lgm"] = {
-        "launches": lgm_launches, "nv": mesh.num_vertices,
-        "nf": mesh.num_faces, "info": info, "peak_bytes": peak,
-        "text_to_mesh_s": text_to_mesh_s,
-        "text_to_splats_s": part["text_to_splats_s"],
-        "splats_vs_phase_14_max_abs": float(
-            (part["splat"].xyz - lgm["splat"].xyz).abs().max()),
-        "stages": {k.split(".")[-1]: v for k, v in spans.items()},
-        "stages_host_ms": sum(v["host_ms"] for v in spans.values()),
-        "stages_device_ms": sum(v["device_ms"] for v in spans.values()),
-        "profiler_post_s": post_s}
-    log(f"gs_to_mesh c. text → LGM splats → mesh: {rec['lgm']}")
-    del mesh, part
-    rec["c_s"] = time.perf_counter() - t0
-
-    # d. one NeRF step at full width, profiled
+    # d. one NeRF step at full width, profiled (c., text → LGM's splats →
+    # mesh, is phase 19d's graph)
     t0 = time.perf_counter()
     with torch.no_grad():
         out = G.render(shell, cams, background=(1.0, 1.0, 1.0))
@@ -2928,15 +2930,17 @@ def clip_encoder(seed, cfg, device):
     return model.to(device).eval()
 
 
-def zero123plus_pipe(seed, cfg, clip_cfg, device):
-    """`Zero123PlusPipeline.init_random(seed, cfg)` with a seeded CLIP
-    vision encoder attached and ramping coefficients seeded in [0, 1] (the
-    JAX default's zeros would null the global term)."""
+def zero123plus_pipe(seed, cfg, clip_cfg, device, host=None):
+    """`Zero123PlusPipeline.init_random(seed, cfg)` on `device` (or
+    `pipe_on(host, device)` of a pipeline drawn on the CPU) with a seeded
+    CLIP vision encoder attached and ramping coefficients seeded in [0, 1]
+    (the JAX default's zeros would null the global term)."""
     import numpy as np
     import torch
     from comfy3d_tpu_torch.models import clip
     from comfy3d_tpu_torch.models.zero123plus import Zero123PlusPipeline
-    pipe = Zero123PlusPipeline.init_random(seed, cfg, device=device)
+    pipe = (Zero123PlusPipeline.init_random(seed, cfg, device=device)
+            if host is None else pipe_on(host, device))
     enc = clip_encoder(seed + 1, clip_cfg, device)
     pipe.set_vision_encoder(clip.make_vision_conditioner(enc))
     pipe.ramping = torch.as_tensor(np.random.RandomState(seed).rand(
@@ -3047,7 +3051,8 @@ def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
     from comfy3d_tpu_torch.models.instantmesh import (
         InstantMeshConfig, InstantMeshPipeline, orbit_poses_to_input_cameras)
     from comfy3d_tpu_torch.models.instantmesh.pipeline import EXTRACT_STAGES
-    from comfy3d_tpu_torch.models.zero123plus import Zero123PlusConfig
+    from comfy3d_tpu_torch.models.zero123plus import (Zero123PlusConfig,
+                                                      Zero123PlusPipeline)
 
     cfg = Zero123PlusConfig()
     clip_cfg = dataclasses.replace(clip.CLIPVisionConfig(),
@@ -3082,10 +3087,11 @@ def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
     rng = np.random.RandomState(5)
     cond_np = rng.randn(2, 4, cs, cs).astype(np.float32)
     lat_np = rng.randn(2, *lat_shape[1:]).astype(np.float32)
+    host = Zero123PlusPipeline.init_random(0, small, device=cpu)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
-        pipe, enc = zero123plus_pipe(0, small, small_clip, d)
+        pipe, enc = zero123plus_pipe(0, small, small_clip, d, host)
         img = composite_background(torch.as_tensor(img_np, device=d),
                                    torch.as_tensor(mask_np, device=d))
         states = torch.cat([pipe._f32(pipe.prompt_embeds)[None],
@@ -3122,7 +3128,7 @@ def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
               f"zero123plus {k}: card vs CPU {parity[k + '_rel_err']:.3g} "
               f"of the largest value")
     rec["card_vs_cpu"] = parity
-    del outs
+    del outs, host
     rec["a_s"] = time.perf_counter() - t0
 
     # b. full width: image → grid by CUDA events, one step, the VAE, CLIP
@@ -3262,39 +3268,14 @@ HY3D_PARAMS = {"dit": 1_113_274_432, "vae": 214_260_737,
 # dense decode's and the octree decode's resolutions
 HY3D_SMALL = dict(depth=1, depth_single_blocks=2, cond_layers=2,
                   vae_layers=1, dense=16, coarse=8, octree=32)
-HY3D_IMAGE = 512         # reference_image's size, as phase 16's
-HY3D_BG_DIST = 0.12      # the node's background-distance threshold
 
 
-def estimate_alpha(img):
-    """The Hunyuan3D nodes' foreground mask of [H, W, 3] (numpy): distance
-    from the border's median colour over 0.12 (`comfy3d_tpu/nodes/
-    nodes_hunyuan3d.py::_estimate_alpha`, until the port's node layer)."""
-    import numpy as np
-    border = np.concatenate([img[0], img[-1], img[:, 0], img[:, -1]])
-    dist = np.linalg.norm(img - np.median(border, axis=0), axis=-1)
-    return (dist > HY3D_BG_DIST).astype(np.float32)
-
-
-def hy3d_node_image(size):
-    """`reference_image(size)` on white over its disc, then the
-    Hunyuan3D_21_ShapeGen node's preprocessing: its background estimate and
-    a white composite. Returns [S, S, 3] float32 and the mask's share."""
+def white_composite(size):
+    """`reference_image(size)` composited on white over its disc, as an
+    IMAGE batch [1, S, S, 3] (the ShapeGen and TexGen nodes' input)."""
     img, mask = reference_image(size)
-    img = img[0] * mask[0, ..., None] + (1.0 - mask[0, ..., None])
-    alpha = estimate_alpha(img)
-    return (img * alpha[..., None] + (1.0 - alpha[..., None])).astype(
-        "float32"), float(alpha.mean())
-
-
-def hy3d_cleanup(mesh):
-    """The node's cleanup: `native.clean_mesh(weld_eps=0,
-    min_component_frac=0.05)`, then vertex normals."""
-    from comfy3d_tpu_torch import native
-    from comfy3d_tpu_torch.core.mesh import Mesh
-    v, f = native.clean_mesh(mesh.v, mesh.f, weld_eps=0.0,
-                             min_component_frac=0.05)
-    return Mesh(v=v, f=f).auto_normal()
+    return (img * mask[..., None] + (1.0 - mask[..., None])).astype(
+        "float32")
 
 
 def hunyuan3d_shape_path(dev, asset_dir, smi_line):
@@ -3314,6 +3295,9 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
                                                     Hunyuan3DShapePipeline)
     from comfy3d_tpu_torch.models.hunyuan3d.pipeline import SHAPE_STAGES
     from comfy3d_tpu_torch.models.vecset import vae as V
+    from comfy3d_tpu_torch.nodes.nodes_hunyuan3d import (CLEAN_SPAN,
+                                                         _cleanup,
+                                                         shapegen_image)
     from comfy3d_tpu_torch.ops.tetra import EXTRACT_SPANS
 
     cfg = Hunyuan3DShapeConfig()
@@ -3343,16 +3327,17 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
                                          "depth_single_blocks"]),
         cond=dataclasses.replace(cfg.cond, layers=s["cond_layers"]),
         vae=dataclasses.replace(cfg.vae, num_decoder_layers=s["vae_layers"]))
-    image, _ = hy3d_node_image(cfg.image_size)
+    image = shapegen_image(white_composite(cfg.image_size))
     gen = torch.Generator().manual_seed(7)
     noise = torch.randn((1, cfg.vae.num_latents, cfg.vae.embed_dim),
                         generator=gen)
     x_np = torch.randn((2, cfg.vae.num_latents, cfg.vae.embed_dim),
                        generator=gen)
+    host = Hunyuan3DShapePipeline.init_random(0, small, device=cpu)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
-        pipe = Hunyuan3DShapePipeline.init_random(0, small, device=d)
+        pipe = pipe_on(host, d)
         cond = pipe.encode_cond(image)
         t = torch.full((2,), 0.3, device=d)
         decoded = pipe.model.vae(x_np[:1].to(d) / cfg.vae.scale_factor)
@@ -3384,20 +3369,59 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
               f"of the largest value")
     rec["params"] = params
     rec["card_vs_cpu"] = parity
-    del outs, decoded
+    del outs, decoded, host
     rec["a_s"] = time.perf_counter() - t0
 
-    # b. the node's defaults at full width
+    # b. the node's defaults at full width: the config-5 ShapeGen graph
+    # (phase 19e: LoadImage → the loader → Hunyuan3D_21_ShapeGen → Save 3D
+    # Mesh) once on the host's clock, split by its nodes', the pipeline's
+    # and the cleanup's spans, the compositor kernels' launches counted
+    # (none may launch)
     t0 = time.perf_counter()
-    pipe = Hunyuan3DShapePipeline.init_random(0, cfg, device=dev)
-    init_s = time.perf_counter() - t0
-    image, fg_share = hy3d_node_image(HY3D_IMAGE)
+    levels = int(math.log2(HY3D_OCTREE // 64))
+    span_names = (SHAPE_STAGES + ("vecset.decode_volume",)
+                  + tuple(f"vecset.decode_level{i}" for i in range(levels))
+                  + EXTRACT_SPANS + (CLEAN_SPAN,))
+    res, graph = run_graph("config5_shape", config_graph("5_shape"),
+                           spans=span_names, device=dev)
+    launches = graph["launches"]
+    check(not any(launches.values()),
+          f"the Hunyuan3D shape path launched a compositor kernel: "
+          f"{launches}")
+    clean, processed = res[3]
+    check(clean.num_vertices > 0 and clean.num_faces > 0, "empty mesh")
+    check(bool(np.isfinite(clean.v).all()), "non-finite vertices")
+    check(int(clean.f.max()) < clean.num_vertices, "faces past the vertices")
+    check(all(graph["spans"][n]["calls"] == 1
+              for n in SHAPE_STAGES + (CLEAN_SPAN,)),
+          f"the pipeline's and the cleanup's spans: {graph['spans']}")
+    glb = res[4][0]
+    back = Mesh.load(glb)
+    check(np.array_equal(back.v, clean.v) and np.array_equal(back.f, clean.f),
+          "GLB round trip changed the mesh")
+    image = processed[0].numpy()
+    spans = graph["spans"]
+    k_lvl = [min((64 << i) ** 3, max(4096, 14 * (64 << i) ** 2))
+             for i in range(levels)]
+    points = {"vecset.decode_volume": 65 ** 3,
+              **{f"vecset.decode_level{i}": 27 * k
+                 for i, k in enumerate(k_lvl)}}
+    for name, n in points.items():
+        spans[name]["points"] = n
+    rec["points_total"] = sum(points.values())
+    rec["points_dense_257"] = 257 ** 3
+    del res, back
+    torch.cuda.empty_cache()
 
-    # image → mesh as `pipe(image, **node)` runs it, stage by stage on the
-    # host's clock with each stage's peak memory, then the node's cleanup
+    # the pipeline alone (the loader node's weights: seed 0, drawn on the
+    # card) on the node's processed image, as `pipe(image, **node)` runs
+    # it, stage by stage on the host's clock with each stage's peak memory,
+    # then the node's cleanup: it must give the graph's mesh
+    ti = time.perf_counter()
+    pipe = Hunyuan3DShapePipeline.init_random(0, cfg, device=dev)
+    init_s = time.perf_counter() - ti
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    reset_launches()
     stages, peaks = {}, {}
 
     def stage(name, fn):
@@ -3414,48 +3438,23 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     grid = stage("decode_grid", lambda: pipe.decode_grid(
         lat, node["octree_resolution"], num_chunks=node["num_chunks"]))
     raw = stage("grid_to_mesh", lambda: V.grid_to_mesh(grid[0]))
-    clean = stage("clean", lambda: hy3d_cleanup(raw))
-    image_to_mesh_s = sum(stages.values())
-    launches = read_launches()
-    check(not any(launches.values()),
-          f"the Hunyuan3D shape path launched a compositor kernel: "
-          f"{launches}")
+    direct = stage("clean", lambda: _cleanup(raw))
     check(bool(torch.isfinite(grid).all()), "non-finite grid")
-    for m in (raw, clean):
+    for m in (raw, direct):
         check(m.num_vertices > 0 and m.num_faces > 0, "empty mesh")
         check(bool(np.isfinite(m.v).all()), "non-finite vertices")
         check(int(m.f.max()) < m.num_vertices, "faces past the vertices")
+    check(direct.num_faces == clean.num_faces,
+          f"the pipeline and cleanup alone gave {direct.num_faces} faces, "
+          f"the graph {clean.num_faces}")
     grid_stats = {"inside_share": float((grid > 0).float().mean()),
                   "min": float(grid.min()), "max": float(grid.max())}
-    del grid
-
-    # the entry point once more, split by its spans (host and device ms);
-    # it must give the same mesh
-    levels = int(math.log2(HY3D_OCTREE // 64))
-    span_names = (SHAPE_STAGES + ("vecset.decode_volume",)
-                  + tuple(f"vecset.decode_level{i}" for i in range(levels))
-                  + EXTRACT_SPANS)
-    meshes, spans_s, spans, _ = profile_spans(lambda: pipe(image, **node),
-                                              span_names)
-    check(meshes[0].num_faces == raw.num_faces,
-          f"a second call gave {meshes[0].num_faces} faces, not "
-          f"{raw.num_faces}")
-    del meshes
-    k_lvl = [min((64 << i) ** 3, max(4096, 14 * (64 << i) ** 2))
-             for i in range(levels)]
-    points = {"vecset.decode_volume": 65 ** 3,
-              **{f"vecset.decode_level{i}": 27 * k
-                 for i, k in enumerate(k_lvl)}}
-    for name, n in points.items():
-        spans[name]["points"] = n
-    rec["points_total"] = sum(points.values())
-    rec["points_dense_257"] = 257 ** 3
-    glb = os.path.join(asset_dir, "hunyuan3d_shape.glb")
-    clean.write(glb)
-    back = Mesh.load(glb)
-    check(np.array_equal(back.v, clean.v) and np.array_equal(back.f, clean.f),
-          "GLB round trip changed the mesh")
-
+    same_v = direct.num_vertices == clean.num_vertices
+    vs_graph = {"raw_nf": raw.num_faces, "nf": direct.num_faces,
+                "same_faces": same_v and np.array_equal(direct.f, clean.f),
+                "max_abs_v": (float(np.abs(direct.v - clean.v).max())
+                              if same_v else None)}
+    del grid, raw, direct
     # the 30 steps alone by CUDA events, f32 and TF32; one guided step
     cond = pipe.encode_cond(image)
     noise = torch.randn((1, cfg.vae.num_latents, cfg.vae.embed_dim),
@@ -3480,10 +3479,10 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
         / prof["window_ms"]
     step_flops = flops_of(one_step)
     encode_ms = cuda_ms(lambda: pipe.encode_cond(image), 3, warmup=1)
-    vae_ms = cuda_ms(lambda: pipe.model.vae(lat / cfg.vae.scale_factor), 3,
-                     warmup=1)
+    # the VAE's transformer on latents of the sampler's shape
+    vae_ms = cuda_ms(lambda: pipe.model.vae(noise), 3, warmup=1)
     # one decode chunk of 65,536 points: its SDPA kernel and FLOPs
-    decoded = pipe.model.vae(lat / cfg.vae.scale_factor)
+    decoded = pipe.model.vae(noise)
     pts = (torch.rand((1, HY3D_CHUNKS, 3), generator=torch.Generator()
                       .manual_seed(9)) * 2.02 - 1.01).to(dev)
 
@@ -3494,14 +3493,15 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     chunk_prof = profile_frames(one_chunk, 3, match=SDPA_KERNELS)
     chunk_flops = flops_of(one_chunk)
     rec["image_to_mesh"] = {
-        "init_s": init_s, "image": HY3D_IMAGE, "foreground_share": fg_share,
-        "image_to_mesh_s": image_to_mesh_s, "stages_s": stages,
-        "peak_bytes": max(peaks.values()), "stage_peak_bytes": peaks,
-        "launches": launches, "grid": grid_stats,
+        "init_s": init_s, "image": WF_IMAGE,
+        "image_to_mesh_s": graph["s"],
+        "stages_s": {k: v["host_ms"] / 1e3 for k, v in spans.items()},
+        "alone_stages_s": stages, "stage_peak_bytes": peaks,
+        "grid": grid_stats, "alone_vs_graph": vs_graph,
+        "peak_bytes": graph["peak_bytes"], "launches": launches,
         "weight_bytes": sum(p.numel() * p.element_size()
                             for p in pipe.model.parameters()),
-        "profiled_s": spans_s, "spans": spans,
-        "raw_nv": raw.num_vertices, "raw_nf": raw.num_faces,
+        "profiled_s": graph["s"], "spans": spans, "graph": graph,
         "nv": clean.num_vertices, "nf": clean.num_faces,
         "glb_bytes": os.path.getsize(glb),
         "steps_ms": steps_ms, "steps_ms_tf32": steps_tf32_ms,
@@ -3519,7 +3519,7 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
         "decode_chunk_top": chunk_prof["top"][:6],
         "decode_chunk_sdpa": chunk_prof["matched"]}
     log(f"hunyuan3d b. the node's defaults: {rec['image_to_mesh']}")
-    del pipe, cond, noise, decoded, lat, x2
+    del pipe, cond, noise, decoded, x2, clean, lat
     torch.cuda.empty_cache()
     rec["b_s"] = time.perf_counter() - t0
 
@@ -3572,7 +3572,6 @@ PAINT_GUIDANCE = 3.0     # Hunyuan3DPaintPipeline.__call__'s defaults
 PAINT_SEED = 0
 PAINT_PBR = ("albedo", "mr")
 PAINT_REMESH_FACES = 40_000   # the Hunyuan3D_21_TexGen node's use_remesh
-PAINT_IMAGE = 512        # reference_image's size
 # parameters of PaintConfig(pbr_settings=PAINT_PBR) (the JAX package's
 # `jax.eval_shape` counts, `tests/test_torch_hunyuan3d_paint.py`): the
 # generation UNet (of which its 2.5D attentions), the dual UNet, the VAE,
@@ -3605,24 +3604,6 @@ def paint_params(model):
             "tokens": tokens}
 
 
-def texgen_remesh(mesh, faces):
-    """The Hunyuan3D_21_TexGen node's remesh (`use_remesh`,
-    `comfy3d_tpu/nodes/nodes_texture.py:166-175`): QEM decimation to
-    `faces`, then vertex normals."""
-    from comfy3d_tpu_torch import native
-    from comfy3d_tpu_torch.core.mesh import Mesh
-    v, f = native.decimate_mesh(mesh.v, mesh.f, faces)
-    return Mesh(v=v, f=f).auto_normal()
-
-
-def texgen_image(size):
-    """`reference_image(size)` as the texgen node takes an RGBA image: its
-    disc the alpha, composited on white (`nodes_texture.py:177-182`)."""
-    img, mask = reference_image(size)
-    a = mask[0, ..., None]
-    return (img[0] * a + (1.0 - a)).astype("float32")
-
-
 def err_stats(err):
     """Mean, 99th percentile and max of |err| (a CPU tensor)."""
     import torch
@@ -3646,7 +3627,6 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
     node's defaults (8 steps, CFG 3.0, seed 0, the remesh to 40,000 faces)
     on `shape_mesh`, phase 17c's octree sphere. Runs under
     `torch.no_grad()`."""
-    import copy
     import dataclasses
 
     import numpy as np
@@ -3658,6 +3638,9 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
                                                     Hunyuan3DPaintPipeline,
                                                     PaintConfig)
     from comfy3d_tpu_torch.models.hunyuan3d.paint import PAINT_STAGES
+    from comfy3d_tpu_torch.nodes import base
+    from comfy3d_tpu_torch.nodes.nodes_io import read_image
+    from comfy3d_tpu_torch.nodes.nodes_texture import texgen_remesh
     from comfy3d_tpu_torch.ops import rasterize as R
 
     cfg = PaintConfig(pbr_settings=PAINT_PBR)
@@ -3706,13 +3689,12 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
     draws = {"latents": draw(rows, 4, lat, lat),
              "step": [draw(rows, 4, lat, lat)]}
     t_a = time.perf_counter()
-    model = Hunyuan3DPaintPipeline.init_random(0, small, device=cpu).model
+    host = Hunyuan3DPaintPipeline.init_random(0, small, device=cpu)
     init_small_s = time.perf_counter() - t_a
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
-        pipe = Hunyuan3DPaintPipeline(
-            model if d.type == "cpu" else copy.deepcopy(model).to(d))
+        pipe = pipe_on(host, d)
         unet = pipe.model.unet
         ref = pipe.write_reference(img_lat.to(d))
         cls, ctx_u, ctx_c = pipe.conditioning()
@@ -3737,7 +3719,7 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
         outs[d.type] = o
         outs[d.type + "_s"] = time.perf_counter() - th
         del pipe, ref
-    del model
+    del host
     parity = {**s, "rows": rows, "latent": lat, "init_s": init_small_s,
               "written": len([k for k in outs["cpu"]
                               if k.startswith("write_")]),
@@ -3754,23 +3736,18 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
     del outs
     rec["a_s"] = time.perf_counter() - t0
 
-    # b. the node's defaults at full width: `pipe(mesh, image, ...)` once on
-    # the host's clock, split by its profiler spans, the compositor
-    # kernels' launches counted (none may launch)
+    # b. the node's defaults at full width: the config-5 TexGen graph
+    # (phase 19e: LoadImage, Load 3D Mesh of the sphere → the loader →
+    # Hunyuan3D_21_TexGen with `use_remesh` and `create_pbr` → Save 3D Mesh)
+    # once on the host's clock, split by its nodes' and the pipeline's
+    # spans, the compositor kernels' launches counted (none may launch)
     t0 = time.perf_counter()
-    pipe = Hunyuan3DPaintPipeline.init_random(0, cfg, device=dev)
-    init_s = time.perf_counter() - t0
-    image = texgen_image(PAINT_IMAGE)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    info = {}
-    out, call_s, spans, _ = profile_spans(
-        lambda: pipe(mesh, image, info=info, **node),
-        PAINT_STAGES + CP.BAKE_SPANS)
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
+    shape_mesh.write(os.path.join(base.INPUT_ROOT_PATH, "hy3d_sphere.glb"))
+    res, graph = run_graph(
+        "config5_texgen", config_graph("5_texgen", sphere="hy3d_sphere.glb"),
+        spans=PAINT_STAGES + CP.BAKE_SPANS, device=dev)
+    out, call_s, spans = res[4][0], graph["s"], graph["spans"]
+    launches, peak = graph["launches"], graph["peak_bytes"]
     check(not any(launches.values()),
           f"the Hunyuan3D paint path launched a compositor kernel: "
           f"{launches}")
@@ -3785,14 +3762,23 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
           "no UVs or normals on the painted mesh")
     check(all(sp["calls"] >= 1 for sp in spans.values()),
           f"spans not entered: {spans}")
-    glb = os.path.join(asset_dir, "hunyuan3d_paint.glb")
-    out.write(glb)
+    glb = res[5][0]
     back = Mesh.load(glb)
     check(back.metallic_roughness is not None
           and back.metallic_roughness.shape == out.metallic_roughness.shape,
           "GLB round trip lost the metallicRoughness texture")
     check(back.albedo is not None and back.albedo.shape == out.albedo.shape,
           "GLB round trip lost the albedo")
+    del res
+    # the graph's image, as LoadImage read it
+    image = read_image(os.path.join(base.INPUT_ROOT_PATH, "reference.png"))[0]
+    torch.cuda.empty_cache()
+
+    # the pipeline alone (the loader node's weights: seed 0, drawn on the
+    # card)
+    ti = time.perf_counter()
+    pipe = Hunyuan3DPaintPipeline.init_random(0, cfg, device=dev)
+    init_s = time.perf_counter() - ti
 
     # the same stages once more, each with its peak memory and its time on
     # the host's clock (the denoise also by CUDA events); the denoise takes
@@ -3870,9 +3856,9 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
     write_flops = flops_of(lambda: pipe.write_reference(ilat))
     decode_flops = flops_of(lambda: pipe.decode(latents))
     rec["b"] = {
-        "init_s": init_s, "image": PAINT_IMAGE, "call_s": call_s,
+        "init_s": init_s, "image": WF_IMAGE, "call_s": call_s,
         "peak_bytes": peak, "spans": spans, "launches": launches,
-        "unwrap": info.get("unwrap"), "stages": stages,
+        "graph": graph, "stages": stages,
         "stage_peak_bytes": peaks,
         "image_to_textures_s": sum(v["s"] for v in stages.values()),
         "repeat_max_abs_diff": repeat_diff,
@@ -3935,6 +3921,431 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
     del pipe, normals, positions, geom, ilat, ref
     torch.cuda.empty_cache()
     return rec
+
+
+# ------------------------------------------------------------------ #
+# The workflows: configs 1–5 and the 3DGS fit as ComfyUI graphs (phase 19)
+# ------------------------------------------------------------------ #
+C3D = "[Comfy3D] "
+WF_VIEWS = 8             # the orbit of 19a and 19f
+WF_RADIUS = 2.2          # 19a's orbit radius (phase 4's)
+WF_ELEVATION = 15.0
+WF_GS_SIZE = 800         # 19a: the GS renderer node's size
+WF_MESH_SIZE = 512       # 19a: the mesh renderer node's default
+WF_FIT_SIZE = 256        # 19f: the sphere's views and the fit's renders
+WF_FIT_ITERS = 300       # 19f: `training_iterations`, through overrides
+WF_FIT_BWD_SEED = 13     # 19f: the cotangents of K3′'s hold on view 0
+WF_IMAGE = 512           # the LoadImage nodes' reference image
+WF_DIR = "workflows"     # under the nodes' output root
+
+
+def workflow(*nodes):
+    """The editor's JSON format from (id, type, widgets_values, {input
+    name: (source id, source slot)}) tuples: `nodes` with their
+    `inputs` link references, `links` rows [id, from_node, from_slot,
+    to_node, to_slot, type]."""
+    out, links = [], []
+    for nid, type_, widgets, inputs in nodes:
+        ins = []
+        for slot, (name, (src, src_slot)) in enumerate(inputs.items()):
+            links.append([len(links) + 1, src, src_slot, nid, slot, "*"])
+            ins.append({"name": name, "link": len(links)})
+        out.append({"id": nid, "type": type_, "mode": 0, "inputs": ins,
+                    "outputs": [], "widgets_values": list(widgets)})
+    return {"nodes": out, "links": links}
+
+
+def _orbit(nid, radius, views=WF_VIEWS, elevation=WF_ELEVATION):
+    """A Stack Orbit Camera Poses node: `views` azimuths from 0 at one
+    radius and elevation."""
+    return (nid, C3D + "Stack Orbit Camera Poses",
+            [radius, radius, 0.1, elevation, elevation, 30.0, 0.0, 360.0,
+             360.0 / views], {})
+
+
+def config_graph(n, image="reference.png", rgba="reference_rgba.png",
+                 mesh="uv_cube.glb", splat="splat_100k.ply",
+                 sphere="sphere.ply", gs_size=None, fit_size=None):
+    """The workflow of config `n` (1, 2, 3, 4, "5_shape", "5_texgen",
+    "5_full") or of the 3DGS fit ("3dgs_fit") at the nodes' defaults, its
+    files named relative to the nodes' input root; only the standard
+    library is needed to build it."""
+    out = f"{WF_DIR}/{n if n == '3dgs_fit' else f'config{n}'}"
+    gs_size = WF_GS_SIZE if gs_size is None else gs_size
+    fit_size = WF_FIT_SIZE if fit_size is None else fit_size
+    load_rgba = [(1, "LoadImage", [rgba], {}),
+                 (2, "InvertMask", [], {"mask": (1, 1)})]
+    if n == 1:               # Render_Mesh_and_3DGS
+        return workflow(
+            (1, C3D + "Load 3D Mesh", [mesh, False, True, False, False], {}),
+            _orbit(2, WF_RADIUS),
+            (3, C3D + "Mesh Orbit Renderer",
+             [WF_MESH_SIZE, 49.1, 1.0, 1.0, 1.0],
+             {"mesh": (1, 0), "render_orbit_camera_poses": (2, 0)}),
+            (4, "SaveImage", [f"{out}_mesh"], {"images": (3, 0)}),
+            (5, C3D + "Load 3DGS", [splat], {}),
+            (6, C3D + "Gaussian Splatting Orbit Renderer",
+             [gs_size, 49.1, 1.0, 1.0, 1.0],
+             {"gs_ply": (5, 0), "render_orbit_camera_poses": (2, 0)}),
+            (7, "SaveImage", [f"{out}_gs"], {"images": (6, 0)}))
+    if n == 2:               # TripoSR_to_Mesh
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load TripoSR Model", ["model.ckpt", 8192], {}),
+            (4, C3D + "TripoSR", [256, 25.0],
+             {"tsr_model": (3, 0), "reference_image": (1, 0),
+              "reference_mask": (2, 0)}),
+            (5, C3D + "Switch Mesh Axis", ["+x", "+z", "-y", False],
+             {"mesh": (4, 0)}),
+            (6, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (5, 0)}))
+    if n == 3:               # Zero123Plus_to_InstantMesh
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load Diffusers Pipeline",
+             ["Zero123PlusPipeline", "sudo-ai/zero123plus-v1.2", "", False],
+             {}),
+            (4, C3D + "Zero123Plus Diffusion Model",
+             [1234, "fixed", 4.0, 28],
+             {"zero123plus_pipe": (3, 0), "reference_image": (1, 0),
+              "reference_mask": (2, 0)}),
+            (5, C3D + "Load InstantMesh Reconstruction Model",
+             ["instant_mesh_large.ckpt"], {}),
+            (6, C3D + "InstantMesh Reconstruction Model", [30.0, 1024],
+             {"lrm_model": (5, 0), "multiview_images": (4, 0),
+              "orbit_camera_poses": (4, 1)}),
+            (7, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (6, 0)}),
+            (8, "SaveImage", [f"{out}_views"], {"images": (4, 0)}))
+    if n == 4:               # MVDream → LGM → 3DGS and mesh
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load Diffusers Pipeline",
+             ["MVDreamPipeline", "ashawkey/mvdream-sd2.1-diffusers", "",
+              False], {}),
+            (4, C3D + "MVDream Model",
+             ["a robot", "", 0, "fixed", 5.0, 30, 0.0],
+             {"mvdream_pipe": (3, 0), "reference_image": (1, 0),
+              "reference_mask": (2, 0)}),
+            (5, C3D + "Load Large Multiview Gaussian Model",
+             ["model_fp16.safetensors"], {}),
+            (6, C3D + "Large Multiview Gaussian Model", [],
+             {"lgm_model": (5, 0), "multiview_images": (4, 0)}),
+            (7, C3D + "Save 3DGS", [f"{out}_gs.ply"], {"gs_ply": (6, 0)}),
+            (8, C3D + "Convert 3DGS to Mesh with NeRF and Marching Cubes",
+             ["Default", 384, 192, 10.0, 1024], {"gs_ply": (6, 0)}),
+            (9, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (8, 0)}),
+            (10, "SaveImage", [f"{out}_views"], {"images": (4, 0)}))
+    shape = [(1, "LoadImage", [image], {}),
+             (2, C3D + "Load Hunyuan3D 21 ShapeGen Pipeline", [True], {}),
+             (3, C3D + "Hunyuan3D 21 ShapeGen",
+              [1234, "fixed", 30, 7.5, 256, True, True],
+              {"shapegen_pipe": (2, 0), "image": (1, 0)}),
+             (4, C3D + "Save 3D Mesh", [f"{out}_shape.glb"],
+              {"mesh": (3, 0)})]
+    if n == "5_shape":       # upstream's Hunyuan2.1-Shapegen
+        return workflow(*shape)
+    if n == "5_texgen":      # upstream's Hunyuan2.1-Texgen
+        return workflow(
+            (1, "LoadImage", [image], {}),
+            (2, C3D + "Load 3D Mesh", [sphere, False, True, False, False],
+             {}),
+            (3, C3D + "Load Hunyuan3D 21 TexGen Pipeline", ["Turbo"], {}),
+            (4, C3D + "Hunyuan3D 21 TexGen", ["", True, True],
+             {"texgen_pipe": (3, 0), "image": (1, 0), "mesh": (2, 0)}),
+            (5, C3D + "Save 3D Mesh", [f"{out}_textured.glb"],
+             {"mesh": (4, 0)}))
+    if n == "5_full":        # the two halves linked through the saved file
+        return workflow(
+            *shape,
+            (5, C3D + "Load Hunyuan3D 21 TexGen Pipeline", ["Turbo"], {}),
+            (6, C3D + "Hunyuan3D 21 TexGen", ["", True, True],
+             {"texgen_pipe": (5, 0), "mesh_path": (4, 0), "image": (3, 1)}),
+            (7, C3D + "Save 3D Mesh", [f"{out}_textured.glb"],
+             {"mesh": (6, 0)}))
+    if n == "3dgs_fit":      # a mesh's orbit renders → 3DGS → its renders
+        return workflow(
+            (1, C3D + "Load 3D Mesh", [sphere, False, True, False, False],
+             {}),
+            _orbit(2, MR_RADIUS),
+            (3, C3D + "Mesh Orbit Renderer", [fit_size, 49.1, 1.0, 1.0, 1.0],
+             {"mesh": (1, 0), "render_orbit_camera_poses": (2, 0)}),
+            (4, C3D + "Gaussian Splatting 3D",
+             [49.1, 30000, 1, 0.2, 3.0, 0.0, 0.0, 0.5],
+             {"reference_images": (3, 0), "reference_masks": (3, 1),
+              "reference_orbit_camera_poses": (2, 0)}),
+            (5, C3D + "Gaussian Splatting Orbit Renderer",
+             [fit_size, 49.1, 1.0, 1.0, 1.0],
+             {"gs_ply": (4, 0), "render_orbit_camera_poses": (2, 0)}),
+            (6, "SaveImage", [f"{out}_renders"], {"images": (5, 0)}))
+    raise ValueError(f"no workflow {n!r}")
+
+
+def write_reference_images(asset_dir, size=WF_IMAGE):
+    """`reference_image(size)` as the LoadImage nodes read it: an RGBA PNG
+    (its disc the alpha) and an RGB PNG composited on white over the disc.
+    Returns the two file names."""
+    import cv2
+    import numpy as np
+    img, mask = reference_image(size)
+    rgb = img[0] * mask[0, ..., None] + (1.0 - mask[0, ..., None])
+    q = lambda x: np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)
+    cv2.imwrite(os.path.join(asset_dir, "reference_rgba.png"),
+                cv2.cvtColor(np.concatenate([q(img[0]), q(mask[0])[..., None]],
+                                            -1), cv2.COLOR_RGBA2BGRA))
+    cv2.imwrite(os.path.join(asset_dir, "reference.png"),
+                cv2.cvtColor(q(rgb), cv2.COLOR_RGB2BGR))
+    return "reference.png", "reference_rgba.png"
+
+
+def _tensors_of(value):
+    """The torch tensors an edge's value holds (a GaussianSplat's fields;
+    a host Mesh holds none)."""
+    import torch
+    if torch.is_tensor(value):
+        return [value]
+    if hasattr(value, "__dataclass_fields__"):
+        return [getattr(value, k) for k in value.__dataclass_fields__
+                if torch.is_tensor(getattr(value, k))]
+    return []
+
+
+def run_graph(name, graph, overrides=None, spans=(), device="cuda"):
+    """Phase 19's runner: `run_workflow(graph, overrides, device=...)` once
+    under the profiler, the compositor kernels' launch counts reset just
+    before and read just after. Gates: every node ran, none returned None,
+    and every MESH or GS_PLY output's tensors live on `device`. Returns
+    (the results, the record: host seconds, each node's host and device ms
+    from its `node#<id> <type>` span and the `spans` given, peak memory,
+    the launches)."""
+    import torch
+    from comfy3d_tpu_torch.core.gaussian import GaussianSplat
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.nodes import NODE_CLASS_MAPPINGS, run_workflow
+    from comfy3d_tpu_torch.nodes.graph import node_span
+    types = {n["id"]: n["type"] for n in graph["nodes"]}
+    node_names = {nid: node_span(nid, t) for nid, t in types.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    results, total_s, span_rec, post_s = profile_spans(
+        lambda: run_workflow(graph, overrides, device=device),
+        list(node_names.values()) + list(spans))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(sorted(results) == sorted(node_names),
+          f"{name}: nodes run {sorted(results)}, not {sorted(node_names)}")
+    for nid, out in results.items():
+        cls = NODE_CLASS_MAPPINGS[types[nid]]
+        check(len(out) == len(cls.RETURN_TYPES) and all(
+            o is not None for o in out),
+            f"{name}: node #{nid} returned {out!r:.200}")
+        for o in out:
+            if isinstance(o, (Mesh, GaussianSplat)):
+                check(all(t.device.type == torch.device(device).type
+                          for t in _tensors_of(o)),
+                      f"{name}: node #{nid}'s output is off {device}")
+    rec = {"s": total_s, "peak_bytes": peak, "launches": launches,
+           "nodes": {node_names[nid]: span_rec[node_names[nid]]
+                     for nid in node_names},
+           "spans": {k: span_rec[k] for k in spans},
+           "profiler_post_s": post_s}
+    log(f"workflow {name}: {total_s:.1f} s, peak {peak / 2**30:.1f} GiB, "
+        f"launches {launches}; nodes " + ", ".join(
+            f"{k} {v['host_ms']:.0f} ms" for k, v in rec["nodes"].items()))
+    return results, rec
+
+
+def workflow_files(asset_dir, out_dir):
+    """The nodes' input root at `asset_dir` (with no checkpoints under it:
+    every loader draws its weights) and their output root at `out_dir`;
+    the graphs' input files written there: the reference images
+    (`write_reference_images`), phase 13's UV cube as GLB and its sphere,
+    with vertex colours, as PLY."""
+    from comfy3d_tpu_torch.core.io.ply import save_mesh_ply
+    from comfy3d_tpu_torch.nodes import base
+    base.INPUT_ROOT_PATH = asset_dir
+    base.OUTPUT_ROOT_PATH = out_dir
+    base.CKPT_ROOT_PATH = os.path.join(asset_dir, "no_checkpoints")
+    write_reference_images(asset_dir)
+    uv_cube().write(os.path.join(asset_dir, "uv_cube.glb"))
+    sph = sphere_mesh()
+    save_mesh_ply(os.path.join(asset_dir, "sphere.ply"), sph.v, sph.f,
+                  vc=sph.vc)
+
+
+def _corner_rows(mesh):
+    """Each triangle's corners [F, 9], rows sorted: a mesh's triangles
+    whatever their order."""
+    import numpy as np
+    c = mesh.v[mesh.f].reshape(-1, 9)
+    return c[np.lexsort(c.T[::-1])] if len(c) else c
+
+
+def workflows_path(dev, asset_dir, lgm_splat):
+    """Phase 19: configs 1–4 and the 3DGS fit as graphs through
+    `run_workflow(..., device="cuda")` at the nodes' defaults (19a–d, 19f)
+    on `workflow_files`' inputs; config 5's two graphs (19e) run in phases
+    17 and 18. `lgm_splat` is phase 14's LGM output (the same weights and
+    seed as 19d's nodes). Returns {graph: record}."""
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.algorithms import gs_to_mesh as g2m
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models.triposr import TripoSRPipeline
+    from comfy3d_tpu_torch.nodes.nodes_io import read_image
+    from comfy3d_tpu_torch.ops import gs_flat
+    from comfy3d_tpu_torch.ops import gs_render as G
+
+    recs = {}
+
+    # 19a. config 1: the mesh and the 100k-splat GS-PLY of phase 4, 8 views
+    res, rec = run_graph("config1", config_graph(1), device=dev)
+    expect_launches(rec["launches"], "flat", WF_VIEWS, 0, "19a")
+    poses = res[2][0]
+    splat = res[5][0]
+    cams = Camera.from_camposes(poses, width=WF_GS_SIZE, height=WF_GS_SIZE,
+                                device=dev)
+    with torch.no_grad():
+        direct = G.render(splat, cams)["image"].cpu()
+    rec["gs_vs_render_psnr_db"] = min(
+        psnr(res[6][0][i], direct[i]) for i in range(WF_VIEWS))
+    check(rec["gs_vs_render_psnr_db"] >= TOL_PSNR_DB,
+          f"19a: the renderer node vs render: "
+          f"{rec['gs_vs_render_psnr_db']:.2f} dB")
+    rec["mesh_alpha_mean"] = float(res[3][1].mean())
+    check(0.0 < rec["mesh_alpha_mean"] < 1.0, "19a: the mesh renders")
+    recs["config1"] = rec
+    del res, splat, direct
+
+    # 19b. config 2: TripoSR at the nodes' defaults but the threshold: a
+    # random-weight field's σ lies far under the default 25 (its 98th
+    # percentile was 0.37 in phase 11d), so the graph takes the 99.9th
+    # percentile of σ at PROBES seeded points of the node's image; the saved
+    # mesh against a direct call of the loader's model
+    pipe = TripoSRPipeline.init_random(0, device=dev)
+    # the node's arithmetic: LoadImage's mask 1 − α, inverted, then the
+    # grey composite
+    rgb, alpha = read_image(os.path.join(asset_dir, "reference_rgba.png"))
+    m = (1.0 - torch.from_numpy(1.0 - alpha))[..., None]
+    img = torch.from_numpy(rgb) * m + 0.5 * (1.0 - m)
+    r = pipe.cfg.radius
+    probes = torch.as_tensor(np.random.RandomState(0).uniform(
+        -r, r, (PROBES, 3)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        codes = pipe.scene_codes(img[None])
+        thr = float(np.quantile(pipe.model.query(codes[0], probes)[0]
+                                .cpu().numpy(), 0.999))
+    graph = config_graph(2)
+    tsr_res = graph["nodes"][3]["widgets_values"][0]      # the TripoSR node
+    res, rec = run_graph("config2", graph,
+                         overrides={4: {"marching_cude_threshold": thr}},
+                         device=dev)
+    saved = Mesh.load(res[6][0])
+    with torch.no_grad():
+        ref = pipe.extract_mesh(codes[0], tsr_res, thr).switch_axis(
+            "+x+z-y")
+    del pipe, codes
+    rec.update(threshold=thr, nv=saved.num_vertices, nf=saved.num_faces,
+               direct_nf=ref.num_faces)
+    check(saved.num_faces > 0, "19b: an empty mesh")
+    check(saved.num_faces == ref.num_faces and np.array_equal(
+        _corner_rows(saved), _corner_rows(ref)),
+          f"19b: the graph's {saved.num_faces} triangles are not the direct "
+          f"call's {ref.num_faces}")
+    expect_launches(rec["launches"], "flat", 0, 0, "19b")
+    recs["config2"] = rec
+    del res, saved, ref
+
+    # 19c. config 3: Zero123Plus (28 steps) → InstantMesh
+    res, rec = run_graph("config3", config_graph(3), device=dev)
+    views, zcfg = res[4][0], res[3][0].cfg
+    check(tuple(views.shape) == (6, zcfg.height // 3, zcfg.width // 2, 3)
+          and bool(torch.isfinite(views).all()),
+          f"19c: views {tuple(views.shape)}")
+    mesh = Mesh.load(res[7][0])
+    rec.update(nv=mesh.num_vertices, nf=mesh.num_faces)
+    expect_launches(rec["launches"], "flat", 0, 0, "19c")
+    recs["config3"] = rec
+    del res, views, mesh
+
+    # 19d. config 4: MVDream (30 steps) → LGM → 3DGS; the converter at its
+    # defaults → mesh (phase 15c's text → mesh, with its fields)
+    cfg = g2m.GSToMeshConfig()
+    res, rec = run_graph("config4", config_graph(4), spans=g2m.STAGES,
+                         device=dev)
+    expect_launches(rec["launches"], "flat", cfg.n_views, 0, "19d")
+    mesh = res[8][0]
+    check(bool(np.isfinite(mesh.v).all()), "19d: non-finite vertices")
+    check(mesh.albedo is None or (bool(np.isfinite(mesh.albedo).all())
+                                  and mesh.albedo.min() >= 0
+                                  and mesh.albedo.max() <= 1),
+          "19d: albedo outside [0, 1]")
+    splats = res[6][0]
+    nodes = rec["nodes"]
+    rec.update(
+        nv=mesh.num_vertices, nf=mesh.num_faces,
+        text_to_mesh_s=rec["s"],
+        # the MVDream and LGM nodes (#4, #6), their loaders left out
+        text_to_splats_s=sum(v["host_ms"] for k, v in nodes.items()
+                             if k.startswith(("node#4 ", "node#6 "))) / 1e3,
+        splats_vs_phase_14_max_abs=float(
+            (splats.xyz - lgm_splat.xyz).abs().max()),
+        stages={k.split(".")[-1]: v for k, v in rec["spans"].items()},
+        stages_host_ms=sum(v["host_ms"] for v in rec["spans"].values()),
+        stages_device_ms=sum(v["device_ms"]
+                             for v in rec["spans"].values()))
+    recs["config4"] = rec
+    del res, mesh, splats
+
+    # 19f. the 3DGS fit: the sphere's 8 views at 256² → 300 iterations at
+    # batch 1 → the fit's 8 renders
+    res, rec = run_graph("3dgs_fit", config_graph("3dgs_fit"),
+                         overrides={4: {"training_iterations": WF_FIT_ITERS}},
+                         device=dev)
+    expect_launches(rec["launches"], "flat", WF_FIT_ITERS + WF_VIEWS,
+                    WF_FIT_ITERS, "19f")
+    fitted = res[4][0]
+    renders = res[5][0]
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (fitted.xyz, fitted.sh, fitted.opacity_raw, fitted.scale_raw,
+               fitted.rot_raw, renders)), "19f: non-finite result")
+    rec.update(iterations=WF_FIT_ITERS, size=WF_FIT_SIZE,
+               alive=int(fitted.alive.sum()),
+               render_vs_reference_psnr_db=psnr(renders, res[3][0]))
+    # K1′ and K3′ on the fitted splat from view 0 of the fit's own cameras,
+    # against their plain versions at phases 3 and 5's tolerances
+    cams = Camera.from_camposes(res[2][0], fovy_deg=49.1, width=WF_FIT_SIZE,
+                                height=WF_FIT_SIZE, device=dev)
+    cam0 = Camera(c2w=cams.c2w[0], fovy_deg=cams.fovy_deg[0],
+                  width=WF_FIT_SIZE, height=WF_FIT_SIZE, near=cams.near,
+                  far=cams.far)
+    inp = flat_inputs(fitted, cam0)
+    cmp, fwd, _ = kernel_vs_plain("3dgs_fit_view0", inp, True)
+    box = flat_box_stats(inp, fwd[2])
+    check_box(box, "3dgs_fit view 0")
+    kargs, _ = flat_kernel_args(inp, True)
+    bargs, _ = bwd_args(inp, fwd, WF_FIT_BWD_SEED)
+    rec["view0"] = dict(
+        cmp, box=box, bound=flat_fwd_bound(inp, fwd[2], box),
+        kernel_ms=cuda_ms(lambda: gs_flat.composite_bins_fwd_rows(*kargs),
+                          20),
+        plain_ms=cuda_ms(
+            lambda: gs_flat.composite_bins_fwd_rows_plain(*kargs), 5,
+            warmup=1), **coarse_overflow(inp))
+    rec["view0_bwd"] = dict(
+        bwd_vs_plain("3dgs_fit_view0", inp, fwd, WF_FIT_BWD_SEED),
+        bound=bwd_bound(inp, fwd[2]),
+        kernel_ms=cuda_ms(
+            lambda: gs_flat.composite_bins_bwd_splats(*bargs), 20),
+        plain_ms=cuda_ms(
+            lambda: gs_flat.composite_bins_bwd_splats_plain(*bargs), 3,
+            warmup=1))
+    log(f"19f view 0: K1′ {rec['view0']}, K3′ {rec['view0_bwd']}")
+    recs["3dgs_fit"] = rec
+    del res, fitted, renders, inp, fwd, kargs, bargs
+    torch.cuda.empty_cache()
+    return recs
 
 
 def main(out_path=None) -> int:
@@ -4035,6 +4446,8 @@ def main(out_path=None) -> int:
     check(splat.device.type == "cuda", "load_gs_ply did not load on cuda")
     check(torch.equal(splat.xyz, scenes["100k_800"][0].xyz),
           "GS-PLY round trip changed the splat")
+    # the graphs' input files beside it (phases 17-19), and their outputs
+    workflow_files(asset_dir, asset_dir)
     cams = Camera.from_camposes(poses, width=800, height=800, device="cuda")
 
     torch.cuda.synchronize()
@@ -4239,11 +4652,9 @@ def main(out_path=None) -> int:
     # splats, where K1′ launches once per supervision view (counted in the
     # phase)
     t0 = time.perf_counter()
-    g2m = record["gs_to_mesh"] = gs_to_mesh_path(dev, asset_dir, smi_line,
-                                                 lgm_out)
+    g2m = record["gs_to_mesh"] = gs_to_mesh_path(dev, asset_dir, smi_line)
     g2m["s"] = time.perf_counter() - t0
     g2m_view0 = g2m["shell"]["view0"]
-    del lgm_out
     torch.cuda.empty_cache()
     lap("15_gs_to_mesh")
 
@@ -4278,6 +4689,25 @@ def main(out_path=None) -> int:
     del hy3d_sphere
     lap("18_hunyuan3d_paint")
 
+    # 19. configs 1-4 and the 3DGS fit as graphs through run_workflow (19a-d,
+    # 19f); config 5's two graphs (19e) ran as phases 17b and 18b
+    t0 = time.perf_counter()
+    wf = workflows_path(dev, asset_dir, lgm_out)
+    wf["config5_shape"] = hy3d["image_to_mesh"]["graph"]
+    wf["config5_texgen"] = paint["b"]["graph"]
+    record["workflows"] = wf
+    del lgm_out
+    wf_dir = os.path.join(HERE, "chiprun_out", WF_DIR)
+    os.makedirs(wf_dir, exist_ok=True)
+    for name in sorted(os.listdir(os.path.join(asset_dir, WF_DIR))):
+        if name.endswith(".png"):
+            shutil.copy(os.path.join(asset_dir, WF_DIR, name), wf_dir)
+    with open(os.path.join(wf_dir, "workflows.json"), "w") as f:
+        json.dump(wf, f, indent=1)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    fit_view0, fit_bwd = wf["3dgs_fit"]["view0"], wf["3dgs_fit"]["view0_bwd"]
+    lap("19_workflows")
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
@@ -4288,10 +4718,11 @@ def main(out_path=None) -> int:
                 "mesh_render": record["mesh_render"]["launches"][name],
                 "mvdream_lgm_orbit_24": mvl["launches"][name],
                 "gs_to_mesh": g2m["shell"]["launches"][name],
-                "gs_to_mesh_lgm": g2m["lgm"]["launches"][name],
                 "zero123plus_instantmesh": z123["launches"][name],
                 "hunyuan3d_shape": hy3d["launches"][name],
-                "hunyuan3d_paint": paint["launches"][name]}
+                "hunyuan3d_paint": paint["launches"][name],
+                **{f"workflow_{k}": v["launches"][name]
+                   for k, v in wf.items()}}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -4317,19 +4748,29 @@ def main(out_path=None) -> int:
             bound_by=g2m_view0["bound"]["bound_by"],
             max_abs_err=max(g2m_view0["max_abs_err_acc"],
                             g2m_view0["max_abs_err_trans"]),
-            launches=g2m["shell"]["launches"]["gs_flat_fwd"])}
+            launches=g2m["shell"]["launches"]["gs_flat_fwd"]),
+        "3dgs_fit_view0": dict(
+            ms=fit_view0["kernel_ms"], plain_ms=fit_view0["plain_ms"],
+            bound_ms=fit_view0["bound"]["bound_ms"],
+            bound_by=fit_view0["bound"]["bound_by"],
+            max_abs_err=max(fit_view0["max_abs_err_acc"],
+                            fit_view0["max_abs_err_trans"]),
+            launches=wf["3dgs_fit"]["launches"]["gs_flat_fwd"])}
     kernel["max_abs_err"] = max(
         kernel["max_abs_err"],
         *(kernel["by_path"][k]["max_abs_err"]
-          for k in ("mvdream_lgm_view0", "gs_to_mesh_view0")))
+          for k in ("mvdream_lgm_view0", "gs_to_mesh_view0",
+                    "3dgs_fit_view0")))
     kernel_bwd = {
         "name": "gs_flat_bwd", "route": "cuda",
         "source": "comfy3d_tpu_torch/csrc/gs_flat_bwd.cu",
         "replaces": "comfy3d_tpu/ops/pallas/gs_flat.py:552",
         "launches": train_rec["launches"]["gs_flat_bwd"],
         "launches_by_path": by_path("gs_flat_bwd"),
-        "max_abs_err": max(r["max_abs_err"] for r in bwd_compare.values()),
-        "max_rel_err": max(r["max_rel_err"] for r in bwd_compare.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           (*bwd_compare.values(), fit_bwd)),
+        "max_rel_err": max(r["max_rel_err"] for r in
+                           (*bwd_compare.values(), fit_bwd)),
         "ms": train_times["kernel_bwd_ms"],
         "kernel_ms": train_times["kernel_bwd_ms"],
         "plain_ms": train_times["plain_bwd_ms"],
@@ -4339,6 +4780,20 @@ def main(out_path=None) -> int:
         "computes": "backward + per-splat scatter",
         "old_scatter_ms": train_times["old_scatter_ms"],
         "old_design": train_rec["old_design"],
+        "by_path": {
+            "train_view0_trained": dict(
+                ms=train_times["kernel_bwd_ms"],
+                plain_ms=train_times["plain_bwd_ms"],
+                bound_ms=bwd_bound_rec["bound_ms"],
+                bound_by=bwd_bound_rec["bound_by"],
+                launches=train_rec["launches"]["gs_flat_bwd"]),
+            "3dgs_fit_view0": dict(
+                ms=fit_bwd["kernel_ms"], plain_ms=fit_bwd["plain_ms"],
+                bound_ms=fit_bwd["bound"]["bound_ms"],
+                bound_by=fit_bwd["bound"]["bound_by"],
+                max_abs_err=fit_bwd["max_abs_err"],
+                max_rel_err=fit_bwd["max_rel_err"],
+                launches=wf["3dgs_fit"]["launches"]["gs_flat_bwd"])},
     }
     kernel_tile_fwd = {
         "name": "gs_tile_fwd", "route": "cuda",
@@ -4417,6 +4872,9 @@ def main(out_path=None) -> int:
     print(json.dumps({"zero123plus_instantmesh": z123}))
     print(json.dumps({"hunyuan3d_shape": hy3d}))
     print(json.dumps({"hunyuan3d_paint": paint}))
+    print(json.dumps({"workflows": {
+        k: {key: v[key] for key in ("s", "peak_bytes", "launches", "nodes")}
+        for k, v in wf.items()}}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,10 @@ Layering:
   algorithms/  the 3DGS trainer, the Instant-NGP fit (`ngp.py`), the
              GS→mesh converter (`gs_to_mesh.py`), the multi-view colour
              projection and bake (`color_project.py`)
-  native/    host C++ mesh clean / decimate / vertex inpaint (g++ at first
-             use, ctypes)
+  native/    host C++ mesh clean / decimate / remesh / vertex inpaint (g++
+             at first use, ctypes)
+  nodes/     the ComfyUI node classes under the JAX package's registry keys
+             and the workflow executor (`run_workflow(..., device=)`)
   convert    numpy arrays of the JAX containers and params → the port's
 
 Entry points run on the card unless the caller passes `device="cpu"`.
@@ -33,14 +35,14 @@ Tests: `python -m pytest tests/test_torch_*.py` holds each module against
 the JAX package on the CPU at tiny widths (Hunyuan3D-2.1 shape and paint:
 `tests/test_torch_hunyuan3d{,_paint}.py`); `python3 chip_smoke.py` drives
 every path on the card (phases 17–18: Hunyuan3D-2.1 shape, then paint, at
-the nodes' defaults).
+the nodes' defaults; phase 19: configs 1–5 as workflow graphs).
 """
 
 __version__ = "0.1.0"
 
 import importlib as _importlib
 
-_SUBMODULES = ("core", "ops", "algorithms", "convert", "native")
+_SUBMODULES = ("core", "ops", "algorithms", "convert", "native", "nodes")
 
 
 def default_device():

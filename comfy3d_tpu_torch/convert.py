@@ -451,6 +451,20 @@ def clip_vision_state_dict_from_flax(params) -> dict:
             params["position_embedding"])})
 
 
+def clip_text_state_dict_from_flax(params) -> dict:
+    """The JAX package's `CLIPTextEncoder` params → the port's
+    `CLIPTextEncoder` state dict (a `CLIPTextModel`'s names without its
+    `text_model.` prefix, `models/clip.py`)."""
+    modules = {k: v for k, v in params.items()
+               if k not in ("token_embedding", "position_embedding")}
+    return _tensors({
+        **_renamed_state_dict(modules, _CLIP_RENAMES),
+        "embeddings.token_embedding.weight": np.asarray(
+            params["token_embedding"]),
+        "embeddings.position_embedding.weight": np.asarray(
+            params["position_embedding"])})
+
+
 def lgm_state_dict_from_flax(params) -> dict:
     """The JAX package's `LGMUNet` params → the port's `LGMUNet` state dict
     in LGM's checkpoint names (`unet.*` and the trailing 1×1 `conv.*`)."""

@@ -1,6 +1,6 @@
 """The model zoo: shared transformer blocks (`common`), the diffusion
-substrate (`diffusion`: UNet, VAE, the samplers), CLIP's vision encoder
-(`clip`), DINOv2 (`dinov2`), the vecset substrate (`vecset`: ShapeVAE and
+substrate (`diffusion`: UNet, VAE, the samplers, the diffusers directory
+loaders), CLIP's text and vision encoders (`clip`), DINOv2 (`dinov2`), the vecset substrate (`vecset`: ShapeVAE and
 its octree decode, the flow DiT and its schedule), checkpoint files
 (`loader`) and the model families (`triposr`, `instantmesh`, `mvdream`,
 `lgm`, `zero123plus`, `hunyuan3d`: shape generation and paint).

@@ -1,25 +1,31 @@
-"""CLIP's vision encoder: an image → its projected global embedding.
+"""CLIP's text and vision encoders.
 
-Port of the vision half of `comfy3d_tpu/models/clip.py`, the half that
-Zero123Plus's global conditioning runs (`Zero123Plus/pipeline.py:385-405`:
-a CLIP-normalised 224² encode → the projected embedding that rides the
-ramping coefficients). It mirrors `transformers`' CLIP: a patch
-convolution without bias, a class token and learned positions, pre-LN
-blocks of non-causal attention and a quick-GELU (or exact-GELU) MLP,
-LayerNorm eps 1e-5, the class token's final LayerNorm and a bias-free
-projection.
+Port of `comfy3d_tpu/models/clip.py`, both halves that the ported paths
+run. The vision encoder is Zero123Plus's global conditioning
+(`Zero123Plus/pipeline.py:385-405`: a CLIP-normalised 224² encode → the
+projected embedding that rides the ramping coefficients); the text encoder
+gives the empty prompt's hidden states that Zero123Plus and MVDream load
+as their prompt embedding, and MVDream's prompt hook
+(`make_text_conditioner`, token ids from the caller). Both mirror
+`transformers`' CLIP: pre-LN blocks of attention (causal for text) and a
+quick-GELU (or exact-GELU) MLP, LayerNorm eps 1e-5; the vision encoder has
+a patch convolution without bias, a class token and learned positions, the
+class token's final LayerNorm and a bias-free projection; the text encoder
+token and position embeddings and a final LayerNorm, pooled at the first
+EOS token.
 
-Submodules carry the names of a `CLIPVisionModelWithProjection` state dict
-without its `vision_model.` prefix (`embeddings.{patch_embedding,
-class_embedding, position_embedding}`, `pre_layrnorm`,
+Submodules carry the names of a `CLIPVisionModelWithProjection` /
+`CLIPTextModel` state dict without its `vision_model.` / `text_model.`
+prefix (`embeddings.{patch_embedding, class_embedding,
+position_embedding, token_embedding}`, `pre_layrnorm`,
 `encoder.layers.{i}.{self_attn.{q,k,v,out}_proj, layer_norm1, mlp.fc1,
-mlp.fc2, layer_norm2}`, `post_layernorm`, `visual_projection`), the names
-the JAX package's `clip_rules` reads. Images are NCHW inside the encoder;
-the conditioner takes the node layer's [B, H, W, 3].
+mlp.fc2, layer_norm2}`, `post_layernorm`, `visual_projection`,
+`final_layer_norm`), the names the JAX package's `clip_rules` reads.
+Images are NCHW inside the encoder; the conditioner takes the node
+layer's [B, H, W, 3].
 
 Not ported, each raising NotImplementedError naming its ROADMAP item: the
-text encoder and `make_text_conditioner` (A.6.3, with CLIP weights in the
-repository), the penultimate hidden states (`project="penultimate"`) and
+penultimate hidden states (`project="penultimate"`) and
 `make_vision_hidden_conditioner` (ImageDream, A.6.4), and the camera-
 modulated blocks (`modulation_dim > 0`, Craftsman, A.10).
 """
@@ -47,6 +53,19 @@ def quick_gelu(x):
 
 
 @dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_dim: int = 3072
+    max_positions: int = 77
+    eps: float = 1e-5
+    eos_token_id: int = 49407
+    act: str = "quick_gelu"      # SD1.x openai CLIP; SD2.x: "gelu"
+
+
+@dataclasses.dataclass(frozen=True)
 class CLIPVisionConfig:
     hidden: int = 1024
     layers: int = 24
@@ -61,7 +80,8 @@ class CLIPVisionConfig:
 
 
 class CLIPAttention(nn.Module):
-    """HF `CLIPAttention`: biased q/k/v/out projections, non-causal."""
+    """HF `CLIPAttention`: biased q/k/v/out projections; `bias` an additive
+    mask (the text encoder's causal one)."""
 
     def __init__(self, hidden: int, heads: int):
         super().__init__()
@@ -71,9 +91,9 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(hidden, hidden)
         self.out_proj = nn.Linear(hidden, hidden)
 
-    def forward(self, x):
+    def forward(self, x, bias=None):
         return self.out_proj(_attend(self.q_proj(x), self.k_proj(x),
-                                     self.v_proj(x), self.heads))
+                                     self.v_proj(x), self.heads, bias))
 
 
 class CLIPBlock(nn.Module):
@@ -92,8 +112,8 @@ class CLIPBlock(nn.Module):
         self.mlp = nn.ModuleDict({"fc1": nn.Linear(hidden, mlp_dim),
                                   "fc2": nn.Linear(mlp_dim, hidden)})
 
-    def forward(self, x):
-        x = x + self.self_attn(self.layer_norm1(x))
+    def forward(self, x, bias=None):
+        x = x + self.self_attn(self.layer_norm1(x), bias)
         h = self.mlp["fc1"](self.layer_norm2(x))
         h = quick_gelu(h) if self.act == "quick_gelu" else F.gelu(h)
         return x + self.mlp["fc2"](h)
@@ -186,15 +206,64 @@ def make_vision_hidden_conditioner(*args, **kwargs):
     raise _unported("make_vision_hidden_conditioner (ImageDream)", "A.6.4")
 
 
-class CLIPTextEncoder:
-    """CLIP's causal text encoder."""
+class CLIPTextEmbeddings(nn.Module):
+    """Token embeddings and learned positions."""
 
-    def __init__(self, *args, **kwargs):
-        raise _unported("CLIP's text encoder, with CLIP weights in the "
-                        "repository", "A.6.3")
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden)
+        self.position_embedding = nn.Embedding(cfg.max_positions, cfg.hidden)
+
+    def forward(self, input_ids):
+        t = input_ids.shape[1]
+        return (self.token_embedding(input_ids)
+                + self.position_embedding.weight[None, :t])
 
 
-def make_text_conditioner(*args, **kwargs):
-    """MVDream's prompt hook over CLIP's text encoder."""
-    raise _unported("CLIP's text encoder and make_text_conditioner, with "
-                    "CLIP weights in the repository", "A.6.3")
+class CLIPTextEncoder(nn.Module):
+    """HF `CLIPTextModel`: token ids [B, T] → (the last hidden states after
+    the final LayerNorm [B, T, C], the pooled state at each row's first EOS
+    token [B, C])."""
+
+    def __init__(self, cfg: CLIPTextConfig = CLIPTextConfig()):
+        super().__init__()
+        c = self.cfg = cfg
+        self.embeddings = CLIPTextEmbeddings(c)
+        self.encoder = nn.ModuleDict({"layers": nn.ModuleList([
+            CLIPBlock(c.hidden, c.heads, c.mlp_dim, c.eps, c.act)
+            for _ in range(c.layers)])})
+        self.final_layer_norm = nn.LayerNorm(c.hidden, eps=c.eps)
+
+    def forward(self, input_ids):
+        input_ids = torch.as_tensor(input_ids, dtype=torch.long,
+                                    device=self.final_layer_norm.weight.device)
+        x = self.embeddings(input_ids)
+        t = x.shape[1]
+        causal = torch.full((t, t), float("-inf"), dtype=x.dtype,
+                            device=x.device).triu(1)
+        for block in self.encoder["layers"]:
+            x = block(x, causal)
+        x = self.final_layer_norm(x)
+        eot = (input_ids == self.cfg.eos_token_id).int().argmax(dim=-1)
+        return x, x[torch.arange(x.shape[0], device=x.device), eot]
+
+
+def empty_prompt_ids(max_positions: int = 77, pad_token_id: int = 49407,
+                     bos_token_id: int = 49406, eos_token_id: int = 49407):
+    """Token ids [1, T] (int64) of the empty prompt "" under CLIPTokenizer
+    padding to `max_positions`, computable without the vocab file: [BOS,
+    EOS] then pads. SD2-class checkpoints pad with "!" (id 0), SD1.x with
+    EOS."""
+    ids = torch.full((1, max_positions), pad_token_id, dtype=torch.long)
+    ids[0, 0] = bos_token_id
+    ids[0, 1] = eos_token_id
+    return ids
+
+
+def make_text_conditioner(model: CLIPTextEncoder):
+    """fn(token_ids [B, T]) → the last hidden states [B, T, C]: MVDream's
+    prompt hook (the caller tokenizes with the checkpoint's vocab)."""
+    def fn(token_ids):
+        return model(token_ids)[0]
+
+    return fn

@@ -254,12 +254,29 @@ class ViT(nn.Module):
         return self.layernorm(x)
 
 
+def seeded_model(build, init, seed: int, device=None) -> nn.Module:
+    """`build()` on `meta`, materialised on `device` (default: the card)
+    and filled in place by `init(model, generator)` from a generator of
+    that device seeded with `seed`. The CPU's and the card's generators
+    draw differently, so one seed gives one model per kind of device; a
+    full-width model on the card skips minutes of host draws and the
+    copy."""
+    from .. import resolve_device
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = build()
+    model = model.to_empty(device=device)
+    init(model, torch.Generator(device).manual_seed(seed))
+    return model
+
+
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded weights in the JAX package's scheme, in place: Linear, conv
     and transposed-conv kernels (and `nn.MultiheadAttention`'s projection
     matrices) normal with std 1/sqrt(fan_in), biases 0, norms 1 and 0."""
     def draw(w, fan_in):
-        w.copy_(torch.randn(w.shape, generator=generator) / fan_in ** 0.5)
+        w.copy_(torch.randn(w.shape, generator=generator,
+                            device=generator.device) / fan_in ** 0.5)
 
     with torch.no_grad():
         for mod in model.modules():

@@ -1,16 +1,25 @@
-"""diffusers `config.json` → the port's UNet and VAE configs.
+"""diffusers component directories → the port's UNet, VAE and CLIP.
 
-Port of `comfy3d_tpu/models/diffusion/convert.py::{unet_config_from_json,
-vae_config_from_json}` (the config readers only: the port loads diffusers'
-state dicts by name, with no rule tables). A field the port does not carry
-comes through as its config field, and `UNet2DCondition` raises for it,
-naming its ROADMAP item.
+Port of `comfy3d_tpu/models/diffusion/convert.py`'s config readers
+(`unet_config_from_json`, `vae_config_from_json`) and directory loaders
+(`load_{unet,vae,clip_text,clip_vision}_dir`, `encode_empty_prompt`). The
+port reads diffusers' and transformers' state dicts by their own names,
+strictly, with no rule tables: each module is built on `meta` and takes the
+loaded float32 tensors as its own, then moves to `device` (default: the
+card). A field the port does not carry comes through as its config field,
+and `UNet2DCondition` raises for it, naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from .unet import UNetConfig
-from .vae import VAEConfig
+import os
+
+import torch
+
+from ... import resolve_device
+from ..loader import load_dir_state_dict, read_json_config
+from .unet import UNet2DCondition, UNetConfig
+from .vae import AutoencoderKL, VAEConfig
 
 
 def unet_config_from_json(cfg: dict, **overrides) -> UNetConfig:
@@ -70,3 +79,105 @@ def vae_config_from_json(cfg: dict) -> VAEConfig:
         layers_per_block=cfg.get("layers_per_block", 2),
         norm_groups=cfg.get("norm_num_groups", 32),
         scaling_factor=cfg.get("scaling_factor", 0.18215))
+
+
+def load_module(build, state_dict, device=None):
+    """`build()` on `meta`, the state dict loaded strictly as its own
+    tensors, moved to `device` (default: the card)."""
+    with torch.device("meta"):
+        module = build()
+    module.load_state_dict(state_dict, strict=True, assign=True)
+    return module.to(resolve_device(device))
+
+
+def _config(path: str) -> dict:
+    return read_json_config(os.path.join(path, "config.json"))
+
+
+def load_unet_dir(path: str, device=None, **config_overrides):
+    """A diffusers `unet/` directory (config.json + weights) → (UNetConfig,
+    the loaded `UNet2DCondition`, the raw config dict)."""
+    raw = _config(path)
+    cfg = unet_config_from_json(raw, **config_overrides)
+    return cfg, load_module(lambda: UNet2DCondition(cfg),
+                            load_dir_state_dict(path), device), raw
+
+
+def load_vae_dir(path: str, device=None):
+    """A diffusers `vae/` directory → (VAEConfig, the loaded
+    `AutoencoderKL`, the raw config dict)."""
+    raw = _config(path)
+    cfg = vae_config_from_json(raw)
+    return cfg, load_module(lambda: AutoencoderKL(cfg),
+                            load_dir_state_dict(path), device), raw
+
+
+def _unprefixed(sd: dict, root: str) -> dict:
+    """A transformers CLIP state dict without its `text_model.` /
+    `vision_model.` prefix and the `position_ids` buffer older files
+    carry."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith(root):
+            k = k[len(root):]
+        if k != "embeddings.position_ids":
+            out[k] = v
+    return out
+
+
+def load_clip_text_dir(path: str, device=None):
+    """A `CLIPTextModel` directory → (CLIPTextConfig, the loaded
+    `CLIPTextEncoder`, the raw config dict)."""
+    from ..clip import CLIPTextConfig, CLIPTextEncoder
+    raw = _config(path)
+    cfg = CLIPTextConfig(
+        vocab_size=raw.get("vocab_size", 49408),
+        hidden=raw.get("hidden_size", 768),
+        layers=raw.get("num_hidden_layers", 12),
+        heads=raw.get("num_attention_heads", 12),
+        mlp_dim=raw.get("intermediate_size", 3072),
+        max_positions=raw.get("max_position_embeddings", 77),
+        eos_token_id=raw.get("eos_token_id", 49407),
+        act=raw.get("hidden_act", "quick_gelu"))
+    sd = _unprefixed(load_dir_state_dict(path), "text_model.")
+    return cfg, load_module(lambda: CLIPTextEncoder(cfg), sd, device), raw
+
+
+def load_clip_vision_dir(path: str, device=None):
+    """A `CLIPVisionModelWithProjection` directory → (CLIPVisionConfig, the
+    loaded `CLIPVisionEncoder`, the raw config dict)."""
+    from ..clip import CLIPVisionConfig, CLIPVisionEncoder
+    raw = _config(path)
+    vc = raw.get("vision_config", raw)
+    cfg = CLIPVisionConfig(
+        hidden=vc.get("hidden_size", 1024),
+        layers=vc.get("num_hidden_layers", 24),
+        heads=vc.get("num_attention_heads", 16),
+        mlp_dim=vc.get("intermediate_size", 4096),
+        image_size=vc.get("image_size", 224),
+        patch=vc.get("patch_size", 14),
+        projection_dim=raw.get("projection_dim", 768),
+        act=vc.get("hidden_act", "quick_gelu"))
+    sd = _unprefixed(load_dir_state_dict(path), "vision_model.")
+    return cfg, load_module(lambda: CLIPVisionEncoder(cfg), sd, device), raw
+
+
+def has_weights_file(path: str) -> bool:
+    """Whether a component directory holds a transformers weights file
+    (`model*` / `pytorch_model*`), as the JAX loaders test it."""
+    return os.path.isdir(path) and any(
+        f.startswith(("model", "pytorch_model")) for f in os.listdir(path))
+
+
+@torch.no_grad()
+def encode_empty_prompt(text_encoder_dir: str, device=None) -> torch.Tensor:
+    """The checkpoint's CLIPTextModel on the empty prompt "": its hidden
+    states [T, D] (the reference pipelines' `_encode_prompt(prompt="")`,
+    e.g. `Zero123Plus/pipeline.py:335,377`). The empty prompt needs no
+    vocab: [BOS, EOS] then pads, "!" (id 0) for a `gelu` (SD2-class)
+    encoder, else EOS."""
+    from ..clip import empty_prompt_ids
+    cfg, model, _ = load_clip_text_dir(text_encoder_dir, device)
+    pad = 0 if cfg.act == "gelu" else 49407
+    return model.eval()(empty_prompt_ids(cfg.max_positions,
+                                         pad_token_id=pad))[0][0]

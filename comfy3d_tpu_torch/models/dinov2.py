@@ -165,7 +165,7 @@ def init_dinov2_(model: Dinov2, generator: torch.Generator) -> None:
     emb = model.embeddings
     with torch.no_grad():
         for p in (emb.cls_token, emb.position_embeddings):
-            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * 0.02)
         emb.mask_token.zero_()
         if emb.register_tokens is not None:
             emb.register_tokens.zero_()

@@ -54,7 +54,7 @@ from ...core.camera import Camera
 from ...core.image import resize_images
 from ...core.mesh import Mesh
 from ...ops import rasterize as R
-from ..common import init_weights_
+from ..common import init_weights_, seeded_model
 from ..diffusion.config import unet_config_from_json, vae_config_from_json
 from ..diffusion.schedulers import SchedulerConfig, make_scheduler
 from ..diffusion.unet import UNet2DCondition, UNetConfig
@@ -146,21 +146,17 @@ class Hunyuan3DPaint(nn.Module):
         self.vae = AutoencoderKL(cfg.vae)
 
 
-def _random_model(seed: int, cfg: PaintConfig) -> Hunyuan3DPaint:
-    """Weights drawn from `seed` on the CPU: `common.init_weights_` for the
-    linear, conv and norm layers; the camera table and the learned tokens
-    normal with std 0.02, as in the JAX package."""
-    with torch.device("meta"):
-        model = Hunyuan3DPaint(cfg)
-    model = model.to_empty(device="cpu")
-    gen = torch.Generator().manual_seed(seed)
+def _init_paint_(model: Hunyuan3DPaint, gen: torch.Generator) -> None:
+    """`common.init_weights_` for the linear, conv and norm layers; the
+    camera table and the learned tokens normal with std 0.02, as in the JAX
+    package."""
     init_weights_(model, gen)
     with torch.no_grad():
         for name, p in model.unet.named_parameters(recurse=False):
-            p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+            p.copy_(0.02 * torch.randn(p.shape, generator=gen,
+                                       device=gen.device))
         w = model.unet.class_embedding.weight
-        w.copy_(0.02 * torch.randn(w.shape, generator=gen))
-    return model
+        w.copy_(0.02 * torch.randn(w.shape, generator=gen, device=gen.device))
 
 
 # upstream's `Basic2p5DTransformerBlock` nests the wrapped block under
@@ -207,9 +203,10 @@ class Hunyuan3DPaintPipeline:
     @classmethod
     def init_random(cls, seed: int = 0, cfg: PaintConfig = PaintConfig(),
                     device=None) -> "Hunyuan3DPaintPipeline":
-        """Weights drawn from `seed` on the CPU (a seed gives the same
-        weights on every device), placed on `device` (default: the card)."""
-        return cls(_random_model(seed, cfg).to(resolve_device(device)))
+        """Weights drawn from `seed` (`_init_paint_`) on `device` (default:
+        the card; `common.seeded_model`)."""
+        return cls(seeded_model(lambda: Hunyuan3DPaint(cfg), _init_paint_,
+                                seed, device))
 
     @classmethod
     def from_pretrained(cls, model_dir: str, pbr: bool = False,

@@ -33,7 +33,7 @@ from torch.profiler import record_function
 
 from ... import resolve_device
 from ...core.image import resize_images
-from ..common import init_weights_
+from ..common import init_weights_, seeded_model
 from ..dinov2 import (IMAGENET_MEAN, IMAGENET_STD, Dinov2, Dinov2Config,
                       init_dinov2_)
 from ..loader import load_state_dict
@@ -79,21 +79,24 @@ class Hunyuan3DShape(nn.Module):
         self.vae = ShapeVAE(cfg.vae)
 
 
-def _random_model(seed: int, cfg: Hunyuan3DShapeConfig) -> Hunyuan3DShape:
-    """Weights drawn from `seed` on the CPU: `common.init_weights_` for the
-    linear, conv and norm layers, `dinov2.init_dinov2_` for DINOv2's tokens
-    and LayerScale, the DiT's RMS scales 1."""
-    with torch.device("meta"):
-        model = Hunyuan3DShape(cfg)
-    model = model.to_empty(device="cpu")
-    gen = torch.Generator().manual_seed(seed)
+def _init_shape_(model: Hunyuan3DShape, gen: torch.Generator) -> None:
+    """`common.init_weights_` for the linear, conv and norm layers,
+    `dinov2.init_dinov2_` for DINOv2's tokens and LayerScale, the DiT's RMS
+    scales 1."""
     init_weights_(model, gen)
     init_dinov2_(model.cond, gen)
     with torch.no_grad():
         for name, p in model.dit.named_parameters():
             if name.endswith("_norm.scale"):
                 p.fill_(1.0)
-    return model
+
+
+def _random_model(seed: int, cfg: Hunyuan3DShapeConfig,
+                  device) -> Hunyuan3DShape:
+    """Weights drawn from `seed` on `device` (`_init_shape_`;
+    `common.seeded_model`)."""
+    return seeded_model(lambda: Hunyuan3DShape(cfg), _init_shape_, seed,
+                        device)
 
 
 class Hunyuan3DShapePipeline:
@@ -110,10 +113,8 @@ class Hunyuan3DShapePipeline:
     def init_random(cls, seed: int = 0,
                     cfg: Hunyuan3DShapeConfig = Hunyuan3DShapeConfig(),
                     device=None) -> "Hunyuan3DShapePipeline":
-        """Weights drawn from `seed` on the CPU (a seed gives the same
-        weights on every device), placed on `device` (default: the card)."""
-        device = resolve_device(device)
-        return cls(_random_model(seed, cfg).to(device))
+        """Weights drawn from `seed` on `device` (default: the card)."""
+        return cls(_random_model(seed, cfg, resolve_device(device)))
 
     @classmethod
     def from_pretrained(cls, dit_path: str, vae_path: str,
@@ -123,14 +124,15 @@ class Hunyuan3DShapePipeline:
         """The public checkpoints (`model.fp16.safetensors` of the DiT and
         of the VAE, in upstream names; optionally a DINOv2 in
         `transformers.Dinov2Model` names), each loaded strictly as float32;
-        without `cond_path` the conditioner keeps weights from seed 0."""
-        model = _random_model(0, cfg)
+        without `cond_path` the conditioner keeps weights drawn from seed 0
+        on `device` (default: the card)."""
+        model = _random_model(0, cfg, resolve_device(device))
         parts = [(model.dit, dit_path), (model.vae, vae_path)]
         if cond_path:
             parts.append((model.cond, cond_path))
         for module, path in parts:
             module.load_state_dict(load_state_dict(path), strict=True)
-        return cls(model.to(resolve_device(device)))
+        return cls(model)
 
     # -------------------------------------------------------------- #
     def _f32(self, x) -> torch.Tensor:

@@ -1,8 +1,7 @@
 """InstantMesh pipeline: posed views → triplanes → mesh with vertex colours.
 
 Port of `comfy3d_tpu/models/instantmesh/pipeline.py`. Weights are either
-drawn from a seed (`init_random`; drawn on the CPU, so a seed gives the
-same weights on every device) or loaded from the upstream checkpoint's
+drawn from a seed (`init_random`; drawn on the target device) or loaded from the upstream checkpoint's
 native torch state dict (`from_pretrained`, strict, no conversion table).
 """
 
@@ -17,7 +16,7 @@ from torch.profiler import record_function
 from ... import resolve_device
 from ...core.mesh import Mesh
 from ...ops import tetra, volume
-from ..common import init_weights_
+from ..common import init_weights_, seeded_model
 from .model import InstantMesh, InstantMeshConfig
 
 # the profiler spans of `InstantMeshPipeline.extract_mesh`, in the order it
@@ -67,9 +66,9 @@ def _init_params(model: InstantMesh, generator: torch.Generator) -> None:
     with torch.no_grad():
         emb = model.encoder.model.embeddings
         for p in (emb.cls_token, emb.position_embeddings):
-            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * 0.02)
         pos = model.transformer.pos_embed
-        pos.copy_(torch.randn(pos.shape, generator=generator)
+        pos.copy_(torch.randn(pos.shape, generator=generator, device=generator.device)
                   / pos.shape[-1] ** 0.5)
 
 
@@ -96,14 +95,10 @@ class InstantMeshPipeline:
     def init_random(cls, seed: int = 0,
                     cfg: InstantMeshConfig = InstantMeshConfig(),
                     device=None) -> "InstantMeshPipeline":
-        """Weights drawn from `seed`, placed on `device` (default: the
-        card)."""
-        dev = resolve_device(device)
-        with torch.device("meta"):
-            model = InstantMesh(cfg)
-        model = model.to_empty(device="cpu")
-        _init_params(model, torch.Generator().manual_seed(seed))
-        return cls(model.to(dev))
+        """Weights drawn from `seed` on `device` (default: the card;
+        `common.seeded_model`)."""
+        return cls(seeded_model(lambda: InstantMesh(cfg), _init_params,
+                                seed, device))
 
     @classmethod
     def from_pretrained(cls, path: str,

@@ -2,9 +2,11 @@
 
 Port of `comfy3d_tpu/models/lgm/pipeline.py` (the reference's
 Large_Multiview_Gaussian_Model node → `forward_gaussians`). Weights are
-drawn from a seed (`init_random`; drawn on the CPU, so a seed gives the same
-weights on every device). Images cross the boundary as the node protocol
-holds them, [V, H, W, 3] in [0, 1]; the network runs NCHW.
+drawn from a seed (`init_random`; on the target device) or read from
+upstream's
+`model_fp16.safetensors` in its own names (`from_pretrained`). Images cross
+the boundary as the node protocol holds them, [V, H, W, 3] in [0, 1]; the
+network runs NCHW.
 """
 
 from __future__ import annotations
@@ -12,10 +14,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ... import resolve_device
 from ...core import sh as sh_utils
 from ...core.gaussian import GaussianSplat
-from ..common import init_weights_
+from ..common import init_weights_, seeded_model
 from .model import LGMConfig, LGMUNet, decode_gaussians, plucker_rays
 
 
@@ -32,13 +33,21 @@ class LGMPipeline:
     def init_random(cls, seed: int = 0, cfg: LGMConfig = LGMConfig(),
                     device=None) -> "LGMPipeline":
         """Weights drawn from `seed` in the JAX package's scheme
-        (`common.init_weights_`), placed on `device` (default: the card)."""
-        device = resolve_device(device)
-        with torch.device("meta"):
-            model = LGMUNet(cfg)
-        model = model.to_empty(device="cpu")
-        init_weights_(model, torch.Generator().manual_seed(seed))
-        return cls(model.to(device))
+        (`common.init_weights_`) on `device` (default: the card;
+        `common.seeded_model`)."""
+        return cls(seeded_model(lambda: LGMUNet(cfg), init_weights_, seed,
+                                device))
+
+    @classmethod
+    def from_pretrained(cls, ckpt_path: str, cfg: LGMConfig = LGMConfig(),
+                        device=None) -> "LGMPipeline":
+        """The public LGM checkpoint (`model_fp16.safetensors`, reference
+        nodes.py:1807-1815) in its own names, loaded strictly as float32
+        onto `device` (default: the card)."""
+        from ..diffusion.config import load_module
+        from ..loader import load_state_dict
+        return cls(load_module(lambda: LGMUNet(cfg),
+                               load_state_dict(ckpt_path), device))
 
     @torch.no_grad()
     def forward_gaussians(self, images, elevations=None, azimuths=None

@@ -10,10 +10,13 @@ batch [uncond; cond] of 2·V frames, `un + g·(co − un)`; the first V
 latents decoded by the VAE.
 
 Text conditioning is passed in as `prompt_embeds` [77, 768] (a CLIP text
-encoder's output once its weights are here); the negative embedding
-defaults to zeros. The model's state dict holds `unet.*` (diffusers'
-`UNet2DConditionModel` names), `vae.*` (diffusers' `AutoencoderKL`) and
-`camera_embed.{0,2}` (MVDream's own camera MLP). Images leave as the node
+encoder's output, `models/clip.py`); without it the pipeline's
+`default_prompt_embeds` (the empty prompt's, set by `from_pretrained`) or
+zeros, and the negative embedding likewise. `from_pretrained` reads an
+mvdream-diffusers directory (`convert.load_mvdream_dir`). The model's
+state dict holds `unet.*` (diffusers' `UNet2DConditionModel` names),
+`vae.*` (diffusers' `AutoencoderKL`) and `camera_embed.{0,2}` (MVDream's
+own camera MLP). Images leave as the node
 protocol holds them, [V, S, S, 3] in [0, 1].
 
 Not ported, each raising NotImplementedError naming its ROADMAP item:
@@ -30,9 +33,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from ... import resolve_device
 from ...core.camera import orbit_c2w
-from ..common import init_weights_
+from ..common import init_weights_, seeded_model
 from ..diffusion.schedulers import (SchedulerConfig, make_scheduler,
                                     sample_loop)
 from ..diffusion.unet import UNet2DCondition, UNetConfig
@@ -110,6 +112,8 @@ class MVDreamPipeline:
     def __init__(self, model: MVDream):
         self.model = model.eval()
         self.cfg = model.cfg
+        self.default_prompt_embeds: Optional[torch.Tensor] = None
+        self.default_negative_embeds: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -119,13 +123,21 @@ class MVDreamPipeline:
     def init_random(cls, seed: int = 0, cfg: MVDreamConfig = MVDreamConfig(),
                     device=None) -> "MVDreamPipeline":
         """Weights drawn from `seed` in the JAX package's scheme
-        (`common.init_weights_`), placed on `device` (default: the card)."""
-        device = resolve_device(device)
-        with torch.device("meta"):
-            model = MVDream(cfg)
-        model = model.to_empty(device="cpu")
-        init_weights_(model, torch.Generator().manual_seed(seed))
-        return cls(model.to(device))
+        (`common.init_weights_`) on `device` (default: the card;
+        `common.seeded_model`)."""
+        return cls(seeded_model(lambda: MVDream(cfg), init_weights_, seed,
+                                device))
+
+    @classmethod
+    def from_pretrained(cls, path: str, device=None,
+                        **cfg_overrides) -> "MVDreamPipeline":
+        """An ashawkey/mvdream-sd2.1-diffusers directory: the LDM-layout
+        UNet renamed (`convert.mv_unet_name`) and loaded strictly with the
+        camera MLP, the VAE, and the empty prompt's embedding from
+        text_encoder/ as the default prompt and negative embeddings. An
+        ImageDream checkpoint raises (ROADMAP A.6.4)."""
+        from .convert import load_mvdream_dir
+        return load_mvdream_dir(cls, path, device, **cfg_overrides)
 
     def camera_embedding(self, elevation: Optional[float] = None):
         """The V views' camera embeddings [V, 4·C0]."""
@@ -139,14 +151,18 @@ class MVDreamPipeline:
                      elevation: Optional[float] = None):
         """The CFG batch's conditioning: (context [2·V, T, D] as [uncond;
         cond], camera embeddings [2·V, 4·C0]). Embeddings [T, D] default to
-        zeros."""
+        `default_prompt_embeds` / `default_negative_embeds`, else zeros."""
         cfg = self.cfg
         dev = self.device
         v = cfg.num_views
         if prompt_embeds is None:
+            prompt_embeds = self.default_prompt_embeds
+        if prompt_embeds is None:
             prompt_embeds = torch.zeros(cfg.prompt_tokens, cfg.prompt_dim)
         prompt_embeds = torch.as_tensor(prompt_embeds, dtype=torch.float32,
                                         device=dev)
+        if negative_embeds is None:
+            negative_embeds = self.default_negative_embeds
         if negative_embeds is None:
             negative_embeds = torch.zeros_like(prompt_embeds)
         negative_embeds = torch.as_tensor(negative_embeds,

@@ -2,9 +2,8 @@
 orbit renders.
 
 Port of `comfy3d_tpu/models/triposr/pipeline.py`. Weights are either drawn
-from a seed (`init_random`; drawn on the CPU, so a seed gives the same
-weights on every device) or loaded from the public checkpoint's native
-torch state dict (`from_pretrained`, strict, no conversion table).
+from a seed (`init_random`; drawn on the target device) or loaded from
+the public checkpoint's native torch state dict (`from_pretrained`, strict, no conversion table).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from ... import resolve_device
 from ...core.camera import Camera, get_rays
 from ...core.mesh import Mesh
 from ...ops import raymarch, tetra, volume
-from ..common import init_weights_
+from ..common import init_weights_, seeded_model
 from .model import TripoSR, TripoSRConfig
 
 # the profiler spans of `TripoSRPipeline.extract_mesh`, in the order it runs
@@ -38,9 +37,9 @@ def _init_params(model: TripoSR, generator: torch.Generator) -> None:
     with torch.no_grad():
         emb = model.image_tokenizer.model.embeddings
         for p in (emb.cls_token, emb.position_embeddings):
-            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * 0.02)
         tok = model.tokenizer.embeddings
-        tok.copy_(torch.randn(tok.shape, generator=generator)
+        tok.copy_(torch.randn(tok.shape, generator=generator, device=generator.device)
                   / tok.shape[1] ** 0.5)
 
 
@@ -57,13 +56,10 @@ class TripoSRPipeline:
     @classmethod
     def init_random(cls, seed: int = 0, cfg: TripoSRConfig = TripoSRConfig(),
                     device=None) -> "TripoSRPipeline":
-        """Weights drawn from `seed`, placed on `device` (default: the
-        card)."""
-        with torch.device("meta"):
-            model = TripoSR(cfg)
-        model = model.to_empty(device="cpu")
-        _init_params(model, torch.Generator().manual_seed(seed))
-        return cls(model.to(resolve_device(device)))
+        """Weights drawn from `seed` on `device` (default: the card;
+        `common.seeded_model`)."""
+        return cls(seeded_model(lambda: TripoSR(cfg), _init_params, seed,
+                                device))
 
     @classmethod
     def from_pretrained(cls, path: str, cfg: TripoSRConfig = TripoSRConfig(),

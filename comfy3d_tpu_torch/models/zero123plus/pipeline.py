@@ -18,8 +18,8 @@ Port of `comfy3d_tpu/models/zero123plus/pipeline.py`:
 
 The model's state dict holds `unet.*` and `vae.*` (diffusers' names). The
 image enters and the grid leaves as the node layer holds images,
-[H, W, 3] in [0, 1]; the modules run NCHW. `from_pretrained` waits for
-weights in the repository (ROADMAP A.6.3).
+[H, W, 3] in [0, 1]; the modules run NCHW. `from_pretrained` reads a
+sudo-ai/zero123plus directory.
 """
 
 from __future__ import annotations
@@ -30,9 +30,8 @@ from typing import Callable, Mapping, Optional
 import torch
 from torch import nn
 
-from ... import resolve_device
 from ...core.image import resize_images
-from ..common import init_weights_
+from ..common import init_weights_, seeded_model
 from ..diffusion.schedulers import SchedulerConfig, make_scheduler
 from ..diffusion.unet import UNet2DCondition, UNetConfig
 from ..diffusion.vae import AutoencoderKL, VAEConfig
@@ -101,20 +100,53 @@ class Zero123PlusPipeline:
                     cfg: Zero123PlusConfig = Zero123PlusConfig(),
                     device=None) -> "Zero123PlusPipeline":
         """Weights drawn from `seed` in the JAX package's scheme
-        (`common.init_weights_`, on the CPU, so a seed gives the same
-        weights on every device), placed on `device` (default: the card)."""
-        device = resolve_device(device)
-        with torch.device("meta"):
-            model = Zero123Plus(cfg)
-        model = model.to_empty(device="cpu")
-        init_weights_(model, torch.Generator().manual_seed(seed))
-        return cls(model.to(device))
+        (`common.init_weights_`) on `device` (default: the card;
+        `common.seeded_model`)."""
+        return cls(seeded_model(lambda: Zero123Plus(cfg), init_weights_, seed,
+                                device))
 
     @classmethod
-    def from_pretrained(cls, path: str, **kwargs):
-        raise NotImplementedError(
-            "Zero123PlusPipeline.from_pretrained is not ported (ROADMAP "
-            "A.6.3: with checkpoints in the repository)")
+    def from_pretrained(cls, path: str, device=None,
+                        **cfg_overrides) -> "Zero123PlusPipeline":
+        """A sudo-ai/zero123plus-v1.x diffusers directory
+        (`model_index.json`, unet/, vae/, text_encoder/, vision_encoder/),
+        as the reference's `DiffusionPipeline.from_pretrained` composes it
+        (`Zero123Plus/pipeline.py:272-313`): the UNet and VAE loaded
+        strictly, the ramping coefficients from model_index.json, the
+        prompt embedding the empty prompt's when text_encoder/ holds
+        weights, and the projected CLIP vision conditioner when
+        vision_encoder/ does; on `device` (default: the card)."""
+        import os
+        from ..clip import make_vision_conditioner
+        from ..diffusion.config import (encode_empty_prompt,
+                                        has_weights_file,
+                                        load_clip_vision_dir, load_module,
+                                        unet_config_from_json,
+                                        vae_config_from_json)
+        from ..loader import load_dir_state_dict, read_json_config
+        index = read_json_config(os.path.join(path, "model_index.json"))
+        parts = {name: os.path.join(path, name) for name in ("unet", "vae")}
+        raw = {name: read_json_config(os.path.join(p, "config.json"))
+               for name, p in parts.items()}
+        unet_cfg = unet_config_from_json(raw["unet"])
+        cfg = Zero123PlusConfig(
+            unet=unet_cfg, vae=vae_config_from_json(raw["vae"]),
+            prompt_dim=unet_cfg.cross_attention_dim, **cfg_overrides)
+        sd = {f"{name}.{k}": v for name, p in parts.items()
+              for k, v in load_dir_state_dict(p).items()}
+        model = load_module(lambda: Zero123Plus(cfg), sd, device)
+        ramping = index.get("ramping_coefficients")
+        ramping = (torch.zeros(cfg.prompt_tokens) if not ramping
+                   else torch.tensor(ramping, dtype=torch.float32))
+        te = os.path.join(path, "text_encoder")
+        prompt_embeds = (encode_empty_prompt(te, device)
+                         if has_weights_file(te) else None)
+        pipe = cls(model, prompt_embeds=prompt_embeds, ramping=ramping)
+        ve = os.path.join(path, "vision_encoder")
+        if has_weights_file(ve):
+            pipe.set_vision_encoder(make_vision_conditioner(
+                load_clip_vision_dir(ve, device)[1].eval()))
+        return pipe
 
     def set_vision_encoder(self, fn):
         self.vision_encoder = fn

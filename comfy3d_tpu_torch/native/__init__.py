@@ -4,8 +4,8 @@ The port's copy of `comfy3d_tpu/native/`: the same C++ source, bound for
 the functions the port's paths call: `clean_mesh` and `decimate_mesh` (the
 GS→mesh converter, the Hunyuan3D nodes' cleanup and remesh) and
 `inpaint_vertex_colors` (the Hunyuan3D paint bake,
-`algorithms/color_project.py`). The source also holds `isotropic_remesh`,
-unbound until a path of the port calls it.
+`algorithms/color_project.py`) and `isotropic_remesh` (the Decimate_Mesh
+node's remesh).
 
 The library is built with g++ at first use into `comfy3d_tpu_torch/_build/`
 (listed in `.gitignore`), named after a hash of the source and the flags,
@@ -86,6 +86,11 @@ def load() -> ctypes.CDLL:
         lib.decimate_mesh.argtypes = [
             _f32p(), ctypes.c_int, _i32p(), ctypes.c_int, ctypes.c_int,
             _f32p(), _i32p(), _i32p(), _i32p()]
+        lib.isotropic_remesh.restype = ctypes.c_int
+        lib.isotropic_remesh.argtypes = [
+            _f32p(), ctypes.c_int, _i32p(), ctypes.c_int,
+            ctypes.c_float, ctypes.c_int,
+            _f32p(), _i32p(), _i32p(), _i32p(), ctypes.c_int, ctypes.c_int]
         lib.inpaint_vertex_colors.restype = ctypes.c_int
         lib.inpaint_vertex_colors.argtypes = [
             _f32p(), ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
@@ -140,6 +145,42 @@ def decimate_mesh(verts: np.ndarray, faces: np.ndarray, target_faces: int):
     lib.decimate_mesh(_ptr(verts, _f32p), len(verts), _ptr(faces, _i32p),
                       len(faces), int(target_faces), _ptr(ov, _f32p),
                       _ptr(of, _i32p), ctypes.byref(nv), ctypes.byref(nf))
+    return ov[:nv.value].copy(), of[:nf.value].copy()
+
+
+def isotropic_remesh(verts: np.ndarray, faces: np.ndarray,
+                     target_len: float | None = None,
+                     target_frac: float = 0.01, iterations: int = 3):
+    """Botsch–Kobbelt isotropic explicit remeshing (pymeshlab's
+    `meshing_isotropic_explicit_remeshing` role, reference
+    `mesh_processer/mesh_utils.py:272`). `target_len` is the target edge
+    length, by default `target_frac` of the bounding box's diagonal. The
+    output capacity is an equilateral tiling of the surface at that length
+    with headroom; a result that hits it is truncated, with a notice, as in
+    the JAX package. Returns (verts, faces)."""
+    verts, faces = _mesh_arrays(verts, faces)
+    if len(faces) == 0 or len(verts) == 0:
+        return verts.copy(), faces.copy()
+    if target_len is None:
+        diag = float(np.linalg.norm(verts.max(0) - verts.min(0)))
+        target_len = max(target_frac * diag, 1e-8)
+    e1 = verts[faces[:, 1]] - verts[faces[:, 0]]
+    e2 = verts[faces[:, 2]] - verts[faces[:, 0]]
+    area = float(0.5 * np.linalg.norm(np.cross(e1, e2), axis=1).sum())
+    tri_area = (3 ** 0.5 / 4) * target_len ** 2
+    est_f = int(area / max(tri_area, 1e-12) * 2.0) + len(faces) * 4 + 64
+    max_f = int(min(max(est_f, 1024), 8_000_000))
+    max_v = max_f
+    ov = np.empty((max_v, 3), np.float32)
+    of = np.empty((max_f, 3), np.int32)
+    nv, nf = ctypes.c_int32(0), ctypes.c_int32(0)
+    rc = load().isotropic_remesh(
+        _ptr(verts, _f32p), len(verts), _ptr(faces, _i32p), len(faces),
+        float(target_len), int(iterations), _ptr(ov, _f32p),
+        _ptr(of, _i32p), ctypes.byref(nv), ctypes.byref(nf), max_v, max_f)
+    if rc:
+        print("[native] isotropic_remesh: capacity hit, result truncated "
+              "(raise target_len)")
     return ov[:nv.value].copy(), of[:nf.value].copy()
 
 

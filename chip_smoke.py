@@ -273,14 +273,40 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      K3′ 300); K1′ and K3′ on the fitted splat from the fit's view 0
      against their plain versions (phases 3 and 5's tolerances). The
      graphs' images and records go to chiprun_out/workflows/.
-Phases 11–13 and 16–18 launch none of the compositor kernels (counted).
-It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
+ 20. CRM image → mesh and ImageDream → LGM (the CRM nodes; `MVDreamPipeline`
+     at the SD-2.1 ipmv config `load_ldm_checkpoint` builds, 16 IP tokens,
+     with a ViT-H/14 penultimate conditioner; `CRMReconPipeline` at
+     `CRMConfig()`; weights from seeds drawn on the card). a. the card
+     against the port's CPU path with TF32 off at one resnet per block, 2
+     ViT-H layers, 2 views (+ the pinned frame) and a 64×192 strip: the
+     penultimate states, the IP tokens, the pinned latent, a guided UNet
+     call of the pixel stage and of the CCM stage (with its pixel
+     latents), the planes and the SDF, deformation and rgb at 32,768
+     probes, each within 1e-3 of its largest value; b. the pixel stage
+     (six views + the pinned frame, 50 DDIM steps, CFG 5.5, seed 1234 on a
+     256² reference composited on white): the sampling and one guided step
+     by CUDA events, f32 and TF32, the step's FLOPs, a profile of it (idle
+     share, SDPA kernel), peak memory, views finite in [0, 1]; c. the CCM
+     stage on b's views, the same measures; d. the reconstructor on b's
+     views and c's CCMs: the forward (f32, TF32, FLOPs), the 81³ query, the
+     extraction and the colours, each timed, the call on the host's clock,
+     counts, a GLB round trip, and with `sdfMlp.fc3` zeroed the sphere of
+     radius 0.5: its area within 1 % of π, no overflow; e. the CRM graph
+     (`config_graph("crm")`, the nodes' defaults, 2 × 50 steps) and the T2I
+     V2 graph (10 steps) through `run_graph` (launches all 0); f.
+     ImageDream at the imagedream-ipmv widths (four views + the pinned
+     frame, 30 steps, CFG 5) → LGM → the converter's 24-view orbit: K1′ 24,
+     on view 0 against its plain version with phase 3's gates, its time
+     and bound. It prints a `{"crm": {...}}` line.
+Phases 11–13, 16–18 and 20a–e launch none of the compositor kernels
+(counted). It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
 `{"gs_to_mesh": {...}}`, a `{"zero123plus_instantmesh": {...}}`, a
 `{"hunyuan3d_shape": {...}}` and a `{"hunyuan3d_paint": {...}}` line, a
 `{"workflows": {...}}` line (each graph's seconds, per-node split, peak
-memory and launches), one `{"kernels": [...]}` line (the graphs' counts in
-`launches_by_path`), then the `nvidia-smi` line, and as its last
+memory and launches), a `{"crm": {...}}` line, one `{"kernels": [...]}`
+line (the graphs' counts in `launches_by_path`, ImageDream → LGM's view 0
+in K1′'s `by_path`), then the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
 Without a CUDA device, or without the repository beside this file, it exits
@@ -2427,7 +2453,8 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
         th = time.perf_counter()
         mv, lgm = pipe_on(host_mv, d), pipe_on(host_lgm, d)
         x = torch.as_tensor(x_np, device=d)
-        states, cam2 = mv.conditioning(elevation=MV_ELEVATION)
+        cond = mv.conditioning(elevation=MV_ELEVATION)
+        states, cam2 = cond.states, cond.cam_emb
         o = {"unet": mv.model.unet(
                 torch.cat([x, x]), torch.full((2 * v,), float(t_first),
                                               device=d),
@@ -3967,10 +3994,12 @@ def config_graph(n, image="reference.png", rgba="reference_rgba.png",
                  mesh="uv_cube.glb", splat="splat_100k.ply",
                  sphere="sphere.ply", gs_size=None, fit_size=None):
     """The workflow of config `n` (1, 2, 3, 4, "5_shape", "5_texgen",
-    "5_full") or of the 3DGS fit ("3dgs_fit") at the nodes' defaults, its
-    files named relative to the nodes' input root; only the standard
-    library is needed to build it."""
-    out = f"{WF_DIR}/{n if n == '3dgs_fit' else f'config{n}'}"
+    "5_full"), of the 3DGS fit ("3dgs_fit") or of CRM ("crm": image → six
+    views → six CCMs → mesh; "crm_t2i": the T2I V2 views of the image read
+    as normal maps) at the nodes' defaults, its files named relative to the
+    nodes' input root; only the standard library is needed to build it."""
+    out = f"{WF_DIR}/" + (n if n in ("3dgs_fit", "crm", "crm_t2i")
+                          else f"config{n}")
     gs_size = WF_GS_SIZE if gs_size is None else gs_size
     fit_size = WF_FIT_SIZE if fit_size is None else fit_size
     load_rgba = [(1, "LoadImage", [rgba], {}),
@@ -4061,6 +4090,34 @@ def config_graph(n, image="reference.png", rgba="reference_rgba.png",
              {"texgen_pipe": (5, 0), "mesh_path": (4, 0), "image": (3, 1)}),
             (7, C3D + "Save 3D Mesh", [f"{out}_textured.glb"],
              {"mesh": (6, 0)}))
+    crm_mv = ["3D assets", "ugly, blurry", 1234, "fixed", 5.5, 50]
+    ref = {"reference_image": (1, 0), "reference_mask": (2, 0)}
+    if n == "crm":           # upstream's CRM workflow
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load CRM MVDiffusion Model", ["pixel-diffusion"], {}),
+            (4, C3D + "CRM Images MVDiffusion Model", crm_mv,
+             {"crm_mvdiffusion_sampler": (3, 0), **ref}),
+            (5, C3D + "CRM CCMs MVDiffusion Model", crm_mv,
+             {"crm_mvdiffusion_sampler": (3, 1), **ref,
+              "multiview_images": (4, 0)}),
+            (6, C3D + "Load Convolutional Reconstruction Model", ["CRM.pth"],
+             {}),
+            (7, C3D + "Convolutional Reconstruction Model", [],
+             {"crm_model": (6, 0), "multiview_images": (4, 0),
+              "multiview_CCMs": (5, 0)}),
+            (8, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (7, 0)}),
+            (9, "SaveImage", [f"{out}_views"], {"images": (4, 0)}),
+            (10, "SaveImage", [f"{out}_ccms"], {"images": (5, 0)}))
+    if n == "crm_t2i":       # CRM T2I V2's views
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load CRM T2I V2 Models",
+             ["pixel-diffusion.pth", "sd_v2_base_ipmv_zero_SNR.yaml"], {}),
+            (4, C3D + "CRM T2I V2 Models", crm_mv,
+             {"t2iadapter_v2": (3, 0), "crm_mvdiffusion_sampler_v2": (3, 1),
+              **ref, "normal_maps": (1, 0)}),
+            (5, "SaveImage", [f"{out}_views"], {"images": (4, 0)}))
     if n == "3dgs_fit":      # a mesh's orbit renders → 3DGS → its renders
         return workflow(
             (1, C3D + "Load 3D Mesh", [sphere, False, True, False, False],
@@ -4346,6 +4403,438 @@ def workflows_path(dev, asset_dir, lgm_splat):
     del res, fitted, renders, inp, fwd, kargs, bargs
     torch.cuda.empty_cache()
     return recs
+
+
+# ------------------------------------------------------------------ #
+# CRM image → six views → six CCMs → mesh; ImageDream → LGM (phase 20)
+# ------------------------------------------------------------------ #
+TOL_CRM_REL = 1e-3       # card vs CPU, of the largest value, TF32 off
+CRM_STEPS = 50           # the CRM samplers' nodes' defaults
+CRM_GUIDANCE = 5.5
+CRM_SEED = 1234
+CRM_T2I_STEPS = 10       # 20e's T2I V2 graph (the node's 50, cut)
+CRM_VIEW = 256           # the reference image the samplers take
+CRM_SPHERE_TOL = 0.01    # 20d: the analytic sphere's area, of π
+ID_STEPS = 30            # 20f: the MVDream_Model node's defaults
+ID_GUIDANCE = 5.0
+# 20a's cut (the widths kept): one resnet per block in the UNets and the
+# VAE, 2 ViT-H layers, 2 views (+ the pinned frame), a 64×192 strip
+CRM_SMALL = dict(layers_per_block=1, clip_layers=2, views=2, plane=64)
+
+
+def crm_mv_config(in_channels, num_views=6, **overrides):
+    """The SD-2.1 ImageDream config `load_ldm_checkpoint` builds (16 IP
+    tokens): CRM's pixel stage (4 input channels) and CCM stage (8), and at
+    4 views the imagedream-ipmv widths."""
+    from comfy3d_tpu_torch.models.mvdream.convert import ldm_config
+    return ldm_config(in_channels, num_views=num_views, **overrides)
+
+
+def crm_vision_config(**overrides):
+    """ImageDream's OpenCLIP ViT-H/14 visual tower."""
+    import dataclasses
+    from comfy3d_tpu_torch.models.mvdream.convert import ldm_vision_config
+    return dataclasses.replace(ldm_vision_config(), **overrides)
+
+
+def crm_recon_config(**overrides):
+    import dataclasses
+    from comfy3d_tpu_torch.models.crm import CRMConfig
+    return dataclasses.replace(CRMConfig(), **overrides)
+
+
+def vision_encoder_on(seed, cfg, device):
+    """A CLIP vision encoder with weights from `seed` drawn on `device`: the
+    JAX package's scheme for its linear, conv and norm layers, the class
+    token and positions normal with std 0.02."""
+    import torch
+    from comfy3d_tpu_torch.models import clip
+    from comfy3d_tpu_torch.models.common import init_weights_, seeded_model
+
+    def init(model, gen):
+        init_weights_(model, gen)
+        emb = model.embeddings
+        with torch.no_grad():
+            for p in (emb.class_embedding, emb.position_embedding.weight):
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    device=gen.device) * 0.02)
+    return seeded_model(lambda: clip.CLIPVisionEncoder(cfg), init, seed,
+                        device).eval()
+
+
+def crm_reference(size=CRM_VIEW):
+    """`reference_image(size)` composited on white over its disc, as the
+    CRM nodes take it: [S, S, 3]."""
+    import numpy as np
+    img, mask = reference_image(size)
+    return (img[0] * mask[0, ..., None]
+            + (1.0 - mask[0, ..., None])).astype(np.float32)
+
+
+def sampler_stage(name, pipe, steps, guidance, sample_kw, gen_seed):
+    """One multi-view sampler at full width: the whole sampling by CUDA
+    events in f32 and in TF32, one guided step timed (f32, TF32), its FLOPs
+    counted from the shapes (`torch.utils.flop_counter`), profiled (the
+    idle share of the profiled window, the SDPA kernels) and the peak
+    memory of the sampling. Returns (record, the f32 views)."""
+    import torch
+    from comfy3d_tpu_torch.models.diffusion.schedulers import (
+        SchedulerConfig, make_scheduler)
+
+    def sample():
+        return pipe(num_inference_steps=steps, guidance_scale=guidance,
+                    generator=torch.Generator().manual_seed(gen_seed),
+                    **sample_kw)
+
+    pipe(num_inference_steps=2, guidance_scale=guidance, **sample_kw)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    views = sample()
+    end.record()
+    torch.cuda.synchronize()
+    views_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    views_tf32_ms = tf32_ms(sample, 1, warmup=0)
+    cond = pipe.conditioning(**{k: v for k, v in sample_kw.items()
+                                if k in ("image", "pixel_images")})
+    sched = make_scheduler(pipe.scheduler_name, SchedulerConfig(), steps)
+    x0 = pipe.initial_latents(torch.Generator().manual_seed(gen_seed),
+                              cond.frames)
+    t0 = int(sched.timesteps[0])
+
+    def one_step():
+        return sched.step(pipe.guided_eps(x0, t0, cond, guidance), 0, x0)
+
+    step_ms = cuda_ms(one_step, 5, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 5)
+    flops = flops_of(one_step)
+    prof = profile_frames(one_step, 2, match=SDPA_KERNELS)
+    prof["device_idle_share"] = 1.0 - prof["device_union_ms"] \
+        / prof["window_ms"]
+    rec = {"steps": steps, "guidance_scale": guidance,
+           "frames": cond.frames, "cfg_batch": 2 * cond.frames,
+           "ms": views_ms, "ms_tf32": views_tf32_ms, "peak_bytes": peak,
+           "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
+           "step_tflop": flops / 1e12,
+           "step_tflops_s": flops / step_ms / 1e9,
+           "step_tflops_s_tf32": flops / step_tf32_ms / 1e9,
+           "step_profile": {k: v for k, v in prof.items() if k != "top"},
+           "step_profile_top": prof["top"][:6],
+           "params": count_params(pipe.model.unet),
+           "mean": float(views.mean()),
+           "clipped_share": float(((views == 0) | (views == 1)).float()
+                                  .mean())}
+    check(tuple(views.shape) == (pipe.cfg.num_views, pipe.cfg.image_size,
+                                 pipe.cfg.image_size, 3),
+          f"{name}: views {tuple(views.shape)}")
+    check(bool(torch.isfinite(views).all()) and float(views.min()) >= 0.0
+          and float(views.max()) <= 1.0, f"{name}: views not in [0, 1]")
+    log(f"crm {name}: {rec}")
+    return rec, views
+
+
+def crm_path(dev, asset_dir, smi_line):
+    """Phase 20: CRM's image → six views → six CCMs → mesh at the
+    samplers' SD-2.1 ipmv widths (`load_ldm_checkpoint`'s config, a ViT-H/14
+    penultimate conditioner) and `CRMConfig()`, the CRM graphs at the
+    nodes' defaults, and ImageDream → LGM → the converter's orbit. Weights
+    from seeds, drawn on the card. Runs under `torch.no_grad()`."""
+    import copy as copy_
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.algorithms.gs_to_mesh import (GSToMeshConfig,
+                                                         orbit_cameras)
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models import clip
+    from comfy3d_tpu_torch.models.crm import CRMReconPipeline
+    from comfy3d_tpu_torch.models.crm.pipeline import CRM_STAGES
+    from comfy3d_tpu_torch.models.diffusion.schedulers import (
+        DDIM, SchedulerConfig)
+    from comfy3d_tpu_torch.models.lgm import LGMConfig, LGMPipeline
+    from comfy3d_tpu_torch.models.diffusion.config import load_module
+    from comfy3d_tpu_torch.models.mvdream import MVDream, MVDreamPipeline
+    from comfy3d_tpu_torch.ops import gs_flat, tetra
+    from comfy3d_tpu_torch.ops import gs_render as G
+
+    cpu = torch.device("cpu")
+    rec = {"card": smi_line, "seed": CRM_SEED}
+    ref_img = crm_reference()
+    rng = np.random.RandomState(20)
+
+    # a. the card against the port's CPU path at reduced depth, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    sm = CRM_SMALL
+    v = sm["views"]
+
+    def small_mv(cin):
+        c = crm_mv_config(cin, num_views=v)
+        return dataclasses.replace(
+            c, unet=dataclasses.replace(
+                c.unet, layers_per_block=sm["layers_per_block"]),
+            vae=dataclasses.replace(
+                c.vae, layers_per_block=sm["layers_per_block"]))
+
+    host_enc = vision_encoder_on(1, crm_vision_config(
+        layers=sm["clip_layers"]), cpu)
+    host_pix = MVDreamPipeline.init_random(0, small_mv(4), device=cpu)
+    # the CCM stage shares the pixel stage's host draw, its conv_in's 4
+    # more input channels a copy of the first 4 (the std kept)
+    sd = dict(host_pix.model.state_dict())
+    w = sd["unet.conv_in.weight"]
+    sd["unet.conv_in.weight"] = torch.cat([w, w], 1) * 0.5 ** 0.5
+    host_ccm = MVDreamPipeline(load_module(lambda: MVDream(small_mv(8)), sd,
+                                           cpu))
+    del sd, w
+    host_crm = CRMReconPipeline.init_random(0, crm_recon_config(
+        plane_resolution=sm["plane"], unet=dataclasses.replace(
+            crm_recon_config().unet,
+            layers_per_block=sm["layers_per_block"])), device=cpu)
+    pix_np = rng.rand(v, 256, 256, 3).astype(np.float32)
+    lat = host_pix.cfg.image_size // host_pix.cfg.vae_factor
+    x_np = rng.randn(v + 1, 4, lat, lat).astype(np.float32)
+    strip_np = rng.rand(sm["plane"], 3 * sm["plane"], 12).astype(np.float32)
+    probes_np = (rng.rand(PROBES, 3) * 2 - 1).astype(np.float32)
+    cs = host_enc.cfg.image_size
+    clip_np = rng.rand(1, 3, cs, cs).astype(np.float32)
+    t_first = int(DDIM(SchedulerConfig(), CRM_STEPS).timesteps[0])
+    outs = {}
+    for d in (cpu, dev):
+        th = time.perf_counter()
+        enc = copy_.deepcopy(host_enc).to(d)
+        pix, ccm, crm = (pipe_on(p, d) for p in (host_pix, host_ccm,
+                                                 host_crm))
+        for p in (pix, ccm):
+            p.set_vision_encoder(clip.make_vision_hidden_conditioner(enc))
+        x = torch.as_tensor(x_np, device=d)
+        c_pix = pix.conditioning(image=ref_img)
+        c_ccm = ccm.conditioning(image=ref_img, pixel_images=pix_np)
+        planes = crm.planes(strip_np)
+        sdf, deform, rgb = crm.model.query(planes, torch.as_tensor(
+            probes_np, device=d))
+        o = {"clip_penultimate": enc(torch.as_tensor(clip_np, device=d),
+                                     project="penultimate")[0],
+             "ip_tokens": c_pix.states[-1, -pix.cfg.ip_dim:],
+             "pinned_latent": c_pix.pinned[1],
+             "pixel_eps": pix.guided_eps(x, t_first, c_pix, CRM_GUIDANCE),
+             "pixel_latents": c_ccm.pixels[v:],
+             "ccm_eps": ccm.guided_eps(x[:v], t_first, c_ccm, CRM_GUIDANCE),
+             "planes": planes, "sdf": sdf, "deform": deform, "rgb": rgb}
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        outs[d.type] = o
+        outs[d.type + "_s"] = time.perf_counter() - th
+        del enc, pix, ccm, crm
+    parity = {"cut": sm, "t": t_first, "host_s": outs["cpu_s"],
+              "card_s": outs[dev.type + "_s"]}
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"crm a. card vs CPU (TF32 off): {parity}")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_CRM_REL,
+              f"crm {k}: card vs CPU {parity[k + '_rel_err']:.3g} of the "
+              f"largest value")
+    rec["card_vs_cpu"] = parity
+    del outs, host_enc, host_pix, host_ccm, host_crm
+    rec["a_s"] = time.perf_counter() - t0
+
+    # b. the pixel stage at full width: 6 views + the pinned frame
+    t0 = time.perf_counter()
+    reset_launches()
+    enc = vision_encoder_on(1, crm_vision_config(), dev)
+    pix = MVDreamPipeline.init_random(0, crm_mv_config(4), device=dev)
+    pix.set_vision_encoder(clip.make_vision_hidden_conditioner(enc))
+    init_s = time.perf_counter() - t0
+    clip_ms = cuda_ms(lambda: pix.vision_encoder(ref_img), 5)
+    rec["pixel"], views = sampler_stage(
+        "b. pixel stage", pix, CRM_STEPS, CRM_GUIDANCE, {"image": ref_img},
+        CRM_SEED)
+    rec["pixel"].update(init_s=init_s, clip_ms=clip_ms,
+                        clip_params=count_params(enc),
+                        resampler_params=count_params(pix.model.image_embed))
+    del pix
+    torch.cuda.empty_cache()
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. the CCM stage at full width: the pixel views' latents, 6 frames
+    t0 = time.perf_counter()
+    ccm = MVDreamPipeline.init_random(1, crm_mv_config(8), device=dev)
+    ccm.set_vision_encoder(clip.make_vision_hidden_conditioner(enc))
+    rec["ccm"], ccms = sampler_stage(
+        "c. CCM stage", ccm, CRM_STEPS, CRM_GUIDANCE,
+        {"image": ref_img, "pixel_images": views}, CRM_SEED + 1)
+    del ccm
+    torch.cuda.empty_cache()
+    rec["c_s"] = time.perf_counter() - t0
+
+    # d. the reconstructor at CRMConfig(): forward, 81³ query, extraction,
+    # colours, each timed; an analytic sphere
+    t0 = time.perf_counter()
+    crm = CRMReconPipeline.init_random(0, crm_recon_config(), device=dev)
+    rcfg = crm.cfg
+    strip = crm.make_strip(views, ccms)
+    fwd_ms = cuda_ms(lambda: crm.planes(strip), 3, warmup=1)
+    fwd_tf32_ms = tf32_ms(lambda: crm.planes(strip), 3)
+    fwd_flops = flops_of(lambda: crm.planes(strip))
+    planes = crm.planes(strip)
+    query_ms = cuda_ms(lambda: crm.sdf_grid(planes), 3, warmup=1)
+    grid = crm.sdf_grid(planes)
+    res = rcfg.tet_grid_size + 1
+    check(tuple(grid.shape) == (res,) * 3 and bool(torch.isfinite(
+        grid).all()), f"SDF grid {tuple(grid.shape)}")
+    te = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mesh = tetra.extract_isosurface(grid, iso=0.0, bounds=(-1.0, 1.0))
+    extract_s = time.perf_counter() - te
+    tc = time.perf_counter()
+    if mesh.num_vertices:
+        mesh.vc = crm.vertex_colors(planes, mesh.v)
+    colors_s = time.perf_counter() - tc
+    torch.cuda.synchronize()
+    te = time.perf_counter()
+    mesh2 = crm(views, ccms)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - te
+    check(mesh.num_faces > 0 and int(mesh.f.max()) < mesh.num_vertices,
+          "empty or ill-formed CRM mesh")
+    check(mesh.vc is not None and np.isfinite(mesh.vc).all()
+          and mesh.vc.min() >= 0 and mesh.vc.max() <= 1, "vertex colours")
+    glb = os.path.join(asset_dir, "crm_mesh.glb")
+    mesh2.write(glb)
+    back = Mesh.load(glb)
+    check(np.array_equal(back.v, mesh2.v) and np.array_equal(
+        back.f, mesh2.f), "GLB round trip changed the mesh")
+    # the analytic gate: sdfMlp.fc3 zeroed, the SDF is 0.5 − ‖x‖
+    sph = copy_.deepcopy(crm.model)
+    sph.sdfMlp.fc3.weight.zero_()
+    sph.sdfMlp.fc3.bias.zero_()
+    sgrid = CRMReconPipeline(sph).sdf_grid(planes)
+    with warnings.catch_warnings(record=True) as s_caught:
+        warnings.simplefilter("always")
+        smesh = tetra.extract_isosurface(sgrid, iso=0.0, bounds=(-1.0, 1.0))
+    area = mesh_area(torch.as_tensor(smesh.v), torch.as_tensor(smesh.f))
+    sphere = {"nv": smesh.num_vertices, "nf": smesh.num_faces,
+              "area": area, "area_rel_err": abs(area - math.pi) / math.pi,
+              "overflow_warnings": [str(w.message) for w in s_caught],
+              "radius_max_err": float(np.abs(np.linalg.norm(
+                  smesh.v, axis=1) - 0.5).max())}
+    check(sphere["area_rel_err"] <= CRM_SPHERE_TOL and not s_caught,
+          f"CRM analytic sphere: {sphere}")
+    del sph
+    rec["recon"] = {
+        "config": dataclasses.asdict(rcfg),
+        "params": count_params(crm.model),
+        "forward_ms": fwd_ms, "forward_ms_tf32": fwd_tf32_ms,
+        "forward_tflop": fwd_flops / 1e12,
+        "forward_tflops_s": fwd_flops / fwd_ms / 1e9,
+        "query_ms": query_ms, "query_points": res ** 3,
+        "extract_s": extract_s, "colors_s": colors_s, "call_s": call_s,
+        "nv": mesh.num_vertices, "nf": mesh.num_faces,
+        "call_nf": mesh2.num_faces,
+        "call_equals_stages": bool(mesh2.num_faces == mesh.num_faces
+                                   and np.array_equal(mesh2.f, mesh.f)),
+        "overflow_warnings": [str(w.message) for w in caught],
+        "glb_bytes": os.path.getsize(glb), "analytic_sphere": sphere}
+    log(f"crm d. reconstructor: {rec['recon']}")
+    rec["launches"] = read_launches()
+    check(not any(rec["launches"].values()),
+          f"the CRM path launched a compositor kernel: {rec['launches']}")
+    del crm, planes, grid, sgrid
+    torch.cuda.empty_cache()
+    rec["d_s"] = time.perf_counter() - t0
+
+    # e. the CRM graphs at the nodes' defaults, loaders drawing on the card
+    t0 = time.perf_counter()
+    graphs = {}
+    results, graphs["crm"] = run_graph("crm", config_graph("crm"),
+                                       spans=CRM_STAGES, device=dev)
+    g_mesh = results[7][0]
+    check(g_mesh.num_faces > 0 and tuple(results[4][0].shape)
+          == tuple(results[5][0].shape) == (6, CRM_VIEW, CRM_VIEW, 3),
+          "the CRM graph's views, CCMs or mesh")
+    graphs["crm"].update(nv=g_mesh.num_vertices, nf=g_mesh.num_faces)
+    results, graphs["crm_t2i"] = run_graph(
+        "crm_t2i", config_graph("crm_t2i"),
+        {4: {"num_inference_steps": CRM_T2I_STEPS}}, device=dev)
+    check(tuple(results[4][0].shape) == (6, CRM_VIEW, CRM_VIEW, 3),
+          "the T2I graph's views")
+    graphs["crm_t2i"]["steps"] = CRM_T2I_STEPS
+    for name, g in graphs.items():
+        check(not any(g["launches"].values()),
+              f"graph {name} launched a compositor kernel: {g['launches']}")
+    rec["graphs"] = graphs
+    del results, g_mesh
+    torch.cuda.empty_cache()
+    rec["e_s"] = time.perf_counter() - t0
+
+    # f. ImageDream (4 views + the pinned frame) → LGM → the orbit via K1′
+    t0 = time.perf_counter()
+    idp = MVDreamPipeline.init_random(2, crm_mv_config(4, num_views=4),
+                                      device=dev)
+    idp.set_vision_encoder(clip.make_vision_hidden_conditioner(enc))
+    lgm = LGMPipeline.init_random(0, LGMConfig(), device=dev)
+    torch.cuda.synchronize()
+    ti = time.perf_counter()
+    id_views = idp(image=ref_img, num_inference_steps=ID_STEPS,
+                   guidance_scale=ID_GUIDANCE,
+                   generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    views_s = time.perf_counter() - ti
+    check(tuple(id_views.shape) == (4, CRM_VIEW, CRM_VIEW, 3) and bool(
+        torch.isfinite(id_views).all()), "ImageDream views")
+    splat = lgm.forward_gaussians(id_views)
+    g2m_cfg = GSToMeshConfig()
+    cams = orbit_cameras(g2m_cfg, device=dev)
+    kw = dict(background=(1.0, 1.0, 1.0), backend="flat")
+    torch.cuda.synchronize()
+    reset_launches()
+    out = G.render(splat, cams, **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches(launches, "flat", GS_ORBIT_VIEWS, 0,
+                    "ImageDream → LGM orbit")
+    img = out["image"]
+    check(bool(torch.isfinite(img).all()), "non-finite orbit")
+    orbit_ms = cuda_ms(lambda: G.render(splat, cams, **kw), 3, warmup=1)
+    cam0 = Camera(c2w=cams.c2w[0], fovy_deg=cams.fovy_deg[0],
+                  width=GS_ORBIT_SIZE, height=GS_ORBIT_SIZE, near=cams.near,
+                  far=cams.far)
+    inp = flat_inputs(splat, cam0)
+    cmp, (_, _, stops), plain_img = kernel_vs_plain("imagedream_lgm_view0",
+                                                    inp, True)
+    view0_db = psnr(img[0], plain_img)
+    check(view0_db >= TOL_PSNR_DB,
+          f"ImageDream orbit view 0 vs the plain compositor: {view0_db:.2f}")
+    box = flat_box_stats(inp, stops)
+    check_box(box, "ImageDream orbit view 0")
+    bound = flat_fwd_bound(inp, stops, box)
+    kargs, _ = flat_kernel_args(inp, True)
+    k_ms = cuda_ms(lambda: gs_flat.composite_bins_fwd_rows(*kargs), 20)
+    p_ms = cuda_ms(lambda: gs_flat.composite_bins_fwd_rows_plain(*kargs), 5,
+                   warmup=1)
+    rec["imagedream_lgm"] = {
+        "steps": ID_STEPS, "guidance_scale": ID_GUIDANCE, "frames": 5,
+        "image_to_views_s": views_s, "splats": splat.num_capacity,
+        "orbit": {"views": GS_ORBIT_VIEWS, "size": GS_ORBIT_SIZE,
+                  "launches": launches, "ms": orbit_ms,
+                  "view0": dict(cmp, view_vs_plain_psnr_db=view0_db,
+                                kernel_ms=k_ms, plain_ms=p_ms, box=box,
+                                bound=bound)}}
+    log(f"crm f. ImageDream → LGM: {rec['imagedream_lgm']}")
+    del idp, lgm, enc, splat, inp, out, img
+    torch.cuda.empty_cache()
+    rec["f_s"] = time.perf_counter() - t0
+    return rec
 
 
 def main(out_path=None) -> int:
@@ -4708,6 +5197,18 @@ def main(out_path=None) -> int:
     fit_view0, fit_bwd = wf["3dgs_fit"]["view0"], wf["3dgs_fit"]["view0_bwd"]
     lap("19_workflows")
 
+    # 20. CRM image → six views → six CCMs → mesh and the CRM graphs, where
+    # no compositor kernel may launch, then ImageDream → LGM → the
+    # converter's orbit, where K1′ launches once per view (counted in the
+    # phase)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        crm = record["crm"] = crm_path(dev, asset_dir, smi_line)
+    crm["s"] = time.perf_counter() - t0
+    id_orbit = crm["imagedream_lgm"]["orbit"]
+    id_view0 = id_orbit["view0"]
+    lap("20_crm_imagedream")
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
@@ -4722,7 +5223,11 @@ def main(out_path=None) -> int:
                 "hunyuan3d_shape": hy3d["launches"][name],
                 "hunyuan3d_paint": paint["launches"][name],
                 **{f"workflow_{k}": v["launches"][name]
-                   for k, v in wf.items()}}
+                   for k, v in wf.items()},
+                "crm": crm["launches"][name],
+                **{f"workflow_{k}": v["launches"][name]
+                   for k, v in crm["graphs"].items()},
+                "imagedream_lgm_orbit_24": id_orbit["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -4755,12 +5260,19 @@ def main(out_path=None) -> int:
             bound_by=fit_view0["bound"]["bound_by"],
             max_abs_err=max(fit_view0["max_abs_err_acc"],
                             fit_view0["max_abs_err_trans"]),
-            launches=wf["3dgs_fit"]["launches"]["gs_flat_fwd"])}
+            launches=wf["3dgs_fit"]["launches"]["gs_flat_fwd"]),
+        "imagedream_lgm_view0": dict(
+            ms=id_view0["kernel_ms"], plain_ms=id_view0["plain_ms"],
+            bound_ms=id_view0["bound"]["bound_ms"],
+            bound_by=id_view0["bound"]["bound_by"],
+            max_abs_err=max(id_view0["max_abs_err_acc"],
+                            id_view0["max_abs_err_trans"]),
+            launches=id_orbit["launches"]["gs_flat_fwd"])}
     kernel["max_abs_err"] = max(
         kernel["max_abs_err"],
         *(kernel["by_path"][k]["max_abs_err"]
           for k in ("mvdream_lgm_view0", "gs_to_mesh_view0",
-                    "3dgs_fit_view0")))
+                    "3dgs_fit_view0", "imagedream_lgm_view0")))
     kernel_bwd = {
         "name": "gs_flat_bwd", "route": "cuda",
         "source": "comfy3d_tpu_torch/csrc/gs_flat_bwd.cu",
@@ -4875,6 +5387,7 @@ def main(out_path=None) -> int:
     print(json.dumps({"workflows": {
         k: {key: v[key] for key in ("s", "peak_bytes", "launches", "nodes")}
         for k, v in wf.items()}}))
+    print(json.dumps({"crm": crm}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
 / `GSTrainState` with the same state. The JAX package's model params (nested
 dicts of arrays) become the port's native-layout state dicts
 (`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax`,
-`mvdream_state_dict_from_flax`, `lgm_state_dict_from_flax`,
+`mvdream_state_dict_from_flax` (with `resampler_state_dict_from_flax`),
+`lgm_state_dict_from_flax`, `crm_state_dict_from_flax` (with
+`unet2d_state_dict_from_flax`), `t2i_adapter_state_dict_from_flax`,
 `zero123plus_state_dict_from_flax`, `clip_vision_state_dict_from_flax`,
 `hunyuan3d_shape_state_dict_from_flax` (with `dinov2_`, `shape_vae_` and
 `hunyuan3d_dit_state_dict_from_flax`), `hunyuan3d_paint_state_dict_from_flax`
@@ -410,15 +412,98 @@ def vae_state_dict_from_flax(params) -> dict:
     return _tensors(_renamed_state_dict(params, _VAE_RENAMES))
 
 
+# the JAX package's Resampler names → ImageDream's checkpoint's
+_RESAMPLER_RENAMES = (
+    (r"^layers_(\d+)_attn", r"layers.\1.0"),
+    (r"^layers_(\d+)_norm", r"layers.\1.1.0"),
+    (r"^layers_(\d+)_fc1", r"layers.\1.1.1"),
+    (r"^layers_(\d+)_fc2", r"layers.\1.1.3"),
+)
+
+
+def resampler_state_dict_from_flax(params) -> dict:
+    """The JAX package's ImageDream `Resampler` params → the port's
+    `Resampler` state dict (the checkpoint's `image_embed.*` names without
+    the prefix: `latents`, `proj_in`, `layers.{i}.0.*` the perceiver
+    attention, `layers.{i}.1.{0,1,3}` the feed-forward, `proj_out`,
+    `norm_out`)."""
+    return _tensors(_renamed_params(params, _RESAMPLER_RENAMES))
+
+
 def mvdream_state_dict_from_flax(params) -> dict:
-    """The JAX package's MVDream params, `{"unet", "vae", "camera"}` → the
-    port's `MVDream` state dict: `unet.*`, `vae.*` and `camera_embed.{0,2}`
-    (MVDream's camera MLP)."""
+    """The JAX package's MVDream params, `{"unet", "vae", "camera"}` and for
+    ImageDream `"resampler"` → the port's `MVDream` state dict: `unet.*`
+    (with the cross-attentions' `to_k_ip` / `to_v_ip`), `vae.*`,
+    `camera_embed.{0,2}` (MVDream's camera MLP) and `image_embed.*`."""
     cam = params["camera"]
-    return {**_join("unet", unet_state_dict_from_flax(params["unet"])),
-            **_join("vae", vae_state_dict_from_flax(params["vae"])),
-            **_tensors({**_join("camera_embed.0", _dense(cam["linear_1"])),
-                        **_join("camera_embed.2", _dense(cam["linear_2"]))})}
+    sd = {**_join("unet", unet_state_dict_from_flax(params["unet"])),
+          **_join("vae", vae_state_dict_from_flax(params["vae"])),
+          **_tensors({**_join("camera_embed.0", _dense(cam["linear_1"])),
+                      **_join("camera_embed.2", _dense(cam["linear_2"]))})}
+    if "resampler" in params:
+        sd.update(_join("image_embed", resampler_state_dict_from_flax(
+            params["resampler"])))
+    return sd
+
+
+# the JAX package's UNet2DModel names → diffusers'
+_UNET2D_RENAMES = (
+    (r"^(down|up)_(\d+)_res_(\d+)", r"\1_blocks.\2.resnets.\3"),
+    (r"^(down|up)_(\d+)_attn_(\d+)", r"\1_blocks.\2.attentions.\3"),
+    (r"^down_(\d+)_down$", r"down_blocks.\1.downsamplers.0.conv"),
+    (r"^up_(\d+)_up$", r"up_blocks.\1.upsamplers.0.conv"),
+    (r"^mid_res_(\d+)", r"mid_block.resnets.\1"),
+    (r"^mid_attn", "mid_block.attentions.0"),
+    (r"^time_(\d)$", r"time_embedding.linear_\1"),
+    (r"to_out_0", "to_out.0"),
+)
+_CRM_MLPS = {"sdf_0": "sdfMlp.fc1", "sdf_1": "sdfMlp.fc2",
+             "sdf_2": "sdfMlp.fc3", "rgb_0": "rgbMlp.fc1",
+             "rgb_1": "rgbMlp.fc2", "rgb_2": "rgbMlp.fc3",
+             "weight_0": "weightMlp.0", "weight_1": "weightMlp.2"}
+
+
+def unet2d_state_dict_from_flax(params) -> dict:
+    """The JAX package's CRM `UNet2DModel` params → the port's state dict
+    (diffusers' `UNet2DModel` names)."""
+    return _tensors(_renamed_state_dict(params, _UNET2D_RENAMES))
+
+
+def crm_state_dict_from_flax(params) -> dict:
+    """The JAX package's `CRMModel` params → the port's `CRMModel` state
+    dict in `CRM.pth`'s names: `unet2.unet.*`, `unet2.learned_plane`
+    [1, C, P, 3P] (from [P, 3P, C]), `sdfMlp`, `rgbMlp`, `weightMlp`."""
+    sd = _join("unet2.unet", unet2d_state_dict_from_flax(params["unet2"]))
+    if "learned_plane" in params:
+        sd["unet2.learned_plane"] = torch.as_tensor(np.ascontiguousarray(
+            np.asarray(params["learned_plane"], np.float32)
+            .transpose(2, 0, 1)[None]))
+    for name, torch_name in _CRM_MLPS.items():
+        sd.update(_tensors(_join(torch_name, _dense(params[name]))))
+    return sd
+
+
+def t2i_adapter_state_dict_from_flax(params) -> dict:
+    """The JAX package's `T2IAdapter` params → the port's `T2IAdapter` state
+    dict (the diffusers `T2IAdapterV2` checkpoint's `adapter.*` names)."""
+    def name(path):
+        m = re.fullmatch(r"enc_(mid|down)_(\d+)", path)
+        if m:
+            n = 2 * int(m.group(2)) + (m.group(1) == "down")
+            return f"conv2d_img_encoder.blocks.{n}"
+        m = re.fullmatch(r"enc_conv_(in|out)", path)
+        if m:
+            return f"conv2d_img_encoder.conv_{m.group(1)}"
+        m = re.fullmatch(r"in_conv_(\d+)", path)
+        if m:
+            return f"body.{m.group(1)}.in_conv"
+        b, r, blk = re.fullmatch(r"res_(\d+)_(\d+)/(block[12])",
+                                 path).groups()
+        return f"body.{b}.resnets.{r}.{blk}"
+
+    return _tensors({f"adapter.{name(path)}.{k}": v
+                     for path, p in _modules(params)
+                     for k, v in _module_sd(p).items()})
 
 
 def zero123plus_state_dict_from_flax(params) -> dict:

@@ -3,13 +3,14 @@ substrate (`diffusion`: UNet, VAE, the samplers, the diffusers directory
 loaders), CLIP's text and vision encoders (`clip`), DINOv2 (`dinov2`), the vecset substrate (`vecset`: ShapeVAE and
 its octree decode, the flow DiT and its schedule), checkpoint files
 (`loader`) and the model families (`triposr`, `instantmesh`, `mvdream`,
-`lgm`, `zero123plus`, `hunyuan3d`: shape generation and paint).
+`lgm`, `zero123plus`, `hunyuan3d`: shape generation and paint, `crm`:
+the convolutional reconstruction model and CRM T2I's adapter).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("clip", "common", "diffusion", "dinov2", "hunyuan3d",
+_SUBMODULES = ("clip", "common", "crm", "diffusion", "dinov2", "hunyuan3d",
                "instantmesh", "lgm", "loader", "mvdream", "triposr", "vecset",
                "zero123plus")
 

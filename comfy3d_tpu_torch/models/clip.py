@@ -24,10 +24,12 @@ mlp.fc2, layer_norm2}`, `post_layernorm`, `visual_projection`,
 Images are NCHW inside the encoder; the conditioner takes the node
 layer's [B, H, W, 3].
 
-Not ported, each raising NotImplementedError naming its ROADMAP item: the
-penultimate hidden states (`project="penultimate"`) and
-`make_vision_hidden_conditioner` (ImageDream, A.6.4), and the camera-
-modulated blocks (`modulation_dim > 0`, Craftsman, A.10).
+ImageDream's image prompt reads the vision encoder's penultimate hidden
+states (`project="penultimate"`: the tokens that enter the last layer,
+without the post-LayerNorm; `make_vision_hidden_conditioner`).
+
+Not ported, raising NotImplementedError naming its ROADMAP item: the
+camera-modulated blocks (`modulation_dim > 0`, Craftsman, A.10).
 """
 
 from __future__ import annotations
@@ -140,8 +142,10 @@ class CLIPVisionEmbeddings(nn.Module):
 
 class CLIPVisionEncoder(nn.Module):
     """CLIP-normalised images [B, 3, H, W] → (tokens [B, 1 + N, C], the
-    projected embedding [B, P]) with `project=True`, or (tokens, the
-    pooled class token [B, C]) with `project=False`."""
+    projected embedding [B, P]) with `project=True`, (tokens, the pooled
+    class token [B, C]) with `project=False`, or (the tokens that enter the
+    last layer, their token 0) with `project="penultimate"` (HF's
+    `hidden_states[-2]`; the last layer does not run)."""
 
     def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig()):
         super().__init__()
@@ -159,11 +163,13 @@ class CLIPVisionEncoder(nn.Module):
                                            bias=False)
 
     def forward(self, images, project=True):
-        if project == "penultimate":
-            raise _unported("CLIP's penultimate hidden states (ImageDream)",
-                            "A.6.4")
         x = self.pre_layrnorm(self.embeddings(images))
-        for block in self.encoder["layers"]:
+        layers = self.encoder["layers"]
+        if project == "penultimate":
+            for block in layers[:-1]:
+                x = block(x)
+            return x, x[:, 0]
+        for block in layers:
             x = block(x)
         pooled = self.post_layernorm(x[:, 0])
         if not project:
@@ -180,11 +186,7 @@ def _clip_normalize(images):
     return (images - mean) / std
 
 
-def make_vision_conditioner(model: CLIPVisionEncoder):
-    """fn(image [B, H, W, 3] or [H, W, 3] in [0, 1]) → the projected image
-    embedding [B, P]: resized to the encoder's size (bilinear, antialiased
-    when it shrinks, as `jax.image.resize`), CLIP-normalised, encoded.
-    Zero123Plus's global-conditioning hook."""
+def _conditioner(model: CLIPVisionEncoder, project, pick: int):
     s = model.cfg.image_size
 
     def fn(image):
@@ -196,14 +198,25 @@ def make_vision_conditioner(model: CLIPVisionEncoder):
         if x.shape[-2:] != (s, s):
             x = F.interpolate(x, size=(s, s), mode="bilinear",
                               align_corners=False, antialias=True)
-        return model(_clip_normalize(x))[1]
+        return model(_clip_normalize(x), project=project)[pick]
 
     return fn
 
 
-def make_vision_hidden_conditioner(*args, **kwargs):
-    """ImageDream's penultimate-hidden-state hook."""
-    raise _unported("make_vision_hidden_conditioner (ImageDream)", "A.6.4")
+def make_vision_conditioner(model: CLIPVisionEncoder):
+    """fn(image [B, H, W, 3] or [H, W, 3] in [0, 1]) → the projected image
+    embedding [B, P]: resized to the encoder's size (bilinear, antialiased
+    when it shrinks, as `jax.image.resize`), CLIP-normalised, encoded.
+    Zero123Plus's global-conditioning hook."""
+    return _conditioner(model, True, 1)
+
+
+def make_vision_hidden_conditioner(model: CLIPVisionEncoder):
+    """fn(image [B, H, W, 3] or [H, W, 3] in [0, 1]) → the penultimate
+    hidden states [B, 1 + N, C], resized and normalised as
+    `make_vision_conditioner` does: ImageDream's image-prompt hook
+    (`LGM/mvdream/pipeline_mvdream.py:404-416`), fed to its Resampler."""
+    return _conditioner(model, "penultimate", 0)
 
 
 class CLIPTextEmbeddings(nn.Module):

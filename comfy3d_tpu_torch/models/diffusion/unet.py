@@ -38,14 +38,21 @@ The arithmetic is the JAX package's: GroupNorm eps 1e-5 in the resnets and
 feed-forward's GEGLU gated by the tanh GELU (`models/common.py`). Token
 sequences are flattened row-major over (H, W) with the channels last.
 
+ImageDream's image prompt (`ip_dim` > 0): the last `ip_dim` tokens of the
+context are the Resampler's, and every cross-attention `attn2` reads them
+through its own `to_k_ip` / `to_v_ip` (the queries shared) and adds that
+attention's output with weight `ip_weight`. CRM's T2I-Adapter
+(`adapter_residuals`, one feature map per down block, diffusers'
+`down_intrablock_additional_residuals`): added after the first resnet of
+each down block.
+
 Not ported: the options of the other UNet families. Each raises
 NotImplementedError naming its ROADMAP item: Wonder3D's `cd_joint`, Era3D's
-`mv_rowwise` and `pose_hook`, ImageDream's `ip_dim`, MV-Adapter's
-`mv_decoupled` (with its reference branch's `ref_scale`), SDXL's
-`addition_embed_type` and per-block `transformer_depth`, and the ControlNet
-/ T2I-Adapter residuals. Reference attention over MVDream's multi-view fold
-(`ref_mode` with `mv_views > 1` and neither 2.5D attention), which no
-family uses, raises too.
+`mv_rowwise` and `pose_hook`, MV-Adapter's `mv_decoupled` (with its
+reference branch's `ref_scale`), SDXL's `addition_embed_type` and
+per-block `transformer_depth`, and the ControlNet residuals. Reference
+attention over MVDream's multi-view fold (`ref_mode` with `mv_views > 1`
+and neither 2.5D attention), which no family uses, raises too.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..common import Attention, BasicTransformerBlock
+from ..common import Attention, BasicTransformerBlock, _attend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +85,14 @@ class UNetConfig:
         "CrossAttnUpBlock2D")
     # > 1: MVDream's 3D self-attention over all views of a sample
     mv_views: int = 1
+    # ImageDream: the context's last ip_dim tokens through attn2's own
+    # to_k_ip / to_v_ip, added with weight ip_weight
+    ip_dim: int = 0
+    ip_weight: float = 1.0
     # the other families' options (the JAX package's fields); any value
     # but the default raises in `UNet2DCondition`
     cd_joint: bool = False
     mv_rowwise: bool = False
-    ip_dim: int = 0
-    ip_weight: float = 1.0
     use_ma: bool = False
     use_ra: bool = False
     mva_scale: float = 1.0
@@ -108,7 +117,6 @@ class UNetConfig:
 _UNPORTED_FIELDS = (
     ("cd_joint", "Wonder3D's cross-domain attention", "A.6.6"),
     ("mv_rowwise", "Era3D's row-wise attention", "A.6.6"),
-    ("ip_dim", "ImageDream's IP-adapter tokens", "A.6.4"),
     ("mv_decoupled", "MV-Adapter's decoupled attention", "A.6.6"),
     ("addition_embed_type", "SDXL's added embedding", "A.6.6"),
 )
@@ -163,6 +171,34 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
+class IPCrossAttention(Attention):
+    """ImageDream's cross-attention (`LGM/mvdream/mv_unet.py:160-246`): the
+    context's last `ip_dim` tokens are image-prompt tokens, attended by the
+    same queries through `to_k_ip` / `to_v_ip`; that output, times
+    `ip_weight`, is added to the text attention's before `to_out`."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: int, ip_dim: int,
+                 ip_weight: float = 1.0):
+        super().__init__(query_dim, heads, dim_head,
+                         cross_attention_dim=cross_attention_dim)
+        self.ip_dim, self.ip_weight = ip_dim, ip_weight
+        self.to_k_ip = nn.Linear(cross_attention_dim, heads * dim_head,
+                                 bias=False)
+        self.to_v_ip = nn.Linear(cross_attention_dim, heads * dim_head,
+                                 bias=False)
+
+    def forward(self, x, context, mask=None):
+        if mask is not None:
+            raise ValueError("ImageDream's cross-attention takes no mask")
+        ctx, ip = context[:, :-self.ip_dim], context[:, -self.ip_dim:]
+        q = self.to_q(x)
+        out = _attend(q, self.to_k(ctx), self.to_v(ctx), self.heads)
+        out = out + self.ip_weight * _attend(q, self.to_k_ip(ip),
+                                             self.to_v_ip(ip), self.heads)
+        return self.to_out[0](out)
+
+
 class Basic2p5DBlock(BasicTransformerBlock):
     """Hunyuan paint's 2.5D transformer block: `BasicTransformerBlock` (its
     attn1 per view, without reference keys) plus `attn_refview` (with
@@ -214,7 +250,8 @@ class SpatialTransformer(nn.Module):
     def __init__(self, channels: int, heads: int, dim_head: int,
                  context_dim: int, depth: int = 1, norm_groups: int = 32,
                  use_ma: bool = False, use_ra: bool = False,
-                 mva_scale: float = 1.0, ref_scale: float = 1.0):
+                 mva_scale: float = 1.0, ref_scale: float = 1.0,
+                 ip_dim: int = 0, ip_weight: float = 1.0):
         super().__init__()
         self.norm = nn.GroupNorm(norm_groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
@@ -227,6 +264,11 @@ class SpatialTransformer(nn.Module):
             blocks = [BasicTransformerBlock(channels, heads, dim_head,
                                             cross_attention_dim=context_dim)
                       for _ in range(depth)]
+        if ip_dim > 0:
+            for block in blocks:
+                block.attn2 = IPCrossAttention(channels, heads, dim_head,
+                                               context_dim, ip_dim,
+                                               ip_weight)
         self.transformer_blocks = nn.ModuleList(blocks)
         self.proj_out = nn.Linear(channels, channels)
 
@@ -302,7 +344,9 @@ class UNet2DCondition(nn.Module):
                                       norm_groups=g, use_ma=c.use_ma,
                                       use_ra=c.use_ra,
                                       mva_scale=c.mva_scale,
-                                      ref_scale=c.ref_scale)
+                                      ref_scale=c.ref_scale,
+                                      ip_dim=c.ip_dim,
+                                      ip_weight=c.ip_weight)
 
         self.time_embedding = nn.ModuleDict({
             "linear_1": nn.Linear(ch0, temb_dim),
@@ -373,7 +417,9 @@ class UNet2DCondition(nn.Module):
                 intrablock_residuals=None):
         """sample [B, Cin, H, W]; timesteps [B]; context [B, T, D];
         class_emb [B, 4·C0] added to the time embedding (MVDream's camera);
-        `mv_views` overrides the config's per call. → [B, Cout, H, W], or
+        `mv_views` overrides the config's per call; adapter_residuals, one
+        [B, C_i, H_i, W_i] per down block, are added after its first
+        resnet. → [B, Cout, H, W], or
         with `ref_mode="write"` (output, written): the norm1 outputs of
         every spatial transformer's blocks, a list under `sa_{k}` for the
         k-th transformer called. `ref_mode="read"` appends `ref_hidden`
@@ -381,7 +427,6 @@ class UNet2DCondition(nn.Module):
         for name, val, item in (
                 ("down_residuals", down_residuals, "A.6.6"),
                 ("mid_residual", mid_residual, "A.6.6"),
-                ("adapter_residuals", adapter_residuals, "A.6.4"),
                 ("pose_hook", pose_hook, "A.6.6"),
                 ("added_text_emb", added_text_emb, "A.6.6"),
                 ("added_time_ids", added_time_ids, "A.6.6"),
@@ -415,10 +460,12 @@ class UNet2DCondition(nn.Module):
 
         h = self.conv_in(sample)
         skips = [h]
-        for block in self.down_blocks:
+        for bi, block in enumerate(self.down_blocks):
             attns = block["attentions"]
             for li, res in enumerate(block["resnets"]):
                 h = res(h, temb)
+                if adapter_residuals is not None and li == 0:
+                    h = h + adapter_residuals[bi]
                 if len(attns):
                     h = attend(attns[li], h)
                 skips.append(h)

@@ -1,40 +1,52 @@
-"""MVDream: text embeddings → four consistent orbit views.
+"""MVDream / ImageDream: text (or an image) embeddings → consistent orbit
+views.
 
-Port of `comfy3d_tpu/models/mvdream/pipeline.py`'s text path (the
-reference's MVDream_Model node, which feeds LGM): an SD-1.5-class UNet
-with 3D self-attention across the four views (`UNetConfig.mv_views`) and a
-camera embedding — each view's flattened 4×4 c2w through a small MLP —
-added to the time embedding; sampling (DDIM by default, any sampler of
-the registry by `scheduler_name`) with classifier-free guidance over a
-batch [uncond; cond] of 2·V frames, `un + g·(co − un)`; the first V
-latents decoded by the VAE.
+Port of `comfy3d_tpu/models/mvdream/pipeline.py` (the reference's
+MVDream_Model node, which feeds LGM, and CRM's two 6-view samplers): an
+SD-class UNet with 3D self-attention across the views
+(`UNetConfig.mv_views`) and a camera embedding — each view's flattened 4×4
+c2w through a small MLP — added to the time embedding; sampling (DDIM by
+default, any sampler of the registry by `scheduler_name`) with
+classifier-free guidance over a batch [uncond; cond] of 2·F frames,
+`un + g·(co − un)`; the first V latents decoded by the VAE.
 
-Text conditioning is passed in as `prompt_embeds` [77, 768] (a CLIP text
+Text conditioning is passed in as `prompt_embeds` [T, D] (a CLIP text
 encoder's output, `models/clip.py`); without it the pipeline's
-`default_prompt_embeds` (the empty prompt's, set by `from_pretrained`) or
-zeros, and the negative embedding likewise. `from_pretrained` reads an
-mvdream-diffusers directory (`convert.load_mvdream_dir`). The model's
-state dict holds `unet.*` (diffusers' `UNet2DConditionModel` names),
-`vae.*` (diffusers' `AutoencoderKL`) and `camera_embed.{0,2}` (MVDream's
-own camera MLP). Images leave as the node
-protocol holds them, [V, S, S, 3] in [0, 1].
+`default_prompt_embeds` (the empty prompt's, set by the loaders) or zeros,
+and the negative embedding likewise.
 
-Not ported, each raising NotImplementedError naming its ROADMAP item:
-ImageDream's image conditioning (`image=`, `cfg.ip_dim`, the Resampler,
-the pinned extra frame), CRM's stage-2 `pixel_images` and T2I-Adapter
-`adapter_residuals` (A.6.4).
+ImageDream (`cfg.ip_dim` > 0, `image=`): the image's CLIP penultimate
+hidden states (the `vision_encoder` hook, `set_vision_encoder`; zeros
+without one) go through the `Resampler` to `ip_dim` tokens appended to the
+context of every frame (the uncond half takes the Resampler's output on
+zeros of the same shape), and the image's VAE latent is pinned as an extra
+(V+1)-th frame: before every UNet call it is written at that frame's slot
+of the cond half (zeros in the uncond half), with the camera embedding of
+a zero c2w, while the scheduler steps all V+1 latents. CRM's stage 2
+(`pixel_images=`, a UNet of 8 input channels): the pixel views' VAE
+latents are concatenated to each step's input as 4 more channels (zeros in
+the uncond half), and no frame is pinned. T2I-Adapter (`adapter_residuals`,
+one feature map per down block) conditions both halves.
+
+The model's state dict holds `unet.*` (diffusers' `UNet2DConditionModel`
+names), `vae.*` (diffusers' `AutoencoderKL`), `camera_embed.{0,2}`
+(MVDream's own camera MLP) and, for ImageDream, `image_embed.*` (the
+Resampler in the checkpoint's own names). Images leave as the node
+protocol holds them, [V, S, S, 3] in [0, 1].
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import warnings
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ...core.camera import orbit_c2w
-from ..common import init_weights_, seeded_model
+from ...core.image import resize_images
+from ..common import _attend, init_weights_, seeded_model
 from ..diffusion.schedulers import (SchedulerConfig, make_scheduler,
                                     sample_loop)
 from ..diffusion.unet import UNet2DCondition, UNetConfig
@@ -54,7 +66,8 @@ class MVDreamConfig:
     prompt_tokens: int = 77
     prompt_dim: int = 768
     camera_dim: int = 16
-    # ImageDream's image-prompt tokens (not ported: > 0 raises)
+    # ImageDream: ip_dim image-prompt tokens from a Resampler over CLIP's
+    # penultimate hidden states (ip_embed_dim wide)
     ip_dim: int = 0
     ip_weight: float = 1.0
     ip_embed_dim: int = 1280
@@ -67,12 +80,6 @@ class MVDreamConfig:
         return 2 ** (len(self.vae.block_out_channels) - 1)
 
 
-def _image_dream(what: str):
-    return NotImplementedError(
-        f"{what} is not ported (ROADMAP A.6.4: ImageDream, stage-2 and "
-        f"T2I-Adapter conditioning)")
-
-
 class CameraEmbed(nn.Sequential):
     """Flattened c2w [B, 16] → a time-embedding-sized vector: Linear, SiLU,
     Linear (MVDream's `camera_embed.{0,2}`)."""
@@ -80,6 +87,59 @@ class CameraEmbed(nn.Sequential):
     def __init__(self, camera_dim: int, dim: int):
         super().__init__(nn.Linear(camera_dim, dim), nn.SiLU(),
                          nn.Linear(dim, dim))
+
+
+class PerceiverAttention(nn.Module):
+    """`mv_unet.py:355-403`: the latents query [image tokens; latents]. Its
+    LayerNorms take the JAX package's eps, 1e-6."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_kv = nn.Linear(dim, 2 * inner, bias=False)
+        self.to_out = nn.Linear(inner, dim, bias=False)
+
+    def forward(self, x, latents):
+        x, latents = self.norm1(x), self.norm2(latents)
+        k, v = self.to_kv(torch.cat([x, latents], 1)).chunk(2, dim=-1)
+        return self.to_out(_attend(self.to_q(latents), k, v, self.heads))
+
+
+class Resampler(nn.Module):
+    """ImageDream's image-prompt projector (`mv_unet.py:406-450`): learned
+    query `latents` attend to the projected CLIP tokens over `depth`
+    perceiver blocks, each followed by a LayerNorm → Linear → exact GELU →
+    Linear feed-forward (`layers.{i}.{0,1}`), → `num_queries` tokens of
+    `output_dim`, LayerNormed."""
+
+    def __init__(self, dim: int, depth: int, dim_head: int, heads: int,
+                 num_queries: int, embedding_dim: int, output_dim: int,
+                 ff_mult: int = 4):
+        super().__init__()
+        self.latents = nn.Parameter(torch.zeros(1, num_queries, dim))
+        self.proj_in = nn.Linear(embedding_dim, dim)
+        self.proj_out = nn.Linear(dim, output_dim)
+        self.norm_out = nn.LayerNorm(output_dim, eps=1e-6)
+        self.layers = nn.ModuleList([nn.ModuleList([
+            PerceiverAttention(dim, heads, dim_head),
+            nn.Sequential(nn.LayerNorm(dim, eps=1e-6),
+                          nn.Linear(dim, dim * ff_mult, bias=False),
+                          nn.GELU(),
+                          nn.Linear(dim * ff_mult, dim, bias=False))])
+            for _ in range(depth)])
+
+    def forward(self, x):
+        """x [B, N, embedding_dim] → [B, num_queries, output_dim]."""
+        latents = self.latents.expand(x.shape[0], -1, -1)
+        x = self.proj_in(x)
+        for attn, ff in self.layers:
+            latents = latents + attn(x, latents)
+            latents = latents + ff(latents)
+        return self.norm_out(self.proj_out(latents))
 
 
 def orbit_c2w_flat(num_views: int, elevation: float, radius: float,
@@ -95,15 +155,45 @@ def orbit_c2w_flat(num_views: int, elevation: float, radius: float,
 class MVDream(nn.Module):
     def __init__(self, cfg: MVDreamConfig = MVDreamConfig()):
         super().__init__()
-        if cfg.ip_dim > 0:
-            raise _image_dream("MVDreamConfig.ip_dim (ImageDream)")
-        if cfg.unet.in_channels != 4:
-            raise _image_dream("a stage-2 (in_channels 8) UNet")
         self.cfg = cfg
         self.unet = UNet2DCondition(cfg.unet)
         self.vae = AutoencoderKL(cfg.vae)
         self.camera_embed = CameraEmbed(cfg.camera_dim,
                                         cfg.unet.block_out_channels[0] * 4)
+        self.image_embed = None
+        if cfg.ip_dim > 0:
+            self.image_embed = Resampler(
+                dim=cfg.prompt_dim, depth=cfg.resampler_depth,
+                dim_head=cfg.resampler_dim_head,
+                heads=cfg.resampler_heads, num_queries=cfg.ip_dim,
+                embedding_dim=cfg.ip_embed_dim, output_dim=cfg.prompt_dim)
+
+
+def init_mvdream_(model: MVDream, generator: torch.Generator) -> None:
+    """`init_weights_`, and the Resampler's query latents normal with std
+    prompt_dim^-1/2, as the JAX package's init draws them."""
+    init_weights_(model, generator)
+    if model.image_embed is not None:
+        lat = model.image_embed.latents
+        with torch.no_grad():
+            lat.copy_(torch.randn(lat.shape, generator=generator,
+                                  device=generator.device)
+                      * lat.shape[-1] ** -0.5)
+
+
+class Conditioning(NamedTuple):
+    """What one guided UNet call reads: the context [2·F, T(+ip), D] as
+    [uncond; cond], the camera embeddings [2·F, 4·C0], the pinned latents
+    [2, 4, l, l] of the extra frame ([zeros; the image's]) or None, and the
+    stage-2 pixel latents [2·F, 4, l, l] ([zeros; the views']) or None."""
+    states: torch.Tensor
+    cam_emb: torch.Tensor
+    pinned: Optional[torch.Tensor] = None
+    pixels: Optional[torch.Tensor] = None
+
+    @property
+    def frames(self) -> int:
+        return self.states.shape[0] // 2
 
 
 class MVDreamPipeline:
@@ -114,6 +204,11 @@ class MVDreamPipeline:
         self.cfg = model.cfg
         self.default_prompt_embeds: Optional[torch.Tensor] = None
         self.default_negative_embeds: Optional[torch.Tensor] = None
+        # image [B, H, W, 3] in [0, 1] → CLIP penultimate states [B, N, C]
+        self.vision_encoder: Optional[Callable] = None
+
+    def set_vision_encoder(self, fn: Optional[Callable]) -> None:
+        self.vision_encoder = fn
 
     @property
     def device(self) -> torch.device:
@@ -123,77 +218,150 @@ class MVDreamPipeline:
     def init_random(cls, seed: int = 0, cfg: MVDreamConfig = MVDreamConfig(),
                     device=None) -> "MVDreamPipeline":
         """Weights drawn from `seed` in the JAX package's scheme
-        (`common.init_weights_`) on `device` (default: the card;
+        (`init_mvdream_`) on `device` (default: the card;
         `common.seeded_model`)."""
-        return cls(seeded_model(lambda: MVDream(cfg), init_weights_, seed,
+        return cls(seeded_model(lambda: MVDream(cfg), init_mvdream_, seed,
                                 device))
 
     @classmethod
     def from_pretrained(cls, path: str, device=None,
                         **cfg_overrides) -> "MVDreamPipeline":
-        """An ashawkey/mvdream-sd2.1-diffusers directory: the LDM-layout
-        UNet renamed (`convert.mv_unet_name`) and loaded strictly with the
-        camera MLP, the VAE, and the empty prompt's embedding from
-        text_encoder/ as the default prompt and negative embeddings. An
-        ImageDream checkpoint raises (ROADMAP A.6.4)."""
+        """An ashawkey/mvdream-sd2.1-diffusers or imagedream-ipmv-diffusers
+        directory: the LDM-layout UNet renamed (`convert.mv_unet_name`) and
+        loaded strictly with the camera MLP (and the Resampler), the VAE,
+        the empty prompt's embedding from text_encoder/ as the default
+        prompt and negative embeddings, and image_encoder/'s penultimate
+        states as the vision hook."""
         from .convert import load_mvdream_dir
         return load_mvdream_dir(cls, path, device, **cfg_overrides)
 
-    def camera_embedding(self, elevation: Optional[float] = None):
-        """The V views' camera embeddings [V, 4·C0]."""
+    @classmethod
+    def from_ldm_checkpoint(cls, ckpt_path: str, device=None,
+                            **cfg_overrides) -> "MVDreamPipeline":
+        """A single-file LDM checkpoint: CRM's pixel- / ccm-diffusion
+        stages (`convert.load_ldm_checkpoint`)."""
+        from .convert import load_ldm_checkpoint
+        return load_ldm_checkpoint(cls, ckpt_path, device, **cfg_overrides)
+
+    def camera_embedding(self, elevation: Optional[float] = None,
+                         extra_frame: bool = False):
+        """The V views' camera embeddings [V, 4·C0], and with `extra_frame`
+        a (V+1)-th row, the embedding of a zero c2w."""
         cfg = self.cfg
         cams = orbit_c2w_flat(cfg.num_views, cfg.camera_elevation
                               if elevation is None else elevation,
                               cfg.camera_radius, device=self.device)
+        if extra_frame:
+            cams = torch.cat([cams, cams.new_zeros(1, 16)])
         return self.model.camera_embed(cams)
 
-    def conditioning(self, prompt_embeds=None, negative_embeds=None,
-                     elevation: Optional[float] = None):
-        """The CFG batch's conditioning: (context [2·V, T, D] as [uncond;
-        cond], camera embeddings [2·V, 4·C0]). Embeddings [T, D] default to
-        `default_prompt_embeds` / `default_negative_embeds`, else zeros."""
+    def _embeds(self, embeds, default):
         cfg = self.cfg
-        dev = self.device
-        v = cfg.num_views
-        if prompt_embeds is None:
-            prompt_embeds = self.default_prompt_embeds
-        if prompt_embeds is None:
-            prompt_embeds = torch.zeros(cfg.prompt_tokens, cfg.prompt_dim)
-        prompt_embeds = torch.as_tensor(prompt_embeds, dtype=torch.float32,
-                                        device=dev)
-        if negative_embeds is None:
-            negative_embeds = self.default_negative_embeds
-        if negative_embeds is None:
-            negative_embeds = torch.zeros_like(prompt_embeds)
-        negative_embeds = torch.as_tensor(negative_embeds,
-                                          dtype=torch.float32, device=dev)
-        states = torch.cat([negative_embeds[None].expand(v, -1, -1),
-                            prompt_embeds[None].expand(v, -1, -1)])
-        cam_emb = self.camera_embedding(elevation)
-        return states, torch.cat([cam_emb, cam_emb])
+        if embeds is None:
+            embeds = default
+        if embeds is None:
+            embeds = torch.zeros(cfg.prompt_tokens, cfg.prompt_dim)
+        return torch.as_tensor(embeds, dtype=torch.float32,
+                               device=self.device)
 
-    def guided_eps(self, x, t, cond, guidance_scale: float):
-        """One guided UNet call: the V latents `x` [V, 4, l, l] at timestep
-        `t`, run as the CFG batch [x; x] under `cond` (`conditioning`'s
-        pair) → un + g·(co − un)."""
-        states, cam_emb2 = cond
-        v = self.cfg.num_views
-        tvec = torch.full((2 * v,), float(t), device=x.device)
-        out = self.model.unet(torch.cat([x, x]), tvec, states,
-                              class_emb=cam_emb2, mv_views=v)
+    def encode_images(self, images):
+        """[N, H, W, 3] in [0, 1] → scaled VAE latents [N, 4, S/8, S/8] (the
+        posterior's mean), resized to S first (antialiased when it shrinks,
+        as `jax.image.resize`)."""
+        s = self.cfg.image_size
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        if x.shape[1:3] != (s, s):
+            x = resize_images(x, s, s)
+        return self.model.vae.encode(x.permute(0, 3, 1, 2) * 2.0 - 1.0)
+
+    def conditioning(self, prompt_embeds=None, negative_embeds=None,
+                     elevation: Optional[float] = None, image=None,
+                     pixel_images=None) -> Conditioning:
+        """The CFG batch's `Conditioning`. Embeddings [T, D] default to
+        `default_prompt_embeds` / `default_negative_embeds`, else zeros.
+        `image` [H, W, 3] (or [1, H, W, 3]) in [0, 1] adds the IP tokens
+        (ImageDream; ignored when `cfg.ip_dim` is 0) and, without
+        `pixel_images`, the pinned extra frame; `pixel_images` [V, H, W, 3]
+        are stage 2's views, which a UNet of 8 input channels needs (any
+        other warns and ignores them)."""
+        cfg = self.cfg
+        use_pixel = pixel_images is not None
+        if use_pixel and cfg.unet.in_channels != 8:
+            warnings.warn(
+                "pixel_images conditioning needs a stage-2 (in_channels=8) "
+                f"UNet; this pipeline has {cfg.unet.in_channels} — ignoring "
+                "pixel_images")
+            use_pixel = False
+        if cfg.unet.in_channels == 8 and not use_pixel:
+            raise ValueError(
+                "stage-2 (in_channels=8) UNet requires pixel_images")
+        use_ip = image is not None and cfg.ip_dim > 0
+        pin = use_ip and not use_pixel
+        nf = cfg.num_views + 1 if pin else cfg.num_views
+        cond = self._embeds(prompt_embeds, self.default_prompt_embeds)
+        uncond = self._embeds(negative_embeds, self.default_negative_embeds)
+        cond = cond[None].expand(nf, -1, -1)
+        uncond = uncond[None].expand(nf, -1, -1)
+        pinned = pixels = None
+        if use_ip:
+            img = torch.as_tensor(image, dtype=torch.float32,
+                                  device=self.device)
+            if img.ndim == 3:
+                img = img[None]
+            if self.vision_encoder is not None:
+                hidden = self.vision_encoder(img)
+            else:
+                hidden = torch.zeros(1, 257, cfg.ip_embed_dim,
+                                     device=self.device)
+            rs = self.model.image_embed
+            cond = torch.cat([cond, rs(hidden).expand(nf, -1, -1)], 1)
+            uncond = torch.cat([uncond, rs(torch.zeros_like(hidden))
+                                .expand(nf, -1, -1)], 1)
+            if pin:
+                lat = self.encode_images(img)
+                pinned = torch.cat([torch.zeros_like(lat), lat])
+        if use_pixel:
+            lat = self.encode_images(pixel_images)
+            pixels = torch.cat([torch.zeros_like(lat), lat])
+        cam = self.camera_embedding(elevation, extra_frame=pin)
+        return Conditioning(torch.cat([uncond, cond]),
+                            torch.cat([cam, cam]), pinned, pixels)
+
+    def guided_eps(self, x, t, cond: Conditioning, guidance_scale: float,
+                   adapter_residuals=None):
+        """One guided UNet call: the F latents `x` [F, 4, l, l] at timestep
+        `t`, run as the CFG batch [x; x] under `cond` (with the pinned frame
+        written at slot F−1 of each half, the stage-2 latents as 4 more
+        channels) → un + g·(co − un). `adapter_residuals` (one map per down
+        block, [F, C, h, w]) condition both halves."""
+        nf = cond.frames
+        lat = torch.cat([x, x])
+        if cond.pinned is not None:
+            lat = lat.clone()
+            lat[nf - 1] = cond.pinned[0]
+            lat[2 * nf - 1] = cond.pinned[1]
+        if cond.pixels is not None:
+            lat = torch.cat([lat, cond.pixels], 1)
+        if adapter_residuals is not None:
+            adapter_residuals = [torch.cat([r, r]) for r in adapter_residuals]
+        tvec = torch.full((2 * nf,), float(t), device=x.device)
+        out = self.model.unet(lat, tvec, cond.states, class_emb=cond.cam_emb,
+                              mv_views=nf,
+                              adapter_residuals=adapter_residuals)
         un, co = out.chunk(2)
         return un + guidance_scale * (co - un)
 
-    def initial_latents(self, generator: Optional[torch.Generator] = None):
-        """[V, 4, S/8, S/8] noise drawn with `generator` (default: seed 0)
-        on the CPU and moved, so a seed gives the same noise on every
-        device."""
+    def initial_latents(self, generator: Optional[torch.Generator] = None,
+                        frames: Optional[int] = None):
+        """[F, 4, S/8, S/8] noise (F: `frames`, default the V views) drawn
+        with `generator` (default: seed 0) on the CPU and moved, so a seed
+        gives the same noise on every device."""
         cfg = self.cfg
         lat = cfg.image_size // cfg.vae_factor
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        return torch.randn((cfg.num_views, cfg.unet.in_channels, lat, lat),
-                           generator=generator).to(self.device)
+        return torch.randn((frames or cfg.num_views, cfg.vae.latent_channels,
+                            lat, lat), generator=generator).to(self.device)
 
     @torch.no_grad()
     def sample_latents(self, prompt_embeds=None, negative_embeds=None,
@@ -202,18 +370,21 @@ class MVDreamPipeline:
                        generator: Optional[torch.Generator] = None,
                        latents: Optional[torch.Tensor] = None,
                        elevation: Optional[float] = None,
-                       step_noise: Optional[Callable] = None):
-        """The guided sampling loop → the V denoised latents. A stochastic
-        sampler's noise for step i is `step_noise(i)` ([V, 4, S/8, S/8]),
-        or else drawn on the CPU with `generator` (default: seed 0) after
-        the initial latents, step by step, and moved."""
-        cond = self.conditioning(prompt_embeds, negative_embeds, elevation)
+                       step_noise: Optional[Callable] = None, image=None,
+                       pixel_images=None, adapter_residuals=None):
+        """The guided sampling loop → the F denoised latents (the V views',
+        then the pinned frame's with ImageDream's `image`). A stochastic
+        sampler's noise for step i is `step_noise(i)` ([F, 4, S/8, S/8]), or
+        else drawn on the CPU with `generator` (default: seed 0) after the
+        initial latents, step by step, and moved."""
+        cond = self.conditioning(prompt_embeds, negative_embeds, elevation,
+                                 image, pixel_images)
         sched = make_scheduler(self.scheduler_name, SchedulerConfig(),
                                num_inference_steps)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if latents is None:
-            latents = self.initial_latents(generator)
+            latents = self.initial_latents(generator, cond.frames)
         latents = torch.as_tensor(latents, dtype=torch.float32,
                                   device=self.device) * sched.init_sigma
         if step_noise is None:
@@ -221,8 +392,8 @@ class MVDreamPipeline:
                 return torch.randn(latents.shape,
                                    generator=generator).to(latents.device)
         return sample_loop(
-            sched, lambda x, i, t: self.guided_eps(x, t, cond,
-                                                   guidance_scale),
+            sched, lambda x, i, t: self.guided_eps(
+                x, t, cond, guidance_scale, adapter_residuals),
             latents, noise=step_noise)
 
     @torch.no_grad()
@@ -235,18 +406,16 @@ class MVDreamPipeline:
                  step_noise: Optional[Callable] = None):
         """→ [V, S, S, 3] images in [0, 1].
 
-        prompt_embeds / negative_embeds: [T, D] (zeros when None).
-        latents: the initial noise [V, 4, S/8, S/8]; when None it is drawn
-        with `generator` (`initial_latents`). step_noise: a stochastic
-        sampler's noise by step (`sample_latents`)."""
-        if image is not None:
-            raise _image_dream("image conditioning (ImageDream)")
-        if pixel_images is not None:
-            raise _image_dream("pixel_images (stage 2)")
-        if adapter_residuals is not None:
-            raise _image_dream("adapter_residuals (T2I-Adapter)")
+        prompt_embeds / negative_embeds: [T, D] (zeros when None). image:
+        ImageDream's conditioning image, [H, W, 3] in [0, 1]. pixel_images:
+        stage 2's views [V, H, W, 3] in [0, 1]. adapter_residuals: the
+        T2I-Adapter's maps. latents: the initial noise [F, 4, S/8, S/8] (F
+        = V, or V + 1 with the pinned frame); when None it is drawn with
+        `generator` (`initial_latents`). step_noise: a stochastic sampler's
+        noise by step (`sample_latents`)."""
         latents = self.sample_latents(
             prompt_embeds, negative_embeds, num_inference_steps,
-            guidance_scale, generator, latents, elevation, step_noise)
-        img = self.model.vae.decode(latents)
+            guidance_scale, generator, latents, elevation, step_noise,
+            image, pixel_images, adapter_residuals)
+        img = self.model.vae.decode(latents[:self.cfg.num_views])
         return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)

@@ -26,12 +26,6 @@ UNPORTED = {
             "CharacterGen MVDiffusion Model",
             "Load CharacterGen Reconstruction Model",
             "CharacterGen Reconstruction Model"),
-    **_keys("A.10 crm", "Load CRM MVDiffusion Model",
-            "CRM Images MVDiffusion Model", "CRM CCMs MVDiffusion Model",
-            "Load Convolutional Reconstruction Model",
-            "Convolutional Reconstruction Model",
-            "Load CRM T2I V2 Models", "Load CRM T2I V3 Models",
-            "CRM T2I V2 Models", "CRM T2I V3 Models"),
     **_keys("A.10 unique3d", "Set Diffusers Pipeline State Dict",
             "Load Unique3D Custom UNet", "Unique3D MVDiffusion Model",
             "Fast Normal Maps To Mesh", "ExplicitTarget Mesh Optimization"),

@@ -152,7 +152,7 @@ def _run_workflow(workflow: Dict, overrides: Dict,
 
 def load_node_mappings():
     """Import every node module (each registers its classes)."""
-    from . import (nodes_diffusers, nodes_hunyuan3d, nodes_io,  # noqa: F401
-                   nodes_models, nodes_preprocess, nodes_render,
+    from . import (nodes_crm, nodes_diffusers, nodes_hunyuan3d,  # noqa: F401
+                   nodes_io, nodes_models, nodes_preprocess, nodes_render,
                    nodes_texture, nodes_vendor)
     return NODE_CLASS_MAPPINGS

@@ -254,10 +254,12 @@ class Zero123Plus_Diffusion_Model:
 
 @register
 class MVDream_Model:
-    """reference nodes.py:1716: text → four orbit views. The text-only
-    model ignores its prompt strings (no tokenizer vocab ships here; the
-    pipeline's default embedding is the checkpoint's empty prompt), as the
-    JAX node does."""
+    """reference nodes.py:1716: text (or, for ImageDream, the reference
+    image) → four orbit views. The prompt strings are not read (no
+    tokenizer vocab ships here; the pipeline's default embedding is the
+    checkpoint's empty prompt), as the JAX node does. An ImageDream
+    pipeline (`ip_dim` > 0) takes the reference image composited on white
+    through its mask."""
 
     @classmethod
     def INPUT_TYPES(cls):
@@ -289,10 +291,15 @@ class MVDream_Model:
                   prompt="", prompt_neg="", seed=42,
                   mv_guidance_scale=7.0,
                   num_inference_steps=30, elevation=0.0):
-        # ImageDream (ip_dim > 0) would take the reference image; the
-        # pipeline refuses it (ROADMAP A.6.4)
+        image = None
+        if mvdream_pipe.cfg.ip_dim > 0 and reference_image is not None:
+            image = image_tensor(reference_image)
+            if reference_mask is not None:
+                image = img_utils.composite_background(
+                    image, image_tensor(reference_mask), (1.0, 1.0, 1.0))
+            image = image[0]
         out = mvdream_pipe(
-            num_inference_steps=int(num_inference_steps),
+            image=image, num_inference_steps=int(num_inference_steps),
             guidance_scale=float(mv_guidance_scale),
             generator=torch.Generator().manual_seed(int(seed)),
             elevation=elevation).detach().cpu()

@@ -354,7 +354,10 @@ def extract_isosurface_device(grid, iso: float = 0.0, bounds=(-1.0, 1.0),
     Returns (v [cap, 3], f [cap, 3], nv, nf): tensors on the grid's device
     (the caller slices; the colours can be queried on v first) and Python
     counts. On overflow, `on_overflow` "retry" doubles the capacity (up to
-    8×), "raise" raises, "warn" warns and keeps the clipped mesh."""
+    8×), "raise" raises, "warn" warns and keeps the clipped mesh. A clipped
+    weld keeps only the faces whose vertices it kept (`drop_clipped_faces`;
+    the warning counts the faces dropped), where the JAX package keeps
+    faces that index past the vertices and its callers raise IndexError."""
     if on_overflow not in ("retry", "raise", "warn"):
         raise ValueError(f"on_overflow must be retry, raise or warn, got "
                          f"{on_overflow!r}")
@@ -385,11 +388,28 @@ def extract_isosurface_device(grid, iso: float = 0.0, bounds=(-1.0, 1.0),
         if on_overflow == "raise":
             raise RuntimeError(f"weld overflow: vertex capacity {cap} hit")
         if on_overflow != "retry" or last:
-            warnings.warn(f"weld overflow: vertex capacity {cap} hit")
-            return v, f, min(nv, cap), nf
+            f, kept = drop_clipped_faces(f, nf, nv, cap)
+            warnings.warn(f"weld overflow: vertex capacity {cap} hit "
+                          f"({nf - kept} of {nf} faces dropped)")
+            return v, f, cap, kept
         del v, f
         cap *= 2
     raise AssertionError("unreachable")
+
+
+def drop_clipped_faces(f, nf: int, nv: int, cap: int):
+    """The faces of a weld clipped at `cap` vertices (`weld_device`: rows
+    0 … cap−2 hold vertices 0 … cap−2, row cap−1 the last vertex nv−1)
+    that reference only kept vertices, the last one renumbered to its row.
+    Returns (f [T, 3], the kept faces first and zeros after them; their
+    count)."""
+    rows = f[:nf]
+    clipped = ((rows >= cap - 1) & (rows != nv - 1)).any(1)
+    kept = rows[~clipped]
+    kept = torch.where(kept == nv - 1, cap - 1, kept)
+    out = torch.zeros_like(f)
+    out[:kept.shape[0]] = kept
+    return out, int(kept.shape[0])
 
 
 def _soup_to_host(soup, count: int) -> np.ndarray:

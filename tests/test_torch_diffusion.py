@@ -233,10 +233,11 @@ def test_state_dicts_round_trip_through_the_jax_converters():
 def test_other_families_options_raise():
     """Config fields and call arguments of the UNet families the port does
     not carry raise, naming their ROADMAP item; Hunyuan paint's 2.5D
-    attentions (`use_ma`, `use_ra`, their scales) build."""
+    attentions (`use_ma`, `use_ra`, their scales) and ImageDream's IP
+    projections (`ip_dim`) build."""
     base = tiny_unet_cfg()
     for field, val in (("cd_joint", True), ("mv_rowwise", True),
-                       ("ip_dim", 4), ("mv_decoupled", True),
+                       ("mv_decoupled", True),
                        ("addition_embed_type", "text_time"),
                        ("transformer_depth", (1, 2))):
         with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
@@ -244,9 +245,13 @@ def test_other_families_options_raise():
                 dataclasses.replace(base, **{field: val})))
     tu.UNet2DCondition(port_unet_cfg(dataclasses.replace(
         base, use_ma=True, use_ra=True, mva_scale=0.5, ref_scale=0.5)))
+    ip = tu.UNet2DCondition(port_unet_cfg(dataclasses.replace(base,
+                                                              ip_dim=4)))
+    assert "down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k_ip" \
+        ".weight" in ip.state_dict()
     model = tu.UNet2DCondition(port_unet_cfg(base))
     args = (torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 7, 16))
-    for kw in (dict(adapter_residuals=[]), dict(down_residuals=[]),
+    for kw in (dict(down_residuals=[]), dict(mid_residual=args[0]),
                dict(pose_hook=len)):
         with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
             model(*args, **kw)

@@ -450,10 +450,10 @@ def test_unet_2p5d_matches_jax(pipes):
                  down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
                  up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
     UNet2DCondition(UNetConfig(**small, use_ma=True, use_ra=True))
+    UNet2DCondition(UNetConfig(**small, use_ma=True, use_ra=True, ip_dim=4))
     for field, val, item in (("mv_decoupled", True, "A.6.6"),
                              ("cd_joint", True, "A.6.6"),
                              ("mv_rowwise", True, "A.6.6"),
-                             ("ip_dim", 4, "A.6.4"),
                              ("addition_embed_type", "text_time", "A.6.6")):
         with pytest.raises(NotImplementedError, match=item):
             UNet2DCondition(UNetConfig(**small, **{field: val}))

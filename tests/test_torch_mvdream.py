@@ -248,21 +248,26 @@ def test_full_config_parameter_counts_match_jax():
 
 
 def test_unported_conditioning_raises():
-    """ImageDream, stage-2 and T2I-Adapter conditioning raise naming their
-    ROADMAP item; the Euler-ancestral sampler runs as the JAX pipeline's
-    does (two steps under CFG 5, its initial noise and `sample_loop`'s
-    per-step keys `fold_in(PRNGKey(seed), i)` replayed): the views within
-    1e-4 of their largest value."""
+    """On the text-only pipeline, as in the JAX package: an image is not
+    read (`ip_dim` 0), `pixel_images` warn and are not read (4 input
+    channels); a stage-2 UNet (8 input channels) without `pixel_images`
+    raises ValueError. The Euler-ancestral sampler runs as the JAX
+    pipeline's does (two steps under CFG 5, its initial noise and
+    `sample_loop`'s per-step keys `fold_in(PRNGKey(seed), i)` replayed):
+    the views within 1e-4 of their largest value."""
     jpipe, pipe = tiny_pipelines()
-    for kw in (dict(image=np.zeros((32, 32, 3), np.float32)),
-               dict(pixel_images=np.zeros((4, 32, 32, 3), np.float32)),
-               dict(adapter_residuals=[])):
-        with pytest.raises(NotImplementedError, match="A.6.4"):
-            pipe(num_inference_steps=1, **kw)
-    for kw in (dict(ip_dim=4),
-               dict(unet=dataclasses.replace(pipe.cfg.unet, in_channels=8))):
-        with pytest.raises(NotImplementedError, match="A.6.4"):
-            tp.MVDream(dataclasses.replace(pipe.cfg, **kw))
+    x = jax_latents(1, pipe.cfg)
+    plain = pipe(num_inference_steps=1, latents=x)
+    with_image = pipe(num_inference_steps=1, latents=x,
+                      image=np.zeros((32, 32, 3), np.float32))
+    with pytest.warns(UserWarning, match="pixel_images"):
+        with_pixels = pipe(num_inference_steps=1, latents=x,
+                           pixel_images=np.zeros((4, 32, 32, 3), np.float32))
+    assert torch.equal(with_image, plain) and torch.equal(with_pixels, plain)
+    stage2 = MVDreamPipeline(tp.MVDream(dataclasses.replace(
+        pipe.cfg, unet=dataclasses.replace(pipe.cfg.unet, in_channels=8))))
+    with pytest.raises(ValueError, match="pixel_images"):
+        stage2(num_inference_steps=1)
     name, seed = "EulerAncestralDiscreteScheduler", 5
     kw = dict(num_inference_steps=2, guidance_scale=5.0, elevation=0.0)
 

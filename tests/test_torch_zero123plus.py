@@ -232,7 +232,8 @@ def test_clip_vision_matches_jax(pipes):
     """The conditioner (a 32² image resized to 28², CLIP-normalised,
     encoded, projected) and the encoder with `project=False` (tokens and
     the pooled class token), within 1e-4 of their largest value; the
-    halves not ported raise naming their ROADMAP item."""
+    camera-modulated blocks, not ported, raise naming their ROADMAP
+    item."""
     ccfg = jclip.CLIPVisionConfig(**TINY_CLIP)
     rng = np.random.RandomState(1)
     img = rng.rand(2, 32, 32, 3).astype(np.float32)
@@ -253,13 +254,8 @@ def test_clip_vision_matches_jax(pipes):
         t_tokens, t_pooled = clip(nchw(norm), project=False)
     _close(t_tokens, tokens, what="tokens")
     _close(t_pooled, pooled, what="pooled")
-    for call, item in (
-            (lambda: clip(nchw(norm), project="penultimate"), "A.6.4"),
-            (lambda: tclip.make_vision_hidden_conditioner(clip), "A.6.4"),
-            (lambda: tclip.CLIPVisionEncoder(tclip.CLIPVisionConfig(
-                modulation_dim=4)), "A.10")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="A.10"):
+        tclip.CLIPVisionEncoder(tclip.CLIPVisionConfig(modulation_dim=4))
 
 
 def test_encode_condition_and_states_match_jax(pipes):

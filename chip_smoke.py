@@ -292,19 +292,46 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      extraction and the colours, each timed, the call on the host's clock,
      counts, a GLB round trip, and with `sdfMlp.fc3` zeroed the sphere of
      radius 0.5: its area within 1 % of π, no overflow; e. the CRM graph
-     (`config_graph("crm")`, the nodes' defaults, 2 × 50 steps) and the T2I
-     V2 graph (10 steps) through `run_graph` (launches all 0); f.
+     (`config_graph("crm")`, the nodes' defaults but 2 × 20 steps) and the
+     T2I V2 graph (10 steps) through `run_graph` (launches all 0); f.
      ImageDream at the imagedream-ipmv widths (four views + the pinned
      frame, 30 steps, CFG 5) → LGM → the converter's 24-view orbit: K1′ 24,
      on view 0 against its plain version with phase 3's gates, its time
      and bound. It prints a `{"crm": {...}}` line.
-Phases 11–13, 16–18 and 20a–e launch none of the compositor kernels
+ 21. Wonder3D and Era3D image → six views + normal maps, fitted into a mesh
+     (`Wonder3DPipeline`, `Era3DPipeline` at their default configs with a
+     CLIP ViT-L/14 and a ViT-H/14 tower; `algorithms/diff_mesh.py`; weights
+     from seeds drawn on the card). a. the card against the port's CPU path
+     with TF32 off at one resnet per block, 2 CLIP layers and 64² views:
+     each family's conditioning and guided UNet call (Wonder3D at guidance
+     1 and 2, Era3D with its pose hook's elevation and focal) and one fit
+     step's loss and gradients at 128² (on the pixels whose face ids agree,
+     ≥ 99.9 % of them), each within 1e-3 of its largest value; b. Era3D (40 DDIM steps, CFG 3, seed 600 on a 512² reference
+     composited on white): the sampler by CUDA events in f32, one guided
+     step of 24 frames f32 and TF32 with its FLOPs, a profile of it (idle
+     share, SDPA kernel), the decode of 12 views, peak memory per stage,
+     views and normals finite in [0, 1]; c. Wonder3D (50 steps at
+     guidance 1: 12 frames), the same measures, the sampler in TF32 too
+     and the step at guidance 2 (24 frames); d. the graph
+     `config_graph("era3d_fit")` — LoadImage → Era3D (10 steps) → masks
+     from the normals → a UV sphere fitted at the fit node's defaults
+     (512² views, batch 3, texture 512) for 136 steps with one remesh after
+     128 → Save 3D Mesh — each node timed on the host between
+     synchronisations, the segments and the remesh timed, the GLB read
+     back, a profiled fit step (device-busy, idle share); e. the analytic
+     fit: a textured UV sphere's six Era3D views at 256², fitted from a
+     copy scaled by 1.15 with a grey texture for 120 steps: the masked
+     render's PSNR must rise by 1 dB, the mean vertex error fall below
+     0.95× and the loss fall. It prints an `{"mvdiffusion_fit": {...}}`
+     line.
+Phases 11–13, 16–18, 20a–e and 21 launch none of the compositor kernels
 (counted). It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
 `{"gs_to_mesh": {...}}`, a `{"zero123plus_instantmesh": {...}}`, a
 `{"hunyuan3d_shape": {...}}` and a `{"hunyuan3d_paint": {...}}` line, a
 `{"workflows": {...}}` line (each graph's seconds, per-node split, peak
-memory and launches), a `{"crm": {...}}` line, one `{"kernels": [...]}`
+memory and launches), a `{"crm": {...}}` line, an `{"mvdiffusion_fit":
+{...}}` line, one `{"kernels": [...]}`
 line (the graphs' counts in `launches_by_path`, ImageDream → LGM's view 0
 in K1′'s `by_path`), then the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
@@ -2152,6 +2179,31 @@ def sphere_mesh():
     return Mesh(v=v, f=f, vc=np.clip(v * 0.5 + 0.5, 0.0, 1.0))
 
 
+def uv_sphere(n_lat=32, n_lon=64, radius=0.5, texture=None):
+    """A latitude-longitude sphere of `radius` (y up), its points shared
+    across the seam and at the poles, with per-corner UVs (vt/ft: u the
+    longitude, v the latitude) and the albedo `texture` [T, T, 3] or None,
+    its faces wound outwards."""
+    import numpy as np
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    theta = np.linspace(0.0, np.pi, n_lat + 1)
+    phi = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)
+    th, ph = np.meshgrid(theta, phi, indexing="ij")
+    pts = radius * np.stack([np.sin(th) * np.cos(ph), np.cos(th),
+                             np.sin(th) * np.sin(ph)], -1).reshape(-1, 3)
+    uvs = np.stack([ph / (2.0 * np.pi), 1.0 - th / np.pi],
+                   -1).reshape(-1, 2)
+    idx = np.arange(pts.shape[0]).reshape(n_lat + 1, n_lon + 1)
+    q0, q1, q2, q3 = (idx[:-1, :-1], idx[1:, :-1], idx[1:, 1:],
+                      idx[:-1, 1:])
+    ft = np.concatenate([np.stack([q0, q2, q1], -1).reshape(-1, 3),
+                         np.stack([q0, q3, q2], -1).reshape(-1, 3)])
+    v, inv = np.unique(np.round(pts, 6), axis=0, return_inverse=True)
+    f = inv.reshape(-1)[ft]
+    keep = (f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2]) & (f[:, 0] != f[:, 2])
+    return Mesh(v=v, f=f[keep], vt=uvs, ft=ft[keep], albedo=texture)
+
+
 def uv_cube():
     """A cube of half-size 0.5, each face split into 4 × 4 quads (two
     triangles each), its vertices shared between faces, with per-face UVs
@@ -3992,13 +4044,18 @@ def _orbit(nid, radius, views=WF_VIEWS, elevation=WF_ELEVATION):
 
 def config_graph(n, image="reference.png", rgba="reference_rgba.png",
                  mesh="uv_cube.glb", splat="splat_100k.ply",
-                 sphere="sphere.ply", gs_size=None, fit_size=None):
+                 sphere="sphere.ply", gs_size=None, fit_size=None,
+                 uv_sphere="uv_sphere.glb"):
     """The workflow of config `n` (1, 2, 3, 4, "5_shape", "5_texgen",
-    "5_full"), of the 3DGS fit ("3dgs_fit") or of CRM ("crm": image → six
+    "5_full"), of the 3DGS fit ("3dgs_fit"), of CRM ("crm": image → six
     views → six CCMs → mesh; "crm_t2i": the T2I V2 views of the image read
-    as normal maps) at the nodes' defaults, its files named relative to the
-    nodes' input root; only the standard library is needed to build it."""
-    out = f"{WF_DIR}/" + (n if n in ("3dgs_fit", "crm", "crm_t2i")
+    as normal maps), of Wonder3D ("wonder3d": image → six views and normal
+    maps) or of Era3D with the mesh fit ("era3d_fit": image → six views and
+    normal maps → masks from the normals → `uv_sphere` fitted to the views)
+    at the nodes' defaults, its files named relative to the nodes' input
+    root; only the standard library is needed to build it."""
+    out = f"{WF_DIR}/" + (n if n in ("3dgs_fit", "crm", "crm_t2i",
+                                     "wonder3d", "era3d_fit")
                           else f"config{n}")
     gs_size = WF_GS_SIZE if gs_size is None else gs_size
     fit_size = WF_FIT_SIZE if fit_size is None else fit_size
@@ -4118,6 +4175,34 @@ def config_graph(n, image="reference.png", rgba="reference_rgba.png",
              {"t2iadapter_v2": (3, 0), "crm_mvdiffusion_sampler_v2": (3, 1),
               **ref, "normal_maps": (1, 0)}),
             (5, "SaveImage", [f"{out}_views"], {"images": (4, 0)}))
+    if n == "wonder3d":      # image → six views and normal maps
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load Wonder3D Pipeline",
+             ["flamehaze1115/wonder3d-v1.0"], {}),
+            (4, C3D + "Wonder3D MVDiffusion Model", [0, "fixed", 1.0, 50],
+             {"mvdiffusion_pipe": (3, 0), **ref}),
+            (5, "SaveImage", [f"{out}_views"], {"images": (4, 0)}),
+            (6, "SaveImage", [f"{out}_normals"], {"images": (4, 1)}))
+    if n == "era3d_fit":     # image → Era3D's views → a fitted mesh
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load Era3D Pipeline",
+             ["pengHTYX/MacLab-Era3D-512-6view"], {}),
+            (4, C3D + "Era3D MVDiffusion Model",
+             [420, 600, "fixed", 3.0, 40, 1.0, 4.0],
+             {"era3d_pipe": (3, 0), **ref}),
+            (5, C3D + "Get Masks From Normal Maps", [],
+             {"normal_maps": (4, 1)}),
+            (6, C3D + "Load 3D Mesh", [uv_sphere, False, True, False, False],
+             {}),
+            (7, C3D + "Fitting Mesh With Multiview Images",
+             [49.1, 1024, 3, 0.1, True, 512, 512],
+             {"mesh": (6, 0), "reference_images": (4, 0),
+              "reference_masks": (5, 0),
+              "reference_orbit_camera_poses": (4, 2)}),
+            (8, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (7, 0)}),
+            (9, "SaveImage", [f"{out}_views"], {"images": (4, 0)}))
     if n == "3dgs_fit":      # a mesh's orbit renders → 3DGS → its renders
         return workflow(
             (1, C3D + "Load 3D Mesh", [sphere, False, True, False, False],
@@ -4413,6 +4498,9 @@ CRM_STEPS = 50           # the CRM samplers' nodes' defaults
 CRM_GUIDANCE = 5.5
 CRM_SEED = 1234
 CRM_T2I_STEPS = 10       # 20e's T2I V2 graph (the node's 50, cut)
+# 20e's CRM graph: each sampler's 50 steps cut to 20 (20b-c run the 50),
+# which also shortens the profile read after it
+CRM_GRAPH_STEPS = 20
 CRM_VIEW = 256           # the reference image the samplers take
 CRM_SPHERE_TOL = 0.01    # 20d: the analytic sphere's area, of π
 ID_STEPS = 30            # 20f: the MVDream_Model node's defaults
@@ -4756,13 +4844,16 @@ def crm_path(dev, asset_dir, smi_line):
     # e. the CRM graphs at the nodes' defaults, loaders drawing on the card
     t0 = time.perf_counter()
     graphs = {}
-    results, graphs["crm"] = run_graph("crm", config_graph("crm"),
-                                       spans=CRM_STAGES, device=dev)
+    results, graphs["crm"] = run_graph(
+        "crm", config_graph("crm"),
+        {n: {"num_inference_steps": CRM_GRAPH_STEPS} for n in (4, 5)},
+        spans=CRM_STAGES, device=dev)
     g_mesh = results[7][0]
     check(g_mesh.num_faces > 0 and tuple(results[4][0].shape)
           == tuple(results[5][0].shape) == (6, CRM_VIEW, CRM_VIEW, 3),
           "the CRM graph's views, CCMs or mesh")
-    graphs["crm"].update(nv=g_mesh.num_vertices, nf=g_mesh.num_faces)
+    graphs["crm"].update(nv=g_mesh.num_vertices, nf=g_mesh.num_faces,
+                         steps=CRM_GRAPH_STEPS)
     results, graphs["crm_t2i"] = run_graph(
         "crm_t2i", config_graph("crm_t2i"),
         {4: {"num_inference_steps": CRM_T2I_STEPS}}, device=dev)
@@ -4834,6 +4925,566 @@ def crm_path(dev, asset_dir, smi_line):
     del idp, lgm, enc, splat, inp, out, img
     torch.cuda.empty_cache()
     rec["f_s"] = time.perf_counter() - t0
+    return rec
+
+
+# ------------------------------------------------------------------ #
+# Wonder3D and Era3D image → six views + normal maps → the mesh fit
+# (phase 21)
+# ------------------------------------------------------------------ #
+TOL_MV_REL = 1e-3        # card vs CPU, of the largest value, TF32 off
+ERA3D_STEPS = 40         # the Era3D node's defaults
+ERA3D_GUIDANCE = 3.0
+ERA3D_SEED = 600
+ERA3D_RADIUS = 4.0
+ERA3D_AZIMUTHS = (0.0, 45.0, 90.0, 180.0, 270.0, 315.0)
+W3D_STEPS = 50           # the Wonder3D node's defaults
+W3D_GUIDANCE = 1.0
+W3D_SEED = 0
+# 21d: the graph's Era3D steps (the node's 40, run in full in 21b) and the
+# fit node's 1,024 iterations, cut to one remesh (at the widget's least,
+# 128) and a few steps after it
+FIT_GRAPH_STEPS = 10
+FIT_ITERS = 136
+FIT_REMESH = 128
+FIT_PROFILE_STEPS = 3
+# 21e: the analytic fit — a textured UV sphere scaled by GATE_SCALE with a
+# flat grey texture fitted back to the sphere's six Era3D views at
+# GATE_SIZE² for GATE_ITERS steps (the vertex rate of the JAX package's
+# own shrink test)
+GATE_SIZE = 256
+GATE_ITERS = 120
+GATE_SCALE = 1.15
+GATE_LR_VERTS = 5e-3
+GATE_TEXTURE = 64
+GATE_PSNR_GAIN_DB = 1.0  # the masked render's PSNR must rise by this
+GATE_VERT_SHRINK = 0.95  # the mean vertex error must fall below this share
+# 21a's cut (the widths kept): one resnet per block in the UNets and the
+# VAE, 2 CLIP layers, 64² views, the fit at 128² on a 24 × 48 UV sphere
+MV_SMALL = dict(layers_per_block=1, clip_layers=2, image=64, fit_size=128)
+
+
+def era3d_vision_config(**overrides):
+    """Era3D's unCLIP image encoder: a ViT-H/14 with projection 1024."""
+    import dataclasses
+    return dataclasses.replace(crm_vision_config(), **overrides)
+
+
+def w3d_vision_config(**overrides):
+    """Wonder3D's image encoder: CLIP ViT-L/14 with projection 768."""
+    import dataclasses
+    from comfy3d_tpu_torch.models.clip import CLIPVisionConfig
+    return dataclasses.replace(CLIPVisionConfig(), **overrides)
+
+
+def era3d_poses(radius=ERA3D_RADIUS):
+    """The Era3D node's ORBIT_CAMPOSES rows."""
+    return [[radius, 0.0, a, 0.0, 0.0, 0.0] for a in ERA3D_AZIMUTHS]
+
+
+def gate_texture(size=GATE_TEXTURE):
+    """A smooth seeded-free RGB pattern in (0.1, 0.9)."""
+    import numpy as np
+    u = np.linspace(0.0, 1.0, size, dtype=np.float32)
+    uu, vv = np.meshgrid(u, u, indexing="ij")
+    return np.stack([0.5 + 0.4 * np.sin(2 * np.pi * uu),
+                     0.5 + 0.4 * np.cos(2 * np.pi * vv),
+                     0.5 + 0.3 * np.sin(4 * np.pi * (uu + vv))],
+                    -1).astype(np.float32)
+
+
+def _mv_stage(name, pipe, image, steps, guidance, seed, one_step,
+              tf32_sampler):
+    """One multi-view family at full width: the whole sampler (the VAE
+    encode, CLIP and decode included) by CUDA events in f32 (and TF32 with
+    `tf32_sampler`), one guided step timed f32 and TF32, its FLOPs counted
+    (`torch.utils.flop_counter`), profiled (idle share, SDPA kernels), the
+    decode of 2V views alone, and the peak memory of the sampler, the step
+    and the decode. Returns (record, colours, normals)."""
+    import torch
+    cfg = pipe.cfg
+
+    def sample():
+        return pipe(image, num_inference_steps=steps,
+                    guidance_scale=guidance, seed=seed)
+
+    pipe(image, num_inference_steps=2, guidance_scale=guidance, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    colors, normals = sample()
+    end.record()
+    torch.cuda.synchronize()
+    sampler_ms = start.elapsed_time(end)
+    peak_sampler = torch.cuda.max_memory_allocated()
+    sampler_tf32_ms = tf32_ms(sample, 1, warmup=0) if tf32_sampler else None
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    peak_step = torch.cuda.max_memory_allocated()
+    step_tf32_ms = tf32_ms(one_step, 3)
+    flops = flops_of(one_step)
+    prof = profile_frames(one_step, 2, match=SDPA_KERNELS)
+    prof["device_idle_share"] = 1.0 - prof["device_union_ms"] \
+        / prof["window_ms"]
+    lat = torch.randn((2 * cfg.num_views, cfg.vae.latent_channels,
+                       cfg.image_size // 8, cfg.image_size // 8),
+                      generator=torch.Generator().manual_seed(1)).to(
+        pipe.device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        decode_ms = cuda_ms(lambda: pipe.model.vae.decode(lat), 2, warmup=1)
+    peak_decode = torch.cuda.max_memory_allocated()
+    rec = {"steps": steps, "guidance_scale": guidance, "seed": seed,
+           "image_size": cfg.image_size, "views": cfg.num_views,
+           "sampler_ms": sampler_ms, "sampler_ms_tf32": sampler_tf32_ms,
+           "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
+           "step_tflop": flops / 1e12,
+           "step_tflops_s": flops / step_ms / 1e9,
+           "step_tflops_s_tf32": flops / step_tf32_ms / 1e9,
+           "step_profile": {k: v for k, v in prof.items() if k != "top"},
+           "step_profile_top": prof["top"][:6],
+           "decode_views": 2 * cfg.num_views, "decode_ms": decode_ms,
+           "peak_bytes": {"sampler": peak_sampler, "step": peak_step,
+                          "decode": peak_decode},
+           "unet_params": count_params(pipe.model.unet),
+           "mean": float(colors.mean()),
+           "normals_mean": float(normals.mean())}
+    for what, x in (("colours", colors), ("normals", normals)):
+        check(tuple(x.shape) == (cfg.num_views, cfg.image_size,
+                                 cfg.image_size, 3), f"{name}: {what} "
+              f"{tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()) and float(x.min()) >= 0.0
+              and float(x.max()) <= 1.0, f"{name}: {what} not in [0, 1]")
+    log(f"mvdiffusion {name}: {rec}")
+    return rec, colors, normals
+
+
+def timed_graph(name, graph, overrides=None, device="cuda"):
+    """`run_workflow(graph, overrides, device=...)` with each node's call
+    timed on the host's clock between two synchronisations (no profiler:
+    a fit of thousands of raster launches per step makes a profile of the
+    graph minutes long), the compositor kernels' launches reset just before
+    and read just after, peak memory. Gates as `run_graph`'s. Returns (the
+    results, the record)."""
+    import torch
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.nodes import NODE_CLASS_MAPPINGS, run_workflow
+    from comfy3d_tpu_torch.nodes.graph import node_span
+    types = {n["id"]: n["type"] for n in graph["nodes"]}
+    seconds, saved = {}, {}
+    for t in set(types.values()):
+        cls = NODE_CLASS_MAPPINGS[t]
+        fn = getattr(cls, cls.FUNCTION)
+        saved[cls] = fn
+
+        def timed(self, *a, _fn=fn, _t=t, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            seconds.setdefault(_t, []).append(time.perf_counter() - t0)
+            return out
+        setattr(cls, cls.FUNCTION, timed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        results = run_workflow(graph, overrides, device=device)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    finally:
+        for cls, fn in saved.items():
+            setattr(cls, cls.FUNCTION, fn)
+    launches = read_launches()
+    check(sorted(results) == sorted(types),
+          f"{name}: nodes run {sorted(results)}, not {sorted(types)}")
+    for nid, out in results.items():
+        cls = NODE_CLASS_MAPPINGS[types[nid]]
+        check(len(out) == len(cls.RETURN_TYPES) and all(
+            o is not None for o in out),
+            f"{name}: node #{nid} returned {out!r:.200}")
+        check(not any(isinstance(o, Mesh) and o.num_faces == 0
+                      for o in out), f"{name}: node #{nid}'s mesh is empty")
+    order = [nid for nid in results]
+    rec = {"s": total_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "nodes": {node_span(nid, types[nid]): seconds[types[nid]].pop(0)
+                     for nid in order}}
+    log(f"workflow {name}: {total_s:.1f} s, launches {launches}; nodes "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in rec["nodes"].items()))
+    return results, rec
+
+
+def mvdiffusion_fit_path(dev, asset_dir, smi_line):
+    """Phase 21: Wonder3D and Era3D (`Wonder3DConfig()`, `Era3DConfig()`
+    with their CLIP towers, weights from seeds drawn on the card) and the
+    multi-view mesh fit (`algorithms/diff_mesh.py`): a. card vs CPU at cut
+    depth; b. Era3D at full width; c. Wonder3D at full width; d. the
+    image → Era3D → fitted mesh graph; e. the analytic fit."""
+    import copy as copy_
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.algorithms import diff_mesh
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.image import resize_images
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models import clip
+    from comfy3d_tpu_torch.models.diffusion.schedulers import make_scheduler
+    from comfy3d_tpu_torch.models.era3d import Era3DConfig, Era3DPipeline
+    from comfy3d_tpu_torch.models.wonder3d import (Wonder3DConfig,
+                                                   Wonder3DPipeline)
+    from comfy3d_tpu_torch.ops import mesh_render, rasterize
+
+    cpu = torch.device("cpu")
+    rec = {"card": smi_line}
+    rng = np.random.RandomState(21)
+    sm = MV_SMALL
+
+    def cut(cfg):
+        return dataclasses.replace(
+            cfg, image_size=sm["image"], unet=dataclasses.replace(
+                cfg.unet, layers_per_block=sm["layers_per_block"]),
+            vae=dataclasses.replace(
+                cfg.vae, layers_per_block=sm["layers_per_block"]))
+
+    # a. the card against the port's CPU path at reduced depth, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    host_w = Wonder3DPipeline.init_random(0, cut(Wonder3DConfig()),
+                                          device=cpu)
+    host_e = Era3DPipeline.init_random(0, cut(Era3DConfig()), device=cpu)
+    host_wv = vision_encoder_on(1, w3d_vision_config(
+        layers=sm["clip_layers"]), cpu)
+    host_ev = vision_encoder_on(2, era3d_vision_config(
+        layers=sm["clip_layers"]), cpu)
+    ecfg = host_e.cfg
+    prompt = rng.randn(2 * ecfg.num_views, ecfg.prompt_tokens,
+                       ecfg.prompt_dim).astype(np.float32)
+    image_np = rng.rand(1, sm["image"], sm["image"], 3).astype(np.float32)
+    lat = sm["image"] // 8
+    x_np = rng.randn(2 * ecfg.num_views, 4, lat, lat).astype(np.float32)
+    noise_np = rng.randn(1, ecfg.clip_embed_dim).astype(np.float32)
+    sphere = uv_sphere(24, 48, 0.5, gate_texture())
+    fs = sm["fit_size"]
+    views_np = rng.rand(6, fs, fs, 3).astype(np.float32)
+    masks_np = (rng.rand(6, fs, fs) > 0.3).astype(np.float32)
+    fit_cfg = diff_mesh.DiffMeshConfig(texture_size=GATE_TEXTURE,
+                                       lambda_normal=0.5)
+    idx = torch.tensor([0, 3, 5])
+    t_first = int(make_scheduler("DDIMScheduler", ecfg.scheduler,
+                                 ERA3D_STEPS).timesteps[0])
+    # the fit's step compared on the pixels both devices rasterize alike:
+    # the float32 projection rounds differently on the card, and a pixel
+    # that changes face or leaves the silhouette moves the gradients of the
+    # texels it samples by a large share of the largest one
+    faces = {}
+    for d in (cpu, dev):
+        cams = Camera.from_camposes(era3d_poses(), width=fs, height=fs,
+                                    device=d)
+        v, f = (torch.as_tensor(a, device=d) for a in (sphere.v, sphere.f))
+        faces[d.type] = torch.stack([
+            rasterize.rasterize(v, f, cams.view_proj[i], fs, fs,
+                                method="binned").face_id.cpu()
+            for i in range(len(cams.fovy_deg))])
+    agree = (faces["cpu"] == faces[dev.type]).numpy()
+    masks_np = masks_np * agree
+    outs = {}
+    for d in (cpu, dev):
+        th = time.perf_counter()
+        w, e = pipe_on(host_w, d), pipe_on(host_e, d)
+        w.set_vision_encoder(clip.make_vision_conditioner(
+            copy_.deepcopy(host_wv).to(d)))
+        e.set_vision_encoder(clip.make_vision_conditioner(
+            copy_.deepcopy(host_ev).to(d)))
+        e.set_prompt_embeds(prompt)
+        img = torch.as_tensor(image_np, device=d)
+        x = torch.as_tensor(x_np, device=d)
+        with torch.no_grad():
+            emb, w_lat = w.conditioning(img)
+            ce = w.camera_class_emb()
+            cond = e.conditioning(img, noise_np)
+            e_eps, (ele, focal) = e.guided_eps(x, t_first, cond,
+                                               ERA3D_GUIDANCE)
+            o = {"w3d_embedding": emb, "w3d_image_latent": w_lat,
+                 "w3d_eps_g1": w.guided_eps(x, t_first, emb, w_lat, ce,
+                                            1.0),
+                 "w3d_eps_g2": w.guided_eps(x, t_first, emb, w_lat, ce,
+                                            2.0),
+                 "era3d_class_emb": cond.class_emb,
+                 "era3d_eps": e_eps, "era3d_elevation": ele,
+                 "era3d_focal": focal}
+        cams = Camera.from_camposes(era3d_poses(), width=fs, height=fs,
+                                    device=d)
+        fit = diff_mesh.MeshFit(sphere, cams, views_np, masks_np, fit_cfg)
+        params = fit.init_params()
+        loss = fit.loss(params, idx.to(d))
+        loss.backward()
+        o.update(fit_loss=loss.detach(),
+                 fit_grad_offsets=params["offsets"].grad,
+                 fit_grad_albedo=params["raw_albedo"].grad)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        outs[d.type] = o
+        outs[d.type + "_s"] = time.perf_counter() - th
+        del w, e, fit, params
+    parity = {"cut": sm, "t": t_first, "host_s": outs["cpu_s"],
+              "card_s": outs[dev.type + "_s"],
+              "fit_face_id_disagree": int((~agree).sum()),
+              "fit_face_id_agree_share": float(agree.mean())}
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"mvdiffusion a. card vs CPU (TF32 off): {parity}")
+    check(parity["fit_face_id_agree_share"] >= MR_FACE_AGREE,
+          f"the fit's face ids agree on {parity['fit_face_id_agree_share']}"
+          " of the pixels")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_MV_REL,
+              f"mvdiffusion {k}: card vs CPU {parity[k + '_rel_err']:.3g} "
+              "of the largest value")
+    rec["card_vs_cpu"] = parity
+    del outs, host_w, host_e, host_wv, host_ev
+    rec["a_s"] = time.perf_counter() - t0
+
+    image = crm_reference(512)
+
+    def sized(img, size):
+        """[1, size, size, 3] on the card, as the pipelines resize it."""
+        return resize_images(torch.as_tensor(img, device=dev)[None], size,
+                             size)
+
+    # b. Era3D at Era3DConfig(): 512², 6 views, SD-2.1-unclip widths
+    t0 = time.perf_counter()
+    reset_launches()
+    enc = vision_encoder_on(2, era3d_vision_config(), dev)
+    era = Era3DPipeline.init_random(0, Era3DConfig(), device=dev)
+    era.set_vision_encoder(clip.make_vision_conditioner(enc))
+    ecfg = era.cfg
+    era.set_prompt_embeds(rng.randn(2 * ecfg.num_views, ecfg.prompt_tokens,
+                                    ecfg.prompt_dim).astype(np.float32))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    clip_ms = cuda_ms(lambda: era.vision_encoder(image), 5)
+    sched = make_scheduler(era.scheduler_name, ecfg.scheduler, ERA3D_STEPS)
+    with torch.no_grad():
+        cond = era.conditioning(sized(image, ecfg.image_size),
+                                torch.zeros(1, ecfg.clip_embed_dim))
+    x0 = torch.randn((2 * ecfg.num_views, 4, ecfg.image_size // 8,
+                      ecfg.image_size // 8),
+                     generator=torch.Generator().manual_seed(3)).to(dev)
+    te = int(sched.timesteps[0])
+
+    def era3d_step():
+        with torch.no_grad():
+            return sched.step(era.guided_eps(x0, te, cond,
+                                             ERA3D_GUIDANCE)[0], 0, x0)
+
+    rec["era3d"], e_colors, e_normals = _mv_stage(
+        "b. Era3D", era, image, ERA3D_STEPS, ERA3D_GUIDANCE, ERA3D_SEED,
+        era3d_step, tf32_sampler=False)
+    with torch.no_grad():
+        _, (ele, focal) = era.guided_eps(x0, te, cond, ERA3D_GUIDANCE)
+    rec["era3d"].update(
+        init_s=init_s, clip_ms=clip_ms, clip_params=count_params(enc),
+        unet_frames=4 * ecfg.num_views, latent=ecfg.image_size // 8,
+        pose_aux={"elevation": ele.flatten().tolist(),
+                  "focal": focal.flatten().tolist()})
+    check(all(math.isfinite(v) for v in rec["era3d"]["pose_aux"]
+              ["elevation"] + rec["era3d"]["pose_aux"]["focal"]),
+          "Era3D's regressed pose")
+    rec["era3d"]["launches"] = read_launches()
+    del era, enc, cond, x0
+    torch.cuda.empty_cache()
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. Wonder3D at Wonder3DConfig(): 256², 6 views, SD-1.5-class widths
+    t0 = time.perf_counter()
+    reset_launches()
+    enc = vision_encoder_on(1, w3d_vision_config(), dev)
+    w3d = Wonder3DPipeline.init_random(0, Wonder3DConfig(), device=dev)
+    w3d.set_vision_encoder(clip.make_vision_conditioner(enc))
+    wcfg = w3d.cfg
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sched = make_scheduler(w3d.scheduler_name, wcfg.scheduler, W3D_STEPS)
+    with torch.no_grad():
+        emb, w_lat = w3d.conditioning(sized(image, wcfg.image_size))
+        ce = w3d.camera_class_emb()
+    x0 = torch.randn((2 * wcfg.num_views, 4, wcfg.image_size // 8,
+                      wcfg.image_size // 8),
+                     generator=torch.Generator().manual_seed(4)).to(dev)
+    tw = int(sched.timesteps[0])
+
+    def w3d_step(g=W3D_GUIDANCE):
+        with torch.no_grad():
+            return sched.step(w3d.guided_eps(x0, tw, emb, w_lat, ce, g), 0,
+                              x0)
+
+    rec["wonder3d"], w_colors, _ = _mv_stage(
+        "c. Wonder3D", w3d, image, W3D_STEPS, W3D_GUIDANCE, W3D_SEED,
+        w3d_step, tf32_sampler=True)
+    rec["wonder3d"].update(
+        init_s=init_s, clip_params=count_params(enc),
+        unet_frames=2 * wcfg.num_views, latent=wcfg.image_size // 8,
+        step_ms_cfg2=cuda_ms(lambda: w3d_step(2.0), 3, warmup=1),
+        step_tflop_cfg2=flops_of(lambda: w3d_step(2.0)) / 1e12,
+        launches=read_launches())
+    del w3d, enc, emb, w_lat, x0
+    torch.cuda.empty_cache()
+    rec["c_s"] = time.perf_counter() - t0
+
+    # d. LoadImage → Era3D → masks from the normals → the UV sphere fitted
+    # at the fit node's defaults (512² views, batch 3, texture 512), cut to
+    # FIT_ITERS steps with one remesh; the remesh and each segment timed
+    t0 = time.perf_counter()
+    uv_sphere(64, 128, 0.5).write(os.path.join(asset_dir, "uv_sphere.glb"))
+    seg_s, remesh = [], []
+    fit_seg, fit_remesh = diff_mesh._fit_segment, diff_mesh._periodic_remesh
+
+    def timed_segment(*a, **kw):
+        t = time.perf_counter()
+        out = fit_seg(*a, **kw)
+        torch.cuda.synchronize()
+        seg_s.append((a[5], time.perf_counter() - t))
+        return out
+
+    def timed_remesh(mesh, cfg):
+        t = time.perf_counter()
+        out = fit_remesh(mesh, cfg)
+        remesh.append(dict(s=time.perf_counter() - t, nf_in=mesh.num_faces,
+                           nf_out=out.num_faces, nv_out=out.num_vertices))
+        return out
+
+    diff_mesh._fit_segment, diff_mesh._periodic_remesh = (timed_segment,
+                                                          timed_remesh)
+    try:
+        results, graph = timed_graph(
+            "era3d_fit", config_graph("era3d_fit"),
+            {4: {"num_inference_steps": FIT_GRAPH_STEPS},
+             7: {"training_iterations": FIT_ITERS,
+                 "remesh_after_n_iteration": FIT_REMESH}}, device=dev)
+    finally:
+        diff_mesh._fit_segment = fit_seg
+        diff_mesh._periodic_remesh = fit_remesh
+    check(not any(graph["launches"].values()),
+          f"the Era3D fit graph launched a compositor kernel: "
+          f"{graph['launches']}")
+    views, normals, poses = results[4]
+    masks = results[5][0]
+    fitted = results[7][0]
+    check(len(remesh) == 1 and [s[0] for s in seg_s]
+          == [FIT_REMESH, FIT_ITERS - FIT_REMESH],
+          f"the fit's segments {seg_s} and remeshes {remesh}")
+    check(fitted.albedo is not None and fitted.albedo.shape == (512, 512, 3)
+          and np.isfinite(fitted.v).all()
+          and fitted.vt is not None, "the fitted mesh")
+    glb = os.path.join(asset_dir, WF_DIR, "era3d_fit_mesh.glb")
+    back = Mesh.load(glb)
+    # GLB welds (position, UV) pairs: the corners keep their positions
+    check(back.num_faces == fitted.num_faces and np.allclose(
+        back.v[back.f], fitted.v[fitted.f], atol=1e-6),
+        "GLB round trip changed the mesh")
+    # the fit's step on the graph's views, profiled alone
+    cams = Camera.from_camposes(poses, fovy_deg=49.1, width=views.shape[2],
+                                height=views.shape[1], device=dev)
+    fcfg = diff_mesh.DiffMeshConfig(texture_size=512)
+    mesh0 = Mesh.load(os.path.join(asset_dir, "uv_sphere.glb"))
+    problem = diff_mesh.MeshFit(mesh0, cams, views, masks, fcfg)
+    params = problem.init_params()
+    opt = torch.optim.Adam([{"params": [params["offsets"]], "lr": 1e-3},
+                            {"params": [params["raw_albedo"]], "lr": 0.1}])
+    sel = torch.tensor([0, 2, 4], device=dev)
+
+    def fit_step():
+        opt.zero_grad(set_to_none=True)
+        loss = problem.loss(params, sel)
+        loss.backward()
+        opt.step()
+
+    step_prof = profile_frames(fit_step, FIT_PROFILE_STEPS)
+    step_prof["device_idle_share"] = 1.0 - step_prof["device_union_ms"] \
+        / step_prof["window_ms"]
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    for _ in range(FIT_PROFILE_STEPS):
+        fit_step()
+    torch.cuda.synchronize()
+    graph.update(
+        era3d_steps=FIT_GRAPH_STEPS, fit_iterations=FIT_ITERS,
+        remesh_after=FIT_REMESH, segments=[dict(steps=n, s=s)
+                                           for n, s in seg_s],
+        step_s=[s / n for n, s in seg_s], remesh=remesh[0],
+        masks_mean=float(masks.mean()), nv=fitted.num_vertices,
+        nf=fitted.num_faces, glb_bytes=os.path.getsize(glb),
+        fit_step={"ms": (time.perf_counter() - ts) * 1e3
+                  / FIT_PROFILE_STEPS, "faces": mesh0.num_faces,
+                  "profile": {k: v for k, v in step_prof.items()
+                              if k != "top"},
+                  "profile_top": step_prof["top"][:6]})
+    rec["graph"] = graph
+    log(f"mvdiffusion d. graph: {graph}")
+    del results, problem, params, opt, views, normals
+    torch.cuda.empty_cache()
+    rec["d_s"] = time.perf_counter() - t0
+
+    # e. the analytic fit: a textured UV sphere's six Era3D views, fitted
+    # from a copy scaled by GATE_SCALE with a flat grey texture
+    t0 = time.perf_counter()
+    true = uv_sphere(24, 48, 0.5, gate_texture())
+    cams = Camera.from_camposes(era3d_poses(), fovy_deg=49.1,
+                                width=GATE_SIZE, height=GATE_SIZE,
+                                device=dev)
+
+    def render(m):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        with torch.no_grad():
+            return mesh_render.render_mesh(t(m.v), t(m.f), cams, vt=t(m.vt),
+                                           ft=t(m.ft), albedo=t(m.albedo))
+
+    target = render(true)
+    start = dataclasses.replace(
+        true, v=true.v * GATE_SCALE,
+        albedo=np.full_like(true.albedo, 0.5))
+
+    def scores(m):
+        out = render(m)
+        a = target["alpha"][..., None]
+        mse = float((((out["image"] - target["image"]) * a) ** 2).mean())
+        return (10.0 * math.log10(1.0 / max(mse, 1e-20)),
+                float(np.linalg.norm(m.v - true.v, axis=1).mean()))
+
+    losses = []
+    gcfg = diff_mesh.DiffMeshConfig(iterations=GATE_ITERS, batch_size=3,
+                                    texture_size=GATE_TEXTURE,
+                                    lr_verts=GATE_LR_VERTS)
+    tf = time.perf_counter()
+    fitted = diff_mesh.fit(start, cams, target["image"], target["alpha"],
+                           gcfg, progress=lambda i, r: losses.append(
+                               (i, r["loss"])))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tf
+    (db0, err0), (db1, err1) = scores(start), scores(fitted)
+    gate = {"size": GATE_SIZE, "iterations": GATE_ITERS,
+            "scale": GATE_SCALE, "lr_verts": GATE_LR_VERTS,
+            "faces": true.num_faces, "psnr_db": [db0, db1],
+            "vertex_err": [err0, err1], "loss": losses, "fit_s": fit_s,
+            "step_ms": fit_s * 1e3 / GATE_ITERS}
+    log(f"mvdiffusion e. analytic fit: {gate}")
+    check(db1 >= db0 + GATE_PSNR_GAIN_DB,
+          f"analytic fit: PSNR {db0:.2f} → {db1:.2f} dB")
+    check(err1 <= GATE_VERT_SHRINK * err0,
+          f"analytic fit: vertex error {err0:.4f} → {err1:.4f}")
+    check(losses[-1][1] < losses[0][1], f"analytic fit: loss {losses}")
+    rec["analytic_fit"] = gate
+    rec["e_s"] = time.perf_counter() - t0
     return rec
 
 
@@ -5209,6 +5860,19 @@ def main(out_path=None) -> int:
     id_view0 = id_orbit["view0"]
     lap("20_crm_imagedream")
 
+    # 21. Wonder3D and Era3D image → six views + normal maps and the
+    # multi-view mesh fit, where no compositor kernel may launch (counted
+    # in the phase)
+    t0 = time.perf_counter()
+    mvd = record["mvdiffusion_fit"] = mvdiffusion_fit_path(dev, asset_dir,
+                                                           smi_line)
+    mvd["s"] = time.perf_counter() - t0
+    for part in ("era3d", "wonder3d"):
+        check(not any(mvd[part]["launches"].values()),
+              f"the {part} path launched a compositor kernel: "
+              f"{mvd[part]['launches']}")
+    lap("21_mvdiffusion_fit")
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
@@ -5227,7 +5891,10 @@ def main(out_path=None) -> int:
                 "crm": crm["launches"][name],
                 **{f"workflow_{k}": v["launches"][name]
                    for k, v in crm["graphs"].items()},
-                "imagedream_lgm_orbit_24": id_orbit["launches"][name]}
+                "imagedream_lgm_orbit_24": id_orbit["launches"][name],
+                "era3d": mvd["era3d"]["launches"][name],
+                "wonder3d": mvd["wonder3d"]["launches"][name],
+                "workflow_era3d_fit": mvd["graph"]["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -5388,6 +6055,7 @@ def main(out_path=None) -> int:
         k: {key: v[key] for key in ("s", "peak_bytes", "launches", "nodes")}
         for k, v in wf.items()}}))
     print(json.dumps({"crm": crm}))
+    print(json.dumps({"mvdiffusion_fit": mvd}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

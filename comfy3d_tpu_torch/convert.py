@@ -9,6 +9,7 @@ handing those arrays over (as numpy) gives a port `GaussianSplat` / `Camera`
 dicts of arrays) become the port's native-layout state dicts
 (`triposr_state_dict_from_flax`, `instantmesh_state_dict_from_flax`,
 `mvdream_state_dict_from_flax` (with `resampler_state_dict_from_flax`),
+`wonder3d_state_dict_from_flax`, `era3d_state_dict_from_flax`,
 `lgm_state_dict_from_flax`, `crm_state_dict_from_flax` (with
 `unet2d_state_dict_from_flax`), `t2i_adapter_state_dict_from_flax`,
 `zero123plus_state_dict_from_flax`, `clip_vision_state_dict_from_flax`,
@@ -443,6 +444,51 @@ def mvdream_state_dict_from_flax(params) -> dict:
     if "resampler" in params:
         sd.update(_join("image_embed", resampler_state_dict_from_flax(
             params["resampler"])))
+    return sd
+
+
+def _mlp_state_dict(p) -> dict:
+    """A flax Dense-SiLU-Dense {linear_1, linear_2} → diffusers'
+    `TimestepEmbedding` names."""
+    return _tensors({**_join("linear_1", _dense(p["linear_1"])),
+                     **_join("linear_2", _dense(p["linear_2"]))})
+
+
+def wonder3d_state_dict_from_flax(params) -> dict:
+    """The JAX package's Wonder3D params, `{"unet", "vae", "class_mlp"}` →
+    the port's `Wonder3D` state dict: `unet.*` (with the blocks'
+    `attn_joint_mid` / `norm_joint_mid` and the projection class embedding
+    `unet.class_embedding.linear_{1,2}`) and `vae.*`."""
+    return {**_join("unet", unet_state_dict_from_flax(params["unet"])),
+            **_join("unet.class_embedding",
+                    _mlp_state_dict(params["class_mlp"])),
+            **_join("vae", vae_state_dict_from_flax(params["vae"]))}
+
+
+# the JAX package's ResidualLiner names → Era3D's checkpoint's
+_REGRESSOR_RENAMES = (
+    (r"^linear_in_0", "linear_in.0"),
+    (r"^blocks_(\d+)_(linear[12])", r"blocks.\1.\2"),
+)
+
+
+def era3d_state_dict_from_flax(params) -> dict:
+    """The JAX package's Era3D params, `{"unet", "vae", "class_mlp",
+    "camera_mlp"[, "elevation_reg", "focal_reg"]}` → the port's `Era3D`
+    state dict: `unet.*` (with the row-wise blocks' `attn_mv` / `norm_mv`,
+    `unet.class_embedding`, `unet.camera_embedding` and the regressors
+    `unet.{elevation,focal}_regressor.*`) and `vae.*`."""
+    sd = {**_join("unet", unet_state_dict_from_flax(params["unet"])),
+          **_join("unet.class_embedding",
+                  _mlp_state_dict(params["class_mlp"])),
+          **_join("unet.camera_embedding",
+                  _mlp_state_dict(params["camera_mlp"])),
+          **_join("vae", vae_state_dict_from_flax(params["vae"]))}
+    for key, name in (("elevation_reg", "elevation_regressor"),
+                      ("focal_reg", "focal_regressor")):
+        if key in params:
+            sd.update(_join(f"unet.{name}", _tensors(_renamed_state_dict(
+                params[key], _REGRESSOR_RENAMES))))
     return sd
 
 

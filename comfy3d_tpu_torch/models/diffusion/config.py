@@ -94,13 +94,25 @@ def _config(path: str) -> dict:
     return read_json_config(os.path.join(path, "config.json"))
 
 
+def unet_state_dict(path: str) -> dict:
+    """A diffusers `unet/` directory's state dict, each spatial
+    transformer's 1×1-convolution `proj_in` / `proj_out` kernel
+    (`use_linear_projection: false`, SD 1.x) as the Linear's matrix the
+    port holds."""
+    sd = load_dir_state_dict(path)
+    for k, v in sd.items():
+        if k.endswith(("proj_in.weight", "proj_out.weight")) and v.ndim == 4:
+            sd[k] = v[:, :, 0, 0]
+    return sd
+
+
 def load_unet_dir(path: str, device=None, **config_overrides):
     """A diffusers `unet/` directory (config.json + weights) → (UNetConfig,
     the loaded `UNet2DCondition`, the raw config dict)."""
     raw = _config(path)
     cfg = unet_config_from_json(raw, **config_overrides)
     return cfg, load_module(lambda: UNet2DCondition(cfg),
-                            load_dir_state_dict(path), device), raw
+                            unet_state_dict(path), device), raw
 
 
 def load_vae_dir(path: str, device=None):

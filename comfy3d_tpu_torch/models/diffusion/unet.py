@@ -46,13 +46,28 @@ attention's output with weight `ip_weight`. CRM's T2I-Adapter
 `down_intrablock_additional_residuals`): added after the first resnet of
 each down block.
 
+Wonder3D's cross-domain attention (`cd_joint` on a multi-view fold;
+upstream's `attn_joint_mid` / `norm_joint_mid`): after the fold's
+self-attention each block unfolds the views back to frames, and frame j of
+the first half of the batch and frame j of the second half attend jointly
+to both frames' tokens, [h_j ‖ h_{j+half}] (upstream's `JointAttnProcessor`
+splits the batch into two domain halves). Era3D's row-wise blocks
+(`mv_rowwise`): the transformers do not fold; `attn1` is that joint
+attention of paired frames when `cd_joint` is set (else per frame), then
+`norm_mv` / `attn_mv` attend within each row of the token grid across the
+`mv_views` consecutive frames, `(b v) (h w) → (b h) (v w)`. Era3D's pose
+hook (`pose_hook(h, temb)`, called after the mid block with its output
+[B, C, h, w] detached and the time embedding) returns the up path's new
+time embedding (or None to keep it) and an auxiliary output (the
+regressed pose), which the call returns under `written["pose_aux"]`.
+
 Not ported: the options of the other UNet families. Each raises
-NotImplementedError naming its ROADMAP item: Wonder3D's `cd_joint`, Era3D's
-`mv_rowwise` and `pose_hook`, MV-Adapter's `mv_decoupled` (with its
-reference branch's `ref_scale`), SDXL's `addition_embed_type` and
-per-block `transformer_depth`, and the ControlNet residuals. Reference
+NotImplementedError naming its ROADMAP item: MV-Adapter's `mv_decoupled`
+(with its reference branch's `ref_scale`), SDXL's `addition_embed_type`
+and per-block `transformer_depth`, and the ControlNet residuals. Reference
 attention over MVDream's multi-view fold (`ref_mode` with `mv_views > 1`
-and neither 2.5D attention), which no family uses, raises too.
+and neither 2.5D attention), or with Wonder3D's or Era3D's blocks, which
+no family uses, raises too.
 """
 
 from __future__ import annotations
@@ -89,14 +104,17 @@ class UNetConfig:
     # to_k_ip / to_v_ip, added with weight ip_weight
     ip_dim: int = 0
     ip_weight: float = 1.0
-    # the other families' options (the JAX package's fields); any value
-    # but the default raises in `UNet2DCondition`
+    # Wonder3D's cross-domain joint attention (the batch two domain
+    # halves) and Era3D's row-wise multi-view attention
     cd_joint: bool = False
     mv_rowwise: bool = False
+    # Hunyuan paint's 2.5D blocks
     use_ma: bool = False
     use_ra: bool = False
     mva_scale: float = 1.0
     ref_scale: float = 1.0
+    # the other families' options (the JAX package's fields); any value
+    # but the default raises in `UNet2DCondition`
     transformer_depth: Tuple[int, ...] | int = 1
     addition_embed_type: str = ""
     addition_time_embed_dim: int = 256
@@ -115,8 +133,6 @@ class UNetConfig:
 
 # config fields of other families → the ROADMAP item that ports them
 _UNPORTED_FIELDS = (
-    ("cd_joint", "Wonder3D's cross-domain attention", "A.6.6"),
-    ("mv_rowwise", "Era3D's row-wise attention", "A.6.6"),
     ("mv_decoupled", "MV-Adapter's decoupled attention", "A.6.6"),
     ("addition_embed_type", "SDXL's added embedding", "A.6.6"),
 )
@@ -145,6 +161,20 @@ def timestep_embedding(t: torch.Tensor, dim: int,
         half, dtype=torch.float32, device=t.device) / half)
     args = t.to(torch.float32)[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """diffusers `TimestepEmbedding`: linear_1 → SiLU → linear_2 (the time
+    embedding's MLP, and Wonder3D's and Era3D's projection class and camera
+    embeddings)."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
 
 
 class ResnetBlock(nn.Module):
@@ -240,25 +270,90 @@ class Basic2p5DBlock(BasicTransformerBlock):
         return (x, h) if ref_mode == "write" else x
 
 
+def _joint_attention(attn: Attention, h: torch.Tensor) -> torch.Tensor:
+    """Frame j of the batch's first half and frame j of its second half
+    [2·P, T, C] each attend to both frames' tokens: self-attention over
+    each pair's 2·T tokens (upstream's `JointAttnProcessor`)."""
+    half, t = h.shape[0] // 2, h.shape[1]
+    out = attn(torch.cat([h[:half], h[half:]], 1))
+    return torch.cat([out[:, :t], out[:, t:]])
+
+
+class MVJointBlock(BasicTransformerBlock):
+    """Wonder3D's and Era3D's multi-view transformer block:
+    `BasicTransformerBlock` with, for Wonder3D (`cd_joint`, not
+    `rowwise`), `norm_joint_mid` / `attn_joint_mid` (the joint attention of
+    paired frames after the fold's self-attention), or for Era3D
+    (`rowwise`), `norm_mv` / `attn_mv` (row-wise attention across the
+    views) after `attn1`, which with `cd_joint` is the joint attention."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: int, cd_joint: bool, rowwise: bool):
+        super().__init__(dim, heads, dim_head,
+                         cross_attention_dim=cross_attention_dim)
+        self.cd_joint, self.rowwise = cd_joint, rowwise
+        if rowwise:
+            self.norm_mv = nn.LayerNorm(dim, eps=1e-6)
+            self.attn_mv = Attention(dim, heads, dim_head)
+        elif cd_joint:
+            self.norm_joint_mid = nn.LayerNorm(dim, eps=1e-6)
+            self.attn_joint_mid = Attention(dim, heads, dim_head)
+
+    def forward(self, x, context=None, mv_views: int = 1,
+                spatial_h: int = 1):
+        """x [B, T, C]: B frames of an h × w grid (`rowwise`, spatial_h =
+        h), or B folds of `mv_views` frames each."""
+        h = self.norm1(x)
+        if self.rowwise:
+            x = x + (_joint_attention(self.attn1, h) if self.cd_joint
+                     else self.attn1(h))
+            b, t, c = x.shape
+            v, hh = mv_views, spatial_h
+            ww = t // hh
+            hr = self.norm_mv(x).reshape(b // v, v, hh, ww, c).transpose(
+                1, 2).reshape(b // v * hh, v * ww, c)
+            out = self.attn_mv(hr).reshape(b // v, hh, v, ww, c)
+            x = x + out.transpose(1, 2).reshape(b, t, c)
+        else:
+            x = x + self.attn1(h)
+            if self.cd_joint:
+                b, t, c = x.shape
+                frames = x.reshape(b * mv_views, t // mv_views, c)
+                frames = frames + _joint_attention(
+                    self.attn_joint_mid, self.norm_joint_mid(frames))
+                x = frames.reshape(b, t, c)
+        x = x + self.attn2(self.norm2(x), context=context)
+        return x + self.ff(self.norm3(x))
+
+
 class SpatialTransformer(nn.Module):
     """diffusers `Transformer2DModel`: GN → linear proj_in → blocks →
     proj_out, + the input. With `mv_views` > 1 the views of each sample
     are one token sequence, and its context is its first view's; with
     Hunyuan's 2.5D attentions (`use_ma`, `use_ra`) the blocks are
-    `Basic2p5DBlock`s and the views stay apart."""
+    `Basic2p5DBlock`s and the views stay apart; with Wonder3D's `cd_joint`
+    or Era3D's `mv_rowwise` they are `MVJointBlock`s (Era3D's views stay
+    apart)."""
 
     def __init__(self, channels: int, heads: int, dim_head: int,
                  context_dim: int, depth: int = 1, norm_groups: int = 32,
                  use_ma: bool = False, use_ra: bool = False,
                  mva_scale: float = 1.0, ref_scale: float = 1.0,
-                 ip_dim: int = 0, ip_weight: float = 1.0):
+                 ip_dim: int = 0, ip_weight: float = 1.0,
+                 cd_joint: bool = False, mv_rowwise: bool = False):
         super().__init__()
         self.norm = nn.GroupNorm(norm_groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.is_2p5d = use_ma or use_ra
+        self.is_mv = cd_joint or mv_rowwise
+        self.rowwise = mv_rowwise
         if self.is_2p5d:
             blocks = [Basic2p5DBlock(channels, heads, dim_head, context_dim,
                                      use_ma, use_ra, mva_scale, ref_scale)
+                      for _ in range(depth)]
+        elif self.is_mv:
+            blocks = [MVJointBlock(channels, heads, dim_head, context_dim,
+                                   cd_joint, mv_rowwise)
                       for _ in range(depth)]
         else:
             blocks = [BasicTransformerBlock(channels, heads, dim_head,
@@ -279,9 +374,12 @@ class SpatialTransformer(nn.Module):
         b, c, h, w = x.shape
         hid = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         hid = self.proj_in(hid)
-        # the 2.5D blocks take the views apart and fold them themselves
-        kw = {"mv_views": mv_views} if self.is_2p5d else {}
-        v = 1 if self.is_2p5d else mv_views
+        # the 2.5D and row-wise blocks take the views apart and fold them
+        # themselves
+        kw = {"mv_views": mv_views} if self.is_2p5d or self.is_mv else {}
+        if self.is_mv:
+            kw["spatial_h"] = h
+        v = 1 if self.is_2p5d or self.rowwise else mv_views
         if v > 1:
             hid = hid.reshape(b // v, v * h * w, c)
             context = context.reshape(b // v, v, *context.shape[1:])[:, 0]
@@ -290,6 +388,8 @@ class SpatialTransformer(nn.Module):
             if ref_mode == "write":
                 hid, wr = block(hid, context=context, ref_mode=ref_mode, **kw)
                 written.append(wr)
+            elif ref_mode is None:
+                hid = block(hid, context=context, **kw)
             else:
                 hid = block(hid, context=context, ref_mode=ref_mode,
                             ref_hidden=None if ref_hidden is None
@@ -328,7 +428,12 @@ def _block(resnets, attentions=(), resample=None, kind="downsamplers"):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig = UNetConfig()):
+    """`extras`: submodules the UNet carries for its pipeline (upstream's
+    `UNetMV2DConditionModel` holds Wonder3D's and Era3D's class and camera
+    embeddings and Era3D's pose regressors in the UNet's state dict); the
+    forward does not call them."""
+
+    def __init__(self, cfg: UNetConfig = UNetConfig(), **extras: nn.Module):
         super().__init__()
         check_config(cfg)
         self.cfg = c = cfg
@@ -346,11 +451,11 @@ class UNet2DCondition(nn.Module):
                                       mva_scale=c.mva_scale,
                                       ref_scale=c.ref_scale,
                                       ip_dim=c.ip_dim,
-                                      ip_weight=c.ip_weight)
+                                      ip_weight=c.ip_weight,
+                                      cd_joint=c.cd_joint,
+                                      mv_rowwise=c.mv_rowwise)
 
-        self.time_embedding = nn.ModuleDict({
-            "linear_1": nn.Linear(ch0, temb_dim),
-            "linear_2": nn.Linear(temb_dim, temb_dim)})
+        self.time_embedding = TimestepEmbedding(ch0, temb_dim)
         self.conv_in = nn.Conv2d(c.in_channels, ch0, 3, padding=1)
 
         skip_ch = [ch0]
@@ -400,6 +505,8 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(g, ch0, eps=1e-5)
         self.conv_out = nn.Conv2d(ch0, c.out_channels, 3, padding=1)
+        for name, module in extras.items():
+            self.add_module(name, module)
 
     def _heads(self, channels: int):
         """(heads, dim_head): `attention_head_dim` < 0 is a head count (SD
@@ -423,11 +530,12 @@ class UNet2DCondition(nn.Module):
         with `ref_mode="write"` (output, written): the norm1 outputs of
         every spatial transformer's blocks, a list under `sa_{k}` for the
         k-th transformer called. `ref_mode="read"` appends `ref_hidden`
-        (such a dict) to each block's self-attention keys and values."""
+        (such a dict) to each block's self-attention keys and values.
+        With a `pose_hook` the call returns (output, written) too, the
+        hook's auxiliary output under `written["pose_aux"]`."""
         for name, val, item in (
                 ("down_residuals", down_residuals, "A.6.6"),
                 ("mid_residual", mid_residual, "A.6.6"),
-                ("pose_hook", pose_hook, "A.6.6"),
                 ("added_text_emb", added_text_emb, "A.6.6"),
                 ("added_time_ids", added_time_ids, "A.6.6"),
                 ("intrablock_residuals", intrablock_residuals, "A.6.6")):
@@ -436,9 +544,10 @@ class UNet2DCondition(nn.Module):
         c = self.cfg
         v = c.mv_views if mv_views is None else mv_views
         ctx = encoder_hidden_states
-        if ref_mode is not None and v > 1 and not (c.use_ma or c.use_ra):
+        if ref_mode is not None and (c.cd_joint or c.mv_rowwise or (
+                v > 1 and not (c.use_ma or c.use_ra))):
             raise _unported("reference attention over a multi-view fold "
-                            "(ref_mode with mv_views > 1)", "A.6.6")
+                            "or Wonder3D's / Era3D's blocks", "A.6.6")
         written, n_called = {}, [0]
 
         def attend(attn, h):
@@ -452,9 +561,8 @@ class UNet2DCondition(nn.Module):
             return attn(h, ctx, v, ref_mode=ref_mode,
                         ref_hidden=(ref_hidden or {}).get(key))
 
-        te = self.time_embedding
-        temb = timestep_embedding(timesteps, c.block_out_channels[0])
-        temb = te["linear_2"](F.silu(te["linear_1"](temb)))
+        temb = self.time_embedding(
+            timestep_embedding(timesteps, c.block_out_channels[0]))
         if class_emb is not None:
             temb = temb + class_emb
 
@@ -477,6 +585,12 @@ class UNet2DCondition(nn.Module):
         h = mid["resnets"][0](h, temb)
         h = attend(mid["attentions"][0], h)
         h = mid["resnets"][1](h, temb)
+        if pose_hook is not None:
+            new_temb, aux = pose_hook(h.detach(), temb)
+            if new_temb is not None:
+                temb = new_temb
+            if aux is not None:
+                written["pose_aux"] = aux
 
         for block in self.up_blocks:
             attns = block["attentions"]
@@ -488,4 +602,5 @@ class UNet2DCondition(nn.Module):
                 h = us(h)
 
         out = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return (out, written) if ref_mode == "write" else out
+        return ((out, written) if ref_mode == "write" or pose_hook is not None
+                else out)

@@ -47,13 +47,9 @@ UNPORTED = {
             "MVAdapter IG2MV", "Load MVAdapter TG2MV Pipeline",
             "MVAdapter TG2MV", "Load MVAdapter Texture Pipeline",
             "MVAdapter Texture Projection"),
-    **_keys("A.10 wonder3d / era3d", "Load Wonder3D Pipeline",
-            "Wonder3D MVDiffusion Model", "Load Era3D Pipeline",
-            "Era3D MVDiffusion Model"),
     **_keys("A.10 partcrafter", "Load PartCrafter Pipeline",
             "Load PartCrafter Scene Pipeline", "PartCrafter Generate"),
-    **_keys("A.10 sdf_fit / diff_mesh", "FlexiCubes MVS",
-            "Fitting Mesh With Multiview Images"),
+    **_keys("A.10 sdf_fit", "FlexiCubes MVS"),
     **_keys("A.10 stablegen", "Load StableGen Trellis Pipeline",
             "Load StableGen StableX Pipeline",
             "StableGen StableX Process Image",

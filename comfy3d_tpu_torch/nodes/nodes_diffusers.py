@@ -76,6 +76,20 @@ def _hunyuan_dit(ckpt_dir=None, device=None):
     return Hunyuan3DShapePipeline.init_random(device=device)
 
 
+def _wonder3d(ckpt_dir=None, device=None):
+    from ..models.wonder3d import Wonder3DPipeline
+    if ckpt_dir:
+        return Wonder3DPipeline.from_pretrained(ckpt_dir, device=device)
+    return Wonder3DPipeline.init_random(device=device)
+
+
+def _era3d(ckpt_dir=None, device=None):
+    from ..models.era3d import Era3DPipeline
+    if ckpt_dir:
+        return Era3DPipeline.from_pretrained(ckpt_dir, device=device)
+    return Era3DPipeline.init_random(device=device)
+
+
 def _unported(family: str):
     def factory(ckpt_dir=None, device=None):
         raise NotImplementedError(
@@ -85,11 +99,11 @@ def _unported(family: str):
 
 DIFFUSERS_PIPE_FACTORIES = {
     "MVDreamPipeline": _mvdream,
-    "Wonder3DMVDiffusionPipeline": _unported("wonder3d"),
+    "Wonder3DMVDiffusionPipeline": _wonder3d,
     "Zero123PlusPipeline": _zero123plus,
     "DiffusionPipeline": _zero123plus,
     "StableDiffusionPipeline": _unported("stablegen"),
-    "Era3DPipeline": _unported("era3d"),
+    "Era3DPipeline": _era3d,
     "Unique3DImage2MVCustomPipeline": _unported("unique3d"),
     "Unique3DImageCustomPipeline": _unported("unique3d"),
     "HunYuan3DMVDStdPipeline": _unported("hunyuan3d_v1"),

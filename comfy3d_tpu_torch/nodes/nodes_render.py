@@ -6,10 +6,10 @@ run's device (`base.node_device()`; a splat on its own device) and each
 IMAGE / MASK output is copied to the host once; the GS orbit renderer
 reaches the coarse-bin compositor kernel (K1′) once per view, the 3DGS
 fit its forward and backward kernels (K1′, K3′) once per view of each
-step.
+step; `Fitting_Mesh_With_Multiview_Images` fits a mesh to views on the
+run's device (`algorithms/diff_mesh.py`).
 
-Not ported: `FlexiCubes_MVS` and `Fitting_Mesh_With_Multiview_Images`
-(`sdf_fit`, `diff_mesh`: ROADMAP A.10).
+Not ported: `FlexiCubes_MVS` (`sdf_fit`: ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -353,6 +353,69 @@ class Convert_3DGS_to_Mesh_with_NeRF_and_Marching_Cubes:
             density_threshold=marching_cube_threshold,
             texture_size=texture_resolution)
         return (gs_to_mesh.convert(gs_ply, cfg),)
+
+
+@register
+class Fitting_Mesh_With_Multiview_Images:
+    """reference nodes.py:1315 — DiffRastMesh's textured-mesh fit."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "mesh": ("MESH",),
+            "reference_images": ("IMAGE",),
+            "reference_masks": ("MASK",),
+            "reference_orbit_camera_poses": ("ORBIT_CAMPOSES",),
+            "reference_orbit_camera_fovy": ("FLOAT", {"default": 49.1}),
+            "training_iterations": ("INT", {"default": 1024, "min": 1}),
+            "batch_size": ("INT", {"default": 3, "min": 1}),
+            "texture_learning_rate": ("FLOAT", {"default": 0.1}),
+            "train_mesh_geometry": ("BOOLEAN", {"default": True}),
+            "remesh_after_n_iteration": ("INT", {"default": 512,
+                                                 "min": 128,
+                                                 "max": 100000}),
+            "texture_resolution": ("INT", {"default": 512}),
+        }}
+
+    RETURN_TYPES = ("MESH",)
+    RETURN_NAMES = ("trained_mesh",)
+    FUNCTION = "fit_mesh"
+    CATEGORY = "Comfy3D/Algorithm"
+
+    def fit_mesh(self, mesh, reference_images, reference_masks,
+                 reference_orbit_camera_poses,
+                 reference_orbit_camera_fovy, training_iterations=1024,
+                 batch_size=3, texture_learning_rate=0.1,
+                 train_mesh_geometry=True, remesh_after_n_iteration=512,
+                 texture_resolution=512):
+        import dataclasses
+
+        from ..algorithms import diff_mesh
+        from ..ops import texture as texture_ops
+
+        imgs = image_tensor(reference_images)
+        masks = image_tensor(reference_masks)
+        if len(imgs) != len(reference_orbit_camera_poses):
+            return error_none(
+                self.__class__.__name__,
+                f"{len(imgs)} images != "
+                f"{len(reference_orbit_camera_poses)} poses")
+        cams = _cams_from_poses(reference_orbit_camera_poses,
+                                reference_orbit_camera_fovy,
+                                imgs.shape[2], imgs.shape[1],
+                                base.node_device())
+        if mesh.vt is None or mesh.ft is None:
+            # the reference unwraps with xatlas
+            vt, ft, _ = texture_ops.auto_unwrap(mesh.v, mesh.f)
+            mesh = dataclasses.replace(mesh, vt=vt, ft=ft)
+        cfg = diff_mesh.DiffMeshConfig(
+            iterations=training_iterations, batch_size=batch_size,
+            lr_texture=texture_learning_rate,
+            lr_verts=1e-3 if train_mesh_geometry else 0.0,
+            remesh_every=(remesh_after_n_iteration
+                          if train_mesh_geometry else 0),
+            texture_size=texture_resolution)
+        return (diff_mesh.fit(mesh, cams, imgs, masks, cfg),)
 
 
 @register

@@ -231,6 +231,16 @@ def rasterize(v: torch.Tensor, faces: torch.Tensor, mvp: torch.Tensor,
 # ------------------------------------------------------------------ #
 # Differentiable interpolation
 # ------------------------------------------------------------------ #
+def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src[idx] along the first axis through `index_select`, whose
+    backward is an `index_add_` (atomic adds on the card): the backward of
+    advanced indexing sorts the indices and walks each run of a repeated
+    one alone, 0.9 s of a 1.0-s fit step on an H100 where every pixel of
+    three 512² views reads a vertex or a texel."""
+    return src.index_select(0, idx.reshape(-1)).reshape(
+        idx.shape + src.shape[1:])
+
+
 def recompute_barycentrics(v: torch.Tensor, mvp: torch.Tensor,
                            faces: torch.Tensor, rast: RasterOut,
                            perspective: bool = True) -> torch.Tensor:
@@ -240,14 +250,14 @@ def recompute_barycentrics(v: torch.Tensor, mvp: torch.Tensor,
     h, w = rast.face_id.shape
     fv = faces.long()[rast.face_id.clamp_min(0).long()]       # [H, W, 3]
     screen_xy, w_view, _ = clip_to_screen(project_vertices(v, mvp), h, w)
-    p0, p1, p2 = (screen_xy[fv[..., i]] for i in range(3))
+    p0, p1, p2 = (_take(screen_xy, fv[..., i]) for i in range(3))
     px = _pixel_centers(h, w, v.device)
     area = _edge(p2, p0, p1)
     b = torch.stack([_edge(px, p1, p2), _edge(px, p2, p0),
                      _edge(px, p0, p1)], -1) \
         * _safe_inverse_area(area)[..., None]
     if perspective:
-        bw = b / w_view[fv].clamp_min(1e-8)
+        bw = b / _take(w_view, fv).clamp_min(1e-8)
         # summed in one order, so every device rounds alike
         total = bw[..., 0:1] + bw[..., 1:2] + bw[..., 2:3]
         b = bw / total.clamp_min(1e-12)
@@ -263,9 +273,9 @@ def interpolate(attr: torch.Tensor, rast: RasterOut, faces: torch.Tensor,
     fv = faces.long()[rast.face_id.clamp_min(0).long()]       # [H, W, 3]
     if bary is None:
         bary = rast.bary * rast.mask[..., None]
-    return (bary[..., 0:1] * attr[fv[..., 0]]
-            + bary[..., 1:2] * attr[fv[..., 1]]
-            + bary[..., 2:3] * attr[fv[..., 2]])
+    return (bary[..., 0:1] * _take(attr, fv[..., 0])
+            + bary[..., 1:2] * _take(attr, fv[..., 1])
+            + bary[..., 2:3] * _take(attr, fv[..., 2]))
 
 
 # ------------------------------------------------------------------ #
@@ -283,6 +293,7 @@ def texture_sample(tex: torch.Tensor, uv: torch.Tensor,
     v up: row 0 of tex is v = 0). `mode` "wrap" repeats the texture, any
     other value clamps to its border."""
     ht, wt = tex.shape[0], tex.shape[1]
+    flat = tex.reshape(ht * wt, *tex.shape[2:])
     u = uv[..., 0] * wt - 0.5
     v = uv[..., 1] * ht - 0.5
     if mode == "wrap":
@@ -296,7 +307,7 @@ def texture_sample(tex: torch.Tensor, uv: torch.Tensor,
             ui, vi = torch.remainder(ui, wt), torch.remainder(vi, ht)
         else:
             ui, vi = ui.clamp(0, wt - 1), vi.clamp(0, ht - 1)
-        return tex[vi.long(), ui.long()]
+        return _take(flat, vi.long() * wt + ui.long())
 
     return ((1 - fu) * (1 - fv) * fetch(u0, v0)
             + fu * (1 - fv) * fetch(u0 + 1, v0)

@@ -232,15 +232,17 @@ def test_state_dicts_round_trip_through_the_jax_converters():
 
 def test_other_families_options_raise():
     """Config fields and call arguments of the UNet families the port does
-    not carry raise, naming their ROADMAP item; Hunyuan paint's 2.5D
-    attentions (`use_ma`, `use_ra`, their scales) and ImageDream's IP
-    projections (`ip_dim`) build."""
+    not carry raise, naming their ROADMAP item (A.6.6); Hunyuan paint's
+    2.5D attentions (`use_ma`, `use_ra`, their scales), ImageDream's IP
+    projections (`ip_dim`), Wonder3D's `cd_joint` and Era3D's
+    `mv_rowwise` build, and Era3D's `pose_hook` runs (its auxiliary output
+    under `written["pose_aux"]`), which reference attention does not
+    combine with."""
     base = tiny_unet_cfg()
-    for field, val in (("cd_joint", True), ("mv_rowwise", True),
-                       ("mv_decoupled", True),
+    for field, val in (("mv_decoupled", True),
                        ("addition_embed_type", "text_time"),
                        ("transformer_depth", (1, 2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.6.6"):
             tu.UNet2DCondition(port_unet_cfg(
                 dataclasses.replace(base, **{field: val})))
     tu.UNet2DCondition(port_unet_cfg(dataclasses.replace(
@@ -249,9 +251,24 @@ def test_other_families_options_raise():
                                                               ip_dim=4)))
     assert "down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k_ip" \
         ".weight" in ip.state_dict()
+    tb = "down_blocks.0.attentions.0.transformer_blocks.0"
+    for kw, key in ((dict(mv_views=2, cd_joint=True), "attn_joint_mid"),
+                    (dict(mv_views=2, mv_rowwise=True, cd_joint=True),
+                     "attn_mv")):
+        mv = tu.UNet2DCondition(port_unet_cfg(dataclasses.replace(base,
+                                                                  **kw)))
+        assert f"{tb}.{key}.to_q.weight" in mv.state_dict()
+        with pytest.raises(NotImplementedError, match="ROADMAP A.6.6"):
+            mv(torch.zeros(4, 4, 8, 8), torch.zeros(4),
+               torch.zeros(4, 7, 16), ref_mode="write")
     model = tu.UNet2DCondition(port_unet_cfg(base))
     args = (torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 7, 16))
+    out, written = model(*args, pose_hook=lambda h, temb: (
+        temb + 1.0, h.mean((2, 3))))
+    assert tuple(out.shape) == (1, 4, 8, 8)
+    assert tuple(written["pose_aux"].shape) == (1, 16)
     for kw in (dict(down_residuals=[]), dict(mid_residual=args[0]),
-               dict(pose_hook=len)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+               dict(added_text_emb=args[2][:, 0]),
+               dict(intrablock_residuals=[])):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.6.6"):
             model(*args, **kw)

@@ -14,6 +14,7 @@ pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 import dataclasses
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -31,7 +32,8 @@ from comfy3d_tpu_torch.algorithms import ngp as tn
 from comfy3d_tpu_torch.core.mesh import Mesh
 from comfy3d_tpu_torch.ops import tetra
 
-from tests.test_torch_common import _np, one_torch_thread  # noqa: F401
+from tests.test_torch_common import (QUICK_XLA, _np, one_torch_thread,  # noqa: F401
+                                     quick_jax)
 from tests.test_torch_ngp import jax_cfg, jax_draws, port_cfg
 from tests.test_torch_volume import _grid
 
@@ -174,9 +176,9 @@ def test_convert_matches_jax(tiny_splat, monkeypatch, tmp_path):
         jnp.asarray(np.tile([-30.0, 0.0, 30.0], -(-v // 3))[:v], jnp.float32),
         jnp.arange(v) * (360.0 / v), 2.0, fovy_deg=49.1, width=px,
         height=px)
-    ref = {k: np.asarray(v) for k, v in JG.render(
-        js, jcams, background=(1.0, 1.0, 1.0), backend="pallas",
-        interpret=True).items()}
+    ref = {k: np.asarray(v) for k, v in jax.jit(lambda s: JG.render(
+        s, jcams, background=(1.0, 1.0, 1.0), backend="pallas",
+        interpret=True), compiler_options=QUICK_XLA)(js).items()}
 
     class JaxRender:
         @staticmethod
@@ -209,6 +211,8 @@ def test_convert_matches_jax(tiny_splat, monkeypatch, tmp_path):
     monkeypatch.setattr(jn, "init_params", jax_init)
     monkeypatch.setattr(jn, "fit", jax_fit)
     monkeypatch.setattr(jn, "density_grid", jax_grid)
+    # the JAX fit's jitted steps compile with `QUICK_XLA`
+    monkeypatch.setattr(jn, "jax", quick_jax())
     jm = jgm.convert(js, jcfg)
 
     monkeypatch.setattr(tgm, "gs_render", PortRender)

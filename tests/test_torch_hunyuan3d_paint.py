@@ -452,8 +452,6 @@ def test_unet_2p5d_matches_jax(pipes):
     UNet2DCondition(UNetConfig(**small, use_ma=True, use_ra=True))
     UNet2DCondition(UNetConfig(**small, use_ma=True, use_ra=True, ip_dim=4))
     for field, val, item in (("mv_decoupled", True, "A.6.6"),
-                             ("cd_joint", True, "A.6.6"),
-                             ("mv_rowwise", True, "A.6.6"),
                              ("addition_embed_type", "text_time", "A.6.6")):
         with pytest.raises(NotImplementedError, match=item):
             UNet2DCondition(UNetConfig(**small, **{field: val}))

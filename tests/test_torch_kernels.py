@@ -12,7 +12,7 @@ on its own:
 import pytest
 
 # CPU parity tier of the port; kept out of the smoke manifest
-pytestmark = pytest.mark.heavy
+pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import numpy as np
 import torch
@@ -21,6 +21,19 @@ from comfy3d_tpu_torch.ops import binning, gs_flat, gs_tile
 from comfy3d_tpu_torch.ops import gs_render as G
 
 PAD = 512   # zero columns after the pairs (the Pallas kernel's BLK)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for the module, then as before (as
+    `test_torch_common.one_torch_thread`, which this file, free of JAX,
+    does not import): beside the suite's other workers a thread pool at
+    these sizes multiplies a test's time (this file 9 s alone, 58 s in
+    the whole suite's run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _conic_and_radius(sig, th):

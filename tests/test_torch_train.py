@@ -32,7 +32,8 @@ from comfy3d_tpu_torch.ops import ssim as tssim
 from tests.test_torch_gs_render import _np, both_cameras, make_scene
 from tests.test_torch_kernels import CASES, _bwd_case, pair_splats
 from tests.test_torch_tile import jax_scatter
-from tests.test_torch_common import one_torch_thread  # noqa: F401
+from tests.test_torch_common import (QUICK_XLA, one_torch_thread,  # noqa: F401
+                                     quick_jax)
 
 
 def _close_to_max(port, ref, atol, name=""):
@@ -162,7 +163,8 @@ def test_render_gradients_match_jax(backend):
         return jnp.mean((out["image"] - target) ** 2) \
             + 0.1 * jnp.mean(out["alpha"])
 
-    ref = jax.grad(jloss)(tuple(map(jnp.asarray, arrs + (offset,))))
+    ref = jax.jit(jax.grad(jloss), compiler_options=QUICK_XLA)(
+        tuple(map(jnp.asarray, arrs + (offset,))))
 
     # the port's coarse-bin path against both JAX paths, its tile path
     # against JAX's (the "xla" backend)
@@ -311,6 +313,8 @@ def test_train_step_matches_jax(monkeypatch, jax_backend, port_backend):
     # the JAX trainer runs its Pallas kernels on the CPU in interpret mode
     monkeypatch.setattr(JT.gs_render, "render_arrays", functools.partial(
         JG.render_arrays, interpret=True))
+    # the JAX step's jit compiles with `QUICK_XLA`
+    monkeypatch.setattr(JT, "jax", quick_jax())
     jcfg = JT.GSTrainConfig(batch_size=2, max_per_tile=128, chunk=8,
                             density_start_iter=10_000,
                             position_lr_init=0.002, position_lr_final=0.0002,

@@ -160,7 +160,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      radius is within 0.1 of 0.5, the albedo finite in [0, 1], the mesh
      through GLB and back, K1′ on view 0 against its plain version (phase
      3's gates) with its time and bound; c. text → phase 14's splats → mesh
-     at every default is phase 19d's graph; d. one NeRF step at full width
+     at every default but the NeRF's 128 iterations is phase 19d's graph;
+     d. one NeRF step at full width
      (4,096 rays × 128 steps) by CUDA events and profiled: device-busy ms,
      idle share, device ops, the top ops, the hash-grid gather
      (`index_select`) and its scatter (`index_add_`).
@@ -207,10 +208,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      the extraction's sweep and weld, "hunyuan3d.clean"), the compositor
      kernels' launches counted (all 0), the saved GLB read back equal;
      then, on the loader's weights and the node's processed image, the
-     pipeline's stages and the cleanup one by one with each stage's peak
-     memory (the grid finite, the raw and clean meshes well formed, the
-     clean mesh's faces as many as the graph's), the 30 steps by CUDA
-     events f32 and TF32, one guided
+     pipeline's stages up to the decoded grid one by one with each stage's
+     peak memory (the grid finite and the graph's, within 1e-5 of its
+     largest value), 10 steps by CUDA events f32 and TF32, one guided
      step timed, profiled (device-busy ms, idle share, the SDPA kernel) and
      its FLOPs counted, `encode_cond`, the VAE transformer and one decode
      chunk of 65,536 points timed; the mesh through GLB (random weights: the
@@ -250,10 +250,12 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      (`config_graph`) through `comfy3d_tpu_torch.nodes.run_workflow(...,
      device="cuda")` at the nodes' defaults and full width, every loader
      drawing its weights on the card (no checkpoint under the nodes'
-     root), each graph once under the profiler (`run_graph`): its host
+     root), each graph once under the profiler (`run_graph`; config 4
+     and the 3DGS fit between synchronisations, `timed_graph`): its host
      seconds, each node's host and device ms from its `node#<id> <type>`
-     span, peak memory and the compositor kernels' launches; every node
-     ran, none returned None, every GS_PLY's tensors on the card. a. config
+     span (`timed_graph`: each node's host seconds), peak
+     memory and the compositor kernels' launches; every node ran, none
+     returned None, every GS_PLY's tensors on the card. a. config
      1: phase 13's UV cube as GLB → the mesh orbit renderer at 512², phase
      4's GS-PLY → the GS orbit renderer at 800², 8 views (equal to
      `render` on the same cameras, ≥ 60 dB; K1′ 8); b. config 2: an RGBA
@@ -263,14 +265,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      the loader's model; c. config 3: Load Diffusers Pipeline
      (Zero123Plus) → 28 steps → six views → InstantMesh → Save 3D Mesh; d.
      config 4: MVDream (30 steps) → LGM → Save 3DGS, the GS→mesh converter
-     at its defaults → Save 3D Mesh (phase 15c's fields: K1′ 24, the
-     converter's stage spans, the splats against phase 14's); e. config
+     at its defaults but 128 NeRF iterations (of 384) → Save 3D Mesh
+     (K1′ 24, the splats against phase
+     14's; phase 15c splits the converter's stages); e. config
      5's ShapeGen and TexGen graphs, run as phases 17b and 18b (the linked
      graph is held on the CPU: on the card it would decimate a 14.5 M-
      triangle random-weight surface before painting); f. a 3DGS fit:
-     phase 13's sphere → 8 views at 256² → Gaussian Splatting 3D (300
-     iterations through `overrides`, batch 1) → its 8 renders (K1′ 308,
-     K3′ 300); K1′ and K3′ on the fitted splat from the fit's view 0
+     phase 13's sphere → 8 views at 256² → Gaussian Splatting 3D (100
+     iterations through `overrides`, batch 1) → its 8 renders (K1′ 108,
+     K3′ 100); K1′ and K3′ on the fitted splat from the fit's view 0
      against their plain versions (phases 3 and 5's tolerances). The
      graphs' images and records go to chiprun_out/workflows/.
  20. CRM image → mesh and ImageDream → LGM (the CRM nodes; `MVDreamPipeline`
@@ -283,8 +286,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      call of the pixel stage and of the CCM stage (with its pixel
      latents), the planes and the SDF, deformation and rgb at 32,768
      probes, each within 1e-3 of its largest value; b. the pixel stage
-     (six views + the pinned frame, 50 DDIM steps, CFG 5.5, seed 1234 on a
-     256² reference composited on white): the sampling and one guided step
+     (six views + the pinned frame, 25 of the nodes' 50 DDIM steps, CFG
+     5.5, seed 1234 on a 256² reference composited on white): the
+     sampling and one guided step
      by CUDA events, f32 and TF32, the step's FLOPs, a profile of it (idle
      share, SDPA kernel), peak memory, views finite in [0, 1]; c. the CCM
      stage on b's views, the same measures; d. the reconstructor on b's
@@ -293,7 +297,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      counts, a GLB round trip, and with `sdfMlp.fc3` zeroed the sphere of
      radius 0.5: its area within 1 % of π, no overflow; e. the CRM graph
      (`config_graph("crm")`, the nodes' defaults but 2 × 20 steps) and the
-     T2I V2 graph (10 steps) through `run_graph` (launches all 0); f.
+     T2I V2 graph (10 steps) through `timed_graph` and `run_graph`
+     (launches all 0); f.
      ImageDream at the imagedream-ipmv widths (four views + the pinned
      frame, 30 steps, CFG 5) → LGM → the converter's 24-view orbit: K1′ 24,
      on view 0 against its plain version with phase 3's gates, its time
@@ -306,7 +311,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      each family's conditioning and guided UNet call (Wonder3D at guidance
      1 and 2, Era3D with its pose hook's elevation and focal) and one fit
      step's loss and gradients at 128² (on the pixels whose face ids agree,
-     ≥ 99.9 % of them), each within 1e-3 of its largest value; b. Era3D (40 DDIM steps, CFG 3, seed 600 on a 512² reference
+     ≥ 99.9 % of them), each within 1e-3 of its largest value; b. Era3D
+     (ERA3D_TIMED_STEPS of the node's 40 DDIM steps, CFG 3, seed 600 on a
+     512² reference
      composited on white): the sampler by CUDA events in f32, one guided
      step of 24 frames f32 and TF32 with its FLOPs, a profile of it (idle
      share, SDPA kernel), the decode of 12 views, peak memory per stage,
@@ -324,16 +331,52 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      render's PSNR must rise by 1 dB, the mean vertex error fall below
      0.95× and the loss fall. It prints an `{"mvdiffusion_fit": {...}}`
      line.
-Phases 11–13, 16–18, 20a–e and 21 launch none of the compositor kernels
-(counted). It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
+ 22. FlexiCubes multi-view depth → mesh (`algorithms/sdf_fit.py`, the
+     soft-silhouette kernels `csrc/soft_silhouette.cu`): a. the kernels
+     against their plain version on one view of a res-64 training surface
+     at 256² (coverage within 1e-5, vertex gradients within 1e-3 of their
+     largest value), their times and bounds; b. `config_graph
+     ("flexicubes")` — a UV sphere of radius 0.55 → Mesh Orbit Renderer at
+     512² on an 8-view orbit → FlexiCubes MVS at its defaults (res 128,
+     batch 4, lr 0.01, the normal maps) but FC_ITERS steps and the depths
+     decoded over [0, the renders' largest depth] → Save 3D Mesh — each
+     node timed between synchronisations; gates: 4 forward and 4 backward
+     launches a step, the loss over the 8 views falls, the fitted mesh's
+     Chamfer distance to the source below the initial sphere's; the step
+     times, a profile of a step (device-busy, idle share), peak memory,
+     the extraction and weld seconds, and the kernels against their plain
+     version again on the graph's initial surface at 512², their bounds
+     counting the live face-pixel pairs only (the walk of every pair
+     beside them); c. the first step of `engine="tets"` at 128³, timed,
+     its peak. It prints a
+     `{"flexicubes": {...}}` line.
+ 23. TripoSG image / scribble → mesh (`TripoSGConfig()`: DINOv2-L at 518²,
+     the 21-block DiT at width 2,048 on 2,048 latents, the VAE decoder of
+     16 blocks): a. the parameter counts on `meta` against
+     TRIPOSG_PARAMS; b. the card against the port's CPU path with TF32
+     off at 3 DiT blocks, 2 decoder blocks and 2 DINOv2 layers: the
+     conditioning, a DiT pass, two guided steps, two steps of the
+     conditional pass alone, the VAE's decoder, a query and a dense decode
+     at 32, each within 1e-3 of its largest value; c. `config_graph
+     ("triposg")` at the node's defaults (50 steps, CFG 7, octree 256;
+     weights drawn on the card), then a guided step f32 and TF32 with its
+     FLOPs, the octree decode's time and peak, and the extraction split
+     into sweep and weld; d. `config_graph("triposg_scribble")` (16 steps,
+     the conditional pass alone); c. times the loader's pipeline, drawn
+     once. It prints a `{"triposg": {...}}` line.
+Phases 11–13, 16–18, 20a–e, 21 and 23 launch none of the compositor
+kernels, and every phase but 22 none of the silhouette kernels (counted).
+It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
 `{"gs_to_mesh": {...}}`, a `{"zero123plus_instantmesh": {...}}`, a
 `{"hunyuan3d_shape": {...}}` and a `{"hunyuan3d_paint": {...}}` line, a
 `{"workflows": {...}}` line (each graph's seconds, per-node split, peak
 memory and launches), a `{"crm": {...}}` line, an `{"mvdiffusion_fit":
-{...}}` line, one `{"kernels": [...]}`
-line (the graphs' counts in `launches_by_path`, ImageDream → LGM's view 0
-in K1′'s `by_path`), then the `nvidia-smi` line, and as its last
+{...}}` line, a `{"flexicubes": {...}}` and a `{"triposg": {...}}` line,
+one `{"kernels": [...]}` line (the graphs' counts in `launches_by_path`,
+ImageDream → LGM's view 0 in K1′'s `by_path`; the silhouette's forward and
+backward, at the graph's shapes, with 22a's in their `by_path`), then
+the `nvidia-smi` line, and as its last
 line `{"ok": true, "device": {...}}`. With `--out`, the full record
 (per-phase errors, times, profile) is also written as JSON to that path.
 Without a CUDA device, or without the repository beside this file, it exits
@@ -930,20 +973,23 @@ def pad_dead(splat, extra):
 
 def reset_launches():
     """Every kernel wrapper's launch count to 0."""
-    from comfy3d_tpu_torch.ops import gs_flat, gs_tile
+    from comfy3d_tpu_torch.ops import gs_flat, gs_tile, rasterize
     for fn in (gs_flat.composite_bins_fwd_rows,
                gs_flat.composite_bins_bwd_splats,
                gs_tile.composite_tiles_fwd_rows,
-               gs_tile.composite_tiles_bwd_splats):
+               gs_tile.composite_tiles_bwd_splats,
+               rasterize.soft_silhouette_fwd, rasterize.soft_silhouette_bwd):
         fn.launches = 0
 
 
 def read_launches():
-    from comfy3d_tpu_torch.ops import gs_flat, gs_tile
+    from comfy3d_tpu_torch.ops import gs_flat, gs_tile, rasterize
     return {"gs_flat_fwd": gs_flat.composite_bins_fwd_rows.launches,
             "gs_flat_bwd": gs_flat.composite_bins_bwd_splats.launches,
             "gs_tile_fwd": gs_tile.composite_tiles_fwd_rows.launches,
-            "gs_tile_bwd": gs_tile.composite_tiles_bwd_splats.launches}
+            "gs_tile_bwd": gs_tile.composite_tiles_bwd_splats.launches,
+            "soft_silhouette_fwd": rasterize.soft_silhouette_fwd.launches,
+            "soft_silhouette_bwd": rasterize.soft_silhouette_bwd.launches}
 
 
 def expect_launches(launches, backend, fwd, bwd, what):
@@ -2557,9 +2603,9 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    views_ms = cuda_ms(text_to_views, 3, warmup=1)
+    views_ms = cuda_ms(text_to_views, 1, warmup=1)
     peak = torch.cuda.max_memory_allocated()
-    views_tf32_ms = tf32_ms(text_to_views, 3)
+    views_tf32_ms = tf32_ms(text_to_views, 1, warmup=0)
     views = text_to_views()
     check(tuple(views.shape) == (v, mv_cfg.image_size, mv_cfg.image_size,
                                  3), f"views {tuple(views.shape)}")
@@ -2744,7 +2790,7 @@ def gs_to_mesh_path(dev, asset_dir, smi_line):
     """Phase 15: `algorithms/gs_to_mesh.py::convert` at `GSToMeshConfig()`
     (24 views at 256², 384 iterations, `NGPConfig()` widths, 192³, σ 10,
     100k faces, 1024²); text → phase 14's splats → mesh at those defaults
-    runs as phase 19d's graph."""
+    but `G2M_ITERS` NeRF iterations runs as phase 19d's graph."""
     import dataclasses
 
     import numpy as np
@@ -3226,9 +3272,9 @@ def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    grid_ms = cuda_ms(image_to_grid, 2, warmup=1)
+    grid_ms = cuda_ms(image_to_grid, 1, warmup=1)
     peak = torch.cuda.max_memory_allocated()
-    grid_tf32_ms = tf32_ms(image_to_grid, 2)
+    grid_tf32_ms = tf32_ms(image_to_grid, 1, warmup=0)
     grid = image_to_grid()
     check(tuple(grid.shape) == (cfg.height, cfg.width, 3),
           f"grid {tuple(grid.shape)}")
@@ -3333,7 +3379,10 @@ def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
 # ------------------------------------------------------------------ #
 TOL_HY3D_REL = 1e-3      # card vs CPU, of the largest value, TF32 off
 TOL_HY3D_BAND = 1e-5     # 17c: octree vs dense grid near the surface
+TOL_HY3D_ALONE = 1e-5    # 17b: the pipeline alone's grid vs the graph's,
+#                          of the largest value (the same calls, same card)
 HY3D_STEPS = 30          # the Hunyuan3D_21_ShapeGen node's defaults
+HY3D_TIMED_STEPS = 10    # 17b's denoise timed alone, f32 and TF32
 HY3D_GUIDANCE = 7.5
 HY3D_SEED = 1234
 HY3D_OCTREE = 256
@@ -3375,7 +3424,6 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     from comfy3d_tpu_torch.models.hunyuan3d.pipeline import SHAPE_STAGES
     from comfy3d_tpu_torch.models.vecset import vae as V
     from comfy3d_tpu_torch.nodes.nodes_hunyuan3d import (CLEAN_SPAN,
-                                                         _cleanup,
                                                          shapegen_image)
     from comfy3d_tpu_torch.ops.tetra import EXTRACT_SPANS
 
@@ -3461,8 +3509,21 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     span_names = (SHAPE_STAGES + ("vecset.decode_volume",)
                   + tuple(f"vecset.decode_level{i}" for i in range(levels))
                   + EXTRACT_SPANS + (CLEAN_SPAN,))
-    res, graph = run_graph("config5_shape", config_graph("5_shape"),
-                           spans=span_names, device=dev)
+    # the graph's decoded grid, captured for the pipeline-alone gate below
+    graph_grid, decode_grid = [], Hunyuan3DShapePipeline.decode_grid
+
+    def captured_grid(self, *a, **kw):
+        out = decode_grid(self, *a, **kw)
+        graph_grid.append(out.detach().clone())
+        return out
+
+    Hunyuan3DShapePipeline.decode_grid = captured_grid
+    try:
+        res, graph = run_graph("config5_shape", config_graph("5_shape"),
+                               spans=span_names, device=dev)
+    finally:
+        Hunyuan3DShapePipeline.decode_grid = decode_grid
+    check(len(graph_grid) == 1, f"the graph decoded {len(graph_grid)} grids")
     launches = graph["launches"]
     check(not any(launches.values()),
           f"the Hunyuan3D shape path launched a compositor kernel: "
@@ -3479,6 +3540,7 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     check(np.array_equal(back.v, clean.v) and np.array_equal(back.f, clean.f),
           "GLB round trip changed the mesh")
     image = processed[0].numpy()
+    pipe = res[2][0]
     spans = graph["spans"]
     k_lvl = [min((64 << i) ** 3, max(4096, 14 * (64 << i) ** 2))
              for i in range(levels)]
@@ -3492,13 +3554,11 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     del res, back
     torch.cuda.empty_cache()
 
-    # the pipeline alone (the loader node's weights: seed 0, drawn on the
-    # card) on the node's processed image, as `pipe(image, **node)` runs
-    # it, stage by stage on the host's clock with each stage's peak memory,
-    # then the node's cleanup: it must give the graph's mesh
-    ti = time.perf_counter()
-    pipe = Hunyuan3DShapePipeline.init_random(0, cfg, device=dev)
-    init_s = time.perf_counter() - ti
+    # the pipeline alone (the loader node's: seed 0, drawn on the card) on
+    # the node's processed image, as `pipe(image, **node)` runs it, stage
+    # by stage on the host's clock with each stage's peak memory, as far as
+    # the decoded grid, which must be the graph's (the graph's spans time
+    # the extraction and the cleanup)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     stages, peaks = {}, {}
@@ -3516,24 +3576,18 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
         image, node["seed"], node["num_steps"], node["guidance_scale"]))
     grid = stage("decode_grid", lambda: pipe.decode_grid(
         lat, node["octree_resolution"], num_chunks=node["num_chunks"]))
-    raw = stage("grid_to_mesh", lambda: V.grid_to_mesh(grid[0]))
-    direct = stage("clean", lambda: _cleanup(raw))
     check(bool(torch.isfinite(grid).all()), "non-finite grid")
-    for m in (raw, direct):
-        check(m.num_vertices > 0 and m.num_faces > 0, "empty mesh")
-        check(bool(np.isfinite(m.v).all()), "non-finite vertices")
-        check(int(m.f.max()) < m.num_vertices, "faces past the vertices")
-    check(direct.num_faces == clean.num_faces,
-          f"the pipeline and cleanup alone gave {direct.num_faces} faces, "
-          f"the graph {clean.num_faces}")
     grid_stats = {"inside_share": float((grid > 0).float().mean()),
                   "min": float(grid.min()), "max": float(grid.max())}
-    same_v = direct.num_vertices == clean.num_vertices
-    vs_graph = {"raw_nf": raw.num_faces, "nf": direct.num_faces,
-                "same_faces": same_v and np.array_equal(direct.f, clean.f),
-                "max_abs_v": (float(np.abs(direct.v - clean.v).max())
-                              if same_v else None)}
-    del grid, raw, direct
+    vs_graph = {"same_shape": grid.shape == graph_grid[0].shape}
+    check(vs_graph["same_shape"], f"the pipeline alone decoded "
+          f"{tuple(grid.shape)}, the graph {tuple(graph_grid[0].shape)}")
+    vs_graph.update(
+        max_abs=float((grid - graph_grid[0]).abs().max()),
+        sign_disagree=int(((grid > 0) != (graph_grid[0] > 0)).sum()))
+    check(vs_graph["max_abs"] <= TOL_HY3D_ALONE * float(grid.abs().max()),
+          f"the pipeline alone's grid against the graph's: {vs_graph}")
+    del grid, graph_grid[:]
     # the 30 steps alone by CUDA events, f32 and TF32; one guided step
     cond = pipe.encode_cond(image)
     noise = torch.randn((1, cfg.vae.num_latents, cfg.vae.embed_dim),
@@ -3541,7 +3595,7 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
                         ).to(dev)
 
     def denoise():
-        return pipe.denoise(cond, noise, HY3D_GUIDANCE, HY3D_STEPS)
+        return pipe.denoise(cond, noise, HY3D_GUIDANCE, HY3D_TIMED_STEPS)
 
     steps_ms = cuda_ms(denoise, 1, warmup=0)
     steps_tf32_ms = tf32_ms(denoise, 1, warmup=0)
@@ -3572,7 +3626,7 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
     chunk_prof = profile_frames(one_chunk, 3, match=SDPA_KERNELS)
     chunk_flops = flops_of(one_chunk)
     rec["image_to_mesh"] = {
-        "init_s": init_s, "image": WF_IMAGE,
+        "image": WF_IMAGE,
         "image_to_mesh_s": graph["s"],
         "stages_s": {k: v["host_ms"] / 1e3 for k, v in spans.items()},
         "alone_stages_s": stages, "stage_peak_bytes": peaks,
@@ -3584,6 +3638,7 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
         "nv": clean.num_vertices, "nf": clean.num_faces,
         "glb_bytes": os.path.getsize(glb),
         "steps_ms": steps_ms, "steps_ms_tf32": steps_tf32_ms,
+        "timed_steps": HY3D_TIMED_STEPS,
         "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
         "step_flops": step_flops,
         "step_tflops_s": step_flops / step_ms / 1e9,
@@ -3935,7 +3990,7 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
     write_flops = flops_of(lambda: pipe.write_reference(ilat))
     decode_flops = flops_of(lambda: pipe.decode(latents))
     rec["b"] = {
-        "init_s": init_s, "image": WF_IMAGE, "call_s": call_s,
+        "image": WF_IMAGE, "call_s": call_s,
         "peak_bytes": peak, "spans": spans, "launches": launches,
         "graph": graph, "stages": stages,
         "stage_peak_bytes": peaks,
@@ -4012,7 +4067,7 @@ WF_ELEVATION = 15.0
 WF_GS_SIZE = 800         # 19a: the GS renderer node's size
 WF_MESH_SIZE = 512       # 19a: the mesh renderer node's default
 WF_FIT_SIZE = 256        # 19f: the sphere's views and the fit's renders
-WF_FIT_ITERS = 300       # 19f: `training_iterations`, through overrides
+WF_FIT_ITERS = 100       # 19f: `training_iterations`, through overrides
 WF_FIT_BWD_SEED = 13     # 19f: the cotangents of K3′'s hold on view 0
 WF_IMAGE = 512           # the LoadImage nodes' reference image
 WF_DIR = "workflows"     # under the nodes' output root
@@ -4045,17 +4100,23 @@ def _orbit(nid, radius, views=WF_VIEWS, elevation=WF_ELEVATION):
 def config_graph(n, image="reference.png", rgba="reference_rgba.png",
                  mesh="uv_cube.glb", splat="splat_100k.ply",
                  sphere="sphere.ply", gs_size=None, fit_size=None,
-                 uv_sphere="uv_sphere.glb"):
+                 uv_sphere="uv_sphere.glb", fc_mesh="fc_sphere.glb",
+                 depth_range=(0.5, 5.5)):
     """The workflow of config `n` (1, 2, 3, 4, "5_shape", "5_texgen",
     "5_full"), of the 3DGS fit ("3dgs_fit"), of CRM ("crm": image → six
     views → six CCMs → mesh; "crm_t2i": the T2I V2 views of the image read
     as normal maps), of Wonder3D ("wonder3d": image → six views and normal
     maps) or of Era3D with the mesh fit ("era3d_fit": image → six views and
     normal maps → masks from the normals → `uv_sphere` fitted to the views)
-    at the nodes' defaults, its files named relative to the nodes' input
-    root; only the standard library is needed to build it."""
+    or of FlexiCubes ("flexicubes": `fc_mesh`'s 8-view orbit renders at
+    `fit_size` → FlexiCubes MVS from their depths, masks and normal maps,
+    the depths decoded over `depth_range`) or of TripoSG ("triposg": image
+    → mesh; "triposg_scribble": the scribble model's image → mesh) at the
+    nodes' defaults, its files named relative to the nodes' input root;
+    only the standard library is needed to build it."""
     out = f"{WF_DIR}/" + (n if n in ("3dgs_fit", "crm", "crm_t2i",
-                                     "wonder3d", "era3d_fit")
+                                     "wonder3d", "era3d_fit", "flexicubes",
+                                     "triposg", "triposg_scribble")
                           else f"config{n}")
     gs_size = WF_GS_SIZE if gs_size is None else gs_size
     fit_size = WF_FIT_SIZE if fit_size is None else fit_size
@@ -4218,6 +4279,38 @@ def config_graph(n, image="reference.png", rgba="reference_rgba.png",
              [fit_size, 49.1, 1.0, 1.0, 1.0],
              {"gs_ply": (4, 0), "render_orbit_camera_poses": (2, 0)}),
             (6, "SaveImage", [f"{out}_renders"], {"images": (5, 0)}))
+    if n == "triposg":       # upstream's TripoSG image → mesh
+        return workflow(
+            *load_rgba,
+            (3, C3D + "Load TripoSG Pipeline", ["VAST-AI/TripoSG"], {}),
+            (4, C3D + "TripoSG I23D Model",
+             [42, "fixed", 7.0, 50, True, 9, 9, 8],
+             {"tsg_pipe": (3, 0), **ref}),
+            (5, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (4, 0)}))
+    if n == "triposg_scribble":   # the scribble model, its image → mesh
+        return workflow(
+            (1, "LoadImage", [image], {}),
+            (2, C3D + "Load Diffusers Pipeline",
+             ["TripoSGScribblePipeline", "VAST-AI/TripoSG-scribble", "",
+              False], {}),
+            (3, C3D + "TripoSG Scribble Model",
+             ["3D assets", 42, "fixed", 16, 0.4, 1.0, 8],
+             {"tsg_scribble_pipe": (2, 0), "scribble_image": (1, 0)}),
+            (4, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (3, 0)}))
+    if n == "flexicubes":    # a mesh's orbit renders → FlexiCubes → a mesh
+        return workflow(
+            (1, C3D + "Load 3D Mesh", [fc_mesh, False, True, False, False],
+             {}),
+            _orbit(2, MR_RADIUS),
+            (3, C3D + "Mesh Orbit Renderer", [fit_size, 49.1, 1.0, 1.0, 1.0],
+             {"mesh": (1, 0), "render_orbit_camera_poses": (2, 0)}),
+            (4, C3D + "FlexiCubes MVS",
+             [49.1, 512, 4, 0.01, 128, depth_range[0], depth_range[1], 1.0,
+              100.0, 1.0, 0.2, 0.5, 0.1, False],
+             {"reference_depth_maps": (3, 2), "reference_masks": (3, 1),
+              "reference_orbit_camera_poses": (2, 0),
+              "reference_normal_maps": (3, 3)}),
+            (5, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (4, 0)}))
     raise ValueError(f"no workflow {n!r}")
 
 
@@ -4412,10 +4505,11 @@ def workflows_path(dev, asset_dir, lgm_splat):
     del res, views, mesh
 
     # 19d. config 4: MVDream (30 steps) → LGM → 3DGS; the converter at its
-    # defaults → mesh (phase 15c's text → mesh, with its fields)
+    # defaults but G2M_ITERS NeRF iterations (of 384, phase 15's shell's
+    # count) → mesh (phase 15c's text → mesh, with its fields)
     cfg = g2m.GSToMeshConfig()
-    res, rec = run_graph("config4", config_graph(4), spans=g2m.STAGES,
-                         device=dev)
+    res, rec = timed_graph("config4", config_graph(4), overrides={
+        8: {"training_nerf_iterations": G2M_ITERS}}, device=dev)
     expect_launches(rec["launches"], "flat", cfg.n_views, 0, "19d")
     mesh = res[8][0]
     check(bool(np.isfinite(mesh.v).all()), "19d: non-finite vertices")
@@ -4424,31 +4518,31 @@ def workflows_path(dev, asset_dir, lgm_splat):
                                   and mesh.albedo.max() <= 1),
           "19d: albedo outside [0, 1]")
     splats = res[6][0]
+    check(all(t.device.type == dev.type for t in _tensors_of(splats)),
+          "19d: the splats are off the card")
     nodes = rec["nodes"]
     rec.update(
         nv=mesh.num_vertices, nf=mesh.num_faces,
-        text_to_mesh_s=rec["s"],
+        text_to_mesh_s=rec["s"], ngp_iters=G2M_ITERS,
         # the MVDream and LGM nodes (#4, #6), their loaders left out
-        text_to_splats_s=sum(v["host_ms"] for k, v in nodes.items()
-                             if k.startswith(("node#4 ", "node#6 "))) / 1e3,
+        text_to_splats_s=sum(v for k, v in nodes.items()
+                             if k.startswith(("node#4 ", "node#6 "))),
         splats_vs_phase_14_max_abs=float(
-            (splats.xyz - lgm_splat.xyz).abs().max()),
-        stages={k.split(".")[-1]: v for k, v in rec["spans"].items()},
-        stages_host_ms=sum(v["host_ms"] for v in rec["spans"].values()),
-        stages_device_ms=sum(v["device_ms"]
-                             for v in rec["spans"].values()))
+            (splats.xyz - lgm_splat.xyz).abs().max()))
     recs["config4"] = rec
     del res, mesh, splats
 
-    # 19f. the 3DGS fit: the sphere's 8 views at 256² → 300 iterations at
-    # batch 1 → the fit's 8 renders
-    res, rec = run_graph("3dgs_fit", config_graph("3dgs_fit"),
-                         overrides={4: {"training_iterations": WF_FIT_ITERS}},
-                         device=dev)
+    # 19f. the 3DGS fit: the sphere's 8 views at 256² → WF_FIT_ITERS
+    # iterations at batch 1 → the fit's 8 renders
+    res, rec = timed_graph("3dgs_fit", config_graph("3dgs_fit"),
+                           overrides={4: {"training_iterations":
+                                          WF_FIT_ITERS}}, device=dev)
     expect_launches(rec["launches"], "flat", WF_FIT_ITERS + WF_VIEWS,
                     WF_FIT_ITERS, "19f")
     fitted = res[4][0]
     renders = res[5][0]
+    check(all(t.device.type == dev.type for t in _tensors_of(fitted)),
+          "19f: the fitted splats are off the card")
     check(all(bool(torch.isfinite(t).all()) for t in
               (fitted.xyz, fitted.sh, fitted.opacity_raw, fitted.scale_raw,
                fitted.rot_raw, renders)), "19f: non-finite result")
@@ -4495,6 +4589,7 @@ def workflows_path(dev, asset_dir, lgm_splat):
 # ------------------------------------------------------------------ #
 TOL_CRM_REL = 1e-3       # card vs CPU, of the largest value, TF32 off
 CRM_STEPS = 50           # the CRM samplers' nodes' defaults
+CRM_TIMED_STEPS = 25     # 20b-c: the samplers timed at full width
 CRM_GUIDANCE = 5.5
 CRM_SEED = 1234
 CRM_T2I_STEPS = 10       # 20e's T2I V2 graph (the node's 50, cut)
@@ -4559,9 +4654,11 @@ def crm_reference(size=CRM_VIEW):
             + (1.0 - mask[0, ..., None])).astype(np.float32)
 
 
-def sampler_stage(name, pipe, steps, guidance, sample_kw, gen_seed):
-    """One multi-view sampler at full width: the whole sampling by CUDA
-    events in f32 and in TF32, one guided step timed (f32, TF32), its FLOPs
+def sampler_stage(name, pipe, steps, guidance, sample_kw, gen_seed,
+                  node_steps):
+    """One multi-view sampler at full width: the sampling of `steps` steps
+    (`timed_steps`; the node's default is `node_steps`) by CUDA events in
+    f32 and in TF32, one guided step timed (f32, TF32), its FLOPs
     counted from the shapes (`torch.utils.flop_counter`), profiled (the
     idle share of the profiled window, the SDPA kernels) and the peak
     memory of the sampling. Returns (record, the f32 views)."""
@@ -4597,14 +4694,15 @@ def sampler_stage(name, pipe, steps, guidance, sample_kw, gen_seed):
     def one_step():
         return sched.step(pipe.guided_eps(x0, t0, cond, guidance), 0, x0)
 
-    step_ms = cuda_ms(one_step, 5, warmup=1)
-    step_tf32_ms = tf32_ms(one_step, 5)
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 3)
     flops = flops_of(one_step)
     prof = profile_frames(one_step, 2, match=SDPA_KERNELS)
     prof["device_idle_share"] = 1.0 - prof["device_union_ms"] \
         / prof["window_ms"]
     rec = {"steps": steps, "guidance_scale": guidance,
            "frames": cond.frames, "cfg_batch": 2 * cond.frames,
+           "timed_steps": steps, "node_steps": node_steps,
            "ms": views_ms, "ms_tf32": views_tf32_ms, "peak_bytes": peak,
            "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
            "step_tflop": flops / 1e12,
@@ -4643,7 +4741,6 @@ def crm_path(dev, asset_dir, smi_line):
     from comfy3d_tpu_torch.core.mesh import Mesh
     from comfy3d_tpu_torch.models import clip
     from comfy3d_tpu_torch.models.crm import CRMReconPipeline
-    from comfy3d_tpu_torch.models.crm.pipeline import CRM_STAGES
     from comfy3d_tpu_torch.models.diffusion.schedulers import (
         DDIM, SchedulerConfig)
     from comfy3d_tpu_torch.models.lgm import LGMConfig, LGMPipeline
@@ -4744,8 +4841,8 @@ def crm_path(dev, asset_dir, smi_line):
     init_s = time.perf_counter() - t0
     clip_ms = cuda_ms(lambda: pix.vision_encoder(ref_img), 5)
     rec["pixel"], views = sampler_stage(
-        "b. pixel stage", pix, CRM_STEPS, CRM_GUIDANCE, {"image": ref_img},
-        CRM_SEED)
+        "b. pixel stage", pix, CRM_TIMED_STEPS, CRM_GUIDANCE,
+        {"image": ref_img}, CRM_SEED, node_steps=CRM_STEPS)
     rec["pixel"].update(init_s=init_s, clip_ms=clip_ms,
                         clip_params=count_params(enc),
                         resampler_params=count_params(pix.model.image_embed))
@@ -4758,8 +4855,9 @@ def crm_path(dev, asset_dir, smi_line):
     ccm = MVDreamPipeline.init_random(1, crm_mv_config(8), device=dev)
     ccm.set_vision_encoder(clip.make_vision_hidden_conditioner(enc))
     rec["ccm"], ccms = sampler_stage(
-        "c. CCM stage", ccm, CRM_STEPS, CRM_GUIDANCE,
-        {"image": ref_img, "pixel_images": views}, CRM_SEED + 1)
+        "c. CCM stage", ccm, CRM_TIMED_STEPS, CRM_GUIDANCE,
+        {"image": ref_img, "pixel_images": views}, CRM_SEED + 1,
+        node_steps=CRM_STEPS)
     del ccm
     torch.cuda.empty_cache()
     rec["c_s"] = time.perf_counter() - t0
@@ -4844,10 +4942,10 @@ def crm_path(dev, asset_dir, smi_line):
     # e. the CRM graphs at the nodes' defaults, loaders drawing on the card
     t0 = time.perf_counter()
     graphs = {}
-    results, graphs["crm"] = run_graph(
+    results, graphs["crm"] = timed_graph(
         "crm", config_graph("crm"),
         {n: {"num_inference_steps": CRM_GRAPH_STEPS} for n in (4, 5)},
-        spans=CRM_STAGES, device=dev)
+        device=dev)
     g_mesh = results[7][0]
     check(g_mesh.num_faces > 0 and tuple(results[4][0].shape)
           == tuple(results[5][0].shape) == (6, CRM_VIEW, CRM_VIEW, 3),
@@ -4934,6 +5032,7 @@ def crm_path(dev, asset_dir, smi_line):
 # ------------------------------------------------------------------ #
 TOL_MV_REL = 1e-3        # card vs CPU, of the largest value, TF32 off
 ERA3D_STEPS = 40         # the Era3D node's defaults
+ERA3D_TIMED_STEPS = 10   # 21b: the sampler timed at full width
 ERA3D_GUIDANCE = 3.0
 ERA3D_SEED = 600
 ERA3D_RADIUS = 4.0
@@ -4947,7 +5046,7 @@ W3D_SEED = 0
 FIT_GRAPH_STEPS = 10
 FIT_ITERS = 136
 FIT_REMESH = 128
-FIT_PROFILE_STEPS = 3
+FIT_PROFILE_STEPS = 1
 # 21e: the analytic fit — a textured UV sphere scaled by GATE_SCALE with a
 # flat grey texture fitted back to the sphere's six Era3D views at
 # GATE_SIZE² for GATE_ITERS steps (the vertex rate of the JAX package's
@@ -4994,8 +5093,9 @@ def gate_texture(size=GATE_TEXTURE):
 
 
 def _mv_stage(name, pipe, image, steps, guidance, seed, one_step,
-              tf32_sampler):
-    """One multi-view family at full width: the whole sampler (the VAE
+              tf32_sampler, node_steps):
+    """One multi-view family at full width: the whole sampler of `steps`
+    steps (`timed_steps`; the node's default is `node_steps`; the VAE
     encode, CLIP and decode included) by CUDA events in f32 (and TF32 with
     `tf32_sampler`), one guided step timed f32 and TF32, its FLOPs counted
     (`torch.utils.flop_counter`), profiled (idle share, SDPA kernels), the
@@ -5040,6 +5140,7 @@ def _mv_stage(name, pipe, image, steps, guidance, seed, one_step,
     peak_decode = torch.cuda.max_memory_allocated()
     rec = {"steps": steps, "guidance_scale": guidance, "seed": seed,
            "image_size": cfg.image_size, "views": cfg.num_views,
+           "timed_steps": steps, "node_steps": node_steps,
            "sampler_ms": sampler_ms, "sampler_ms_tf32": sampler_tf32_ms,
            "step_ms": step_ms, "step_ms_tf32": step_tf32_ms,
            "step_tflop": flops / 1e12,
@@ -5288,8 +5389,8 @@ def mvdiffusion_fit_path(dev, asset_dir, smi_line):
                                              ERA3D_GUIDANCE)[0], 0, x0)
 
     rec["era3d"], e_colors, e_normals = _mv_stage(
-        "b. Era3D", era, image, ERA3D_STEPS, ERA3D_GUIDANCE, ERA3D_SEED,
-        era3d_step, tf32_sampler=False)
+        "b. Era3D", era, image, ERA3D_TIMED_STEPS, ERA3D_GUIDANCE,
+        ERA3D_SEED, era3d_step, tf32_sampler=False, node_steps=ERA3D_STEPS)
     with torch.no_grad():
         _, (ele, focal) = era.guided_eps(x0, te, cond, ERA3D_GUIDANCE)
     rec["era3d"].update(
@@ -5330,7 +5431,7 @@ def mvdiffusion_fit_path(dev, asset_dir, smi_line):
 
     rec["wonder3d"], w_colors, _ = _mv_stage(
         "c. Wonder3D", w3d, image, W3D_STEPS, W3D_GUIDANCE, W3D_SEED,
-        w3d_step, tf32_sampler=True)
+        w3d_step, tf32_sampler=True, node_steps=W3D_STEPS)
     rec["wonder3d"].update(
         init_s=init_s, clip_params=count_params(enc),
         unet_frames=2 * wcfg.num_views, latent=wcfg.image_size // 8,
@@ -5485,6 +5586,476 @@ def mvdiffusion_fit_path(dev, asset_dir, smi_line):
     check(losses[-1][1] < losses[0][1], f"analytic fit: loss {losses}")
     rec["analytic_fit"] = gate
     rec["e_s"] = time.perf_counter() - t0
+    return rec
+
+
+# ------------------------------------------------------------------ #
+# 22. FlexiCubes multi-view depth → mesh (the soft-silhouette kernels)
+# ------------------------------------------------------------------ #
+SIL_SIGMA = 3e-4         # SDFFitConfig.sigma_sil
+SIL_RES, SIL_SIZE = 64, 256   # 22a: the training surface's grid, the view
+TOL_SIL = 1e-5           # coverage, kernel vs plain (absolute; f32 sums of
+#                          up to 10^5 terms in another order)
+TOL_SIL_GRAD_REL = 1e-3  # vertex gradients, kernel vs plain, of their max
+#                          (each a sum over up to 2.6e5 pixels, by atomics in
+#                          the kernel; TOL_BWD_REL's bound)
+# f32 operations of one face-pixel pair (three segment distances at 17,
+# three edge functions at 3, the min, sqrt and sigmoid argument), more per
+# live pair (sigmoid argument >= -87: the sigmoid, clip, log1p and sum),
+# and more per live pair in the backward (the nearest segment's gradient,
+# the warp sums). A dead pair adds nothing to the f32 sum nor to a
+# gradient, so the bounds count live pairs only; the kernels' walk of
+# every pair is kept beside them (`_full_walk`)
+SIL_PAIR_OPS = 68
+SIL_LIVE_OPS = 8
+SIL_BWD_LIVE_OPS = 20
+FC_SIZE = 512            # 22b: the Mesh_Orbit_Renderer node's default
+FC_MESH_RADIUS = 0.55    # 22b: the source sphere
+FC_ITERS = 10            # 22b: training_iterations (the node's default 512)
+SIL_PLAIN_CHUNK = 256    # faces a step of the plain version on the card
+FC_RES = 128             # 22b: voxel_grids_resolution (the node's default)
+FC_PROFILE_STEPS = 1
+FC_TETS_RES = 128        # 22c: SDFFitConfig(engine="tets")'s grid
+# 23a: the full config's parameters (tests/test_torch_triposg.py holds them
+# against the JAX package's by shape: its VAE without the encoder, its
+# DINOv2 without HF's mask_token)
+TRIPOSG_PARAMS = {"dit": 1_439_556_160, "vae": 242_662_017,
+                  "cond": 304_368_640}
+
+
+def silhouette_pairs(tri, ok, size, sigma=SIL_SIGMA, block=64):
+    """(face-pixel pairs, live pairs) of the soft silhouette on these
+    inputs: every ok face against every pixel, and those whose sigmoid
+    argument is at least -87 (the kernel's transcendental work)."""
+    import torch
+    from comfy3d_tpu_torch.ops import rasterize as R
+    t = tri[ok].detach()
+    px = R._pixel_centers(size, size, t.device).reshape(-1, 1, 2)
+    scale = 1.0 / size
+    live = 0
+    with torch.no_grad():
+        for i in range(0, t.shape[0], block):
+            c = t[i:i + block]
+            d = R._signed_dist_to_tri(px, c[:, 0], c[:, 1], c[:, 2]) * scale
+            live += int((torch.sign(d) * d * d / sigma >= -87.0).sum())
+    return t.shape[0] * size * size, live
+
+
+def silhouette_bounds(tri, ok, size):
+    """The forward's and backward's bounds (`_bound`) on these inputs: the
+    live pairs' operations (`silhouette_pairs`), each face's corners and
+    flag read and the coverage written (the backward: the upstream
+    gradient read, each corner's gradient written); with the walk of every
+    pair beside them (`_full_walk`)."""
+    pairs, live = silhouette_pairs(tri, ok, size)
+    nf = int(tri.shape[0])
+    fwd_pair = SIL_PAIR_OPS + SIL_LIVE_OPS
+    bwd_pair = fwd_pair + SIL_BWD_LIVE_OPS
+    return (dict(_bound(nf * 25, size * size * 4, live * fwd_pair,
+                        pairs=pairs, live_pairs=live),
+                 **_full_walk(pairs * SIL_PAIR_OPS + live * SIL_LIVE_OPS)),
+            dict(_bound(nf * 25 + size * size * 4, nf * 24, live * bwd_pair,
+                        pairs=pairs, live_pairs=live),
+                 **_full_walk(pairs * SIL_PAIR_OPS
+                              + live * (SIL_LIVE_OPS + SIL_BWD_LIVE_OPS))))
+
+
+def silhouette_vs_plain(label, flat, faces, mvp, size, seed):
+    """The soft silhouette on the card through the kernels against its
+    plain version (`SIL_PLAIN_CHUNK` faces a step) on the same vertices:
+    coverage and vertex gradients of a seeded cotangent; the kernels'
+    times by CUDA events, the plain version's forward and backward on the
+    host's clock between synchronisations (one pass); the bounds."""
+    import torch
+    from comfy3d_tpu_torch.ops import rasterize as R
+    g = torch.Generator(flat.device).manual_seed(seed)
+    cot = torch.randn((size, size), generator=g, device=flat.device)
+    out, grads, pass_ms = {}, {}, {}
+    for name, fn in (("kernel", R.soft_silhouette),
+                     ("plain", R.soft_silhouette_plain)):
+        v = flat.detach().clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cov = fn(v, faces, mvp, size, size, sigma=SIL_SIGMA,
+                 chunk=SIL_PLAIN_CHUNK)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (cov * cot).sum().backward()
+        torch.cuda.synchronize()
+        pass_ms[name] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        out[name], grads[name] = cov.detach(), v.grad
+    err = float((out["kernel"] - out["plain"]).abs().max())
+    gmax = float(grads["plain"].abs().max())
+    gerr = float((grads["kernel"] - grads["plain"]).abs().max())
+    check(bool(torch.isfinite(grads["kernel"]).all()),
+          f"{label}: non-finite silhouette gradient")
+    check(err <= TOL_SIL, f"{label}: coverage kernel vs plain {err}")
+    check(gerr <= TOL_SIL_GRAD_REL * gmax,
+          f"{label}: vertex gradients kernel vs plain {gerr} of {gmax}")
+    tri, ok = R._face_screen(flat.detach(), faces, mvp, size, size, None)
+    g_l = -(1.0 - out["kernel"]) * cot
+    rec = dict(faces=int(faces.shape[0]), ok_faces=int(ok.sum()), size=size,
+               max_abs_err=err, grad_max_abs_err=gerr,
+               grad_max_rel_err=gerr / max(gmax, 1e-30), grad_max=gmax,
+               coverage_mean=float(out["kernel"].mean()),
+               fwd_ms=cuda_ms(lambda: R.soft_silhouette_fwd(
+                   tri, ok, size, size, SIL_SIGMA), 5, warmup=1),
+               bwd_ms=cuda_ms(lambda: R.soft_silhouette_bwd(
+                   tri, ok, g_l, size, size, SIL_SIGMA), 5, warmup=1),
+               plain_fwd_ms=pass_ms["plain"][0],
+               plain_bwd_ms=pass_ms["plain"][1],
+               plain_chunk=SIL_PLAIN_CHUNK, pass_ms=pass_ms)
+    rec["fwd_bound"], rec["bwd_bound"] = silhouette_bounds(tri, ok, size)
+    log(f"22 silhouette {label}: {rec}")
+    return rec
+
+
+def chamfer(a, b, block=8192):
+    """Symmetric Chamfer distance of two point sets on the card: the mean
+    nearest-point distance each way, averaged; and the two ways."""
+    import torch
+
+    def one_way(p, q):
+        return float(torch.cat([torch.cdist(p[i:i + block], q).amin(1)
+                                for i in range(0, p.shape[0], block)]).mean())
+    ab, ba = one_way(a, b), one_way(b, a)
+    return 0.5 * (ab + ba), ab, ba
+
+
+def flexicubes_path(dev, asset_dir, smi_line):
+    """Phase 22: FlexiCubes multi-view depth → mesh (`algorithms/sdf_fit.py`,
+    the soft-silhouette kernels): a. the kernels against their plain
+    version on one view of a res-64 training surface at 256²; b. a sphere's
+    8-view orbit renders at 512² → FlexiCubes_MVS at its defaults through
+    `run_workflow` (FC_ITERS steps), with the kernels held against the
+    plain version again at the graph's shapes; c. one step of
+    `engine="tets"` at 128³."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.algorithms import sdf_fit
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.nodes import NODE_CLASS_MAPPINGS
+    from comfy3d_tpu_torch.ops import flexicubes as FC
+    from comfy3d_tpu_torch.ops import mesh_render, tetra
+
+    rec = {"card": smi_line}
+
+    # a. the kernels against the plain version: a res-64 training surface
+    # (the initial sphere, its grid deformed and weights drawn from a seed)
+    t0 = time.perf_counter()
+    cfg = sdf_fit.SDFFitConfig(resolution=SIL_RES)
+    params, grid, _ = sdf_fit.init_params(cfg, device=dev)
+    g = torch.Generator(dev).manual_seed(22)
+    with torch.no_grad():
+        v = grid + (0.3 * 2.0 / SIL_RES) * torch.randn(
+            grid.shape, generator=g, device=dev)
+        w = 0.5 * torch.randn(params["weights"].shape, generator=g,
+                              device=dev)
+        vd, _, faces, _, _ = FC.flexicubes(params["sdf"], v, SIL_RES,
+                                           weights=w, training=True)
+        flat = vd[faces].reshape(-1, 3).contiguous()
+    tri_faces = torch.arange(flat.shape[0], device=dev,
+                             dtype=torch.int32).reshape(-1, 3)
+    cam = Camera.from_orbit([15.0], [30.0], MR_RADIUS, width=SIL_SIZE,
+                            height=SIL_SIZE, device=dev)
+    rec["a"] = silhouette_vs_plain("22a", flat, tri_faces, cam.view_proj[0],
+                                   SIL_SIZE, 1)
+    rec["a"]["s"] = time.perf_counter() - t0
+    del params, grid, v, w, vd, faces, flat, tri_faces
+    torch.cuda.empty_cache()
+
+    # b. the graph: a sphere's orbit renders → FlexiCubes_MVS
+    t0 = time.perf_counter()
+    src = uv_sphere(32, 64, FC_MESH_RADIUS)
+    src = Mesh(v=src.v, f=src.f)
+    src.write(os.path.join(asset_dir, "fc_sphere.glb"))
+    orbit = _orbit(2, MR_RADIUS)
+    poses = NODE_CLASS_MAPPINGS[orbit[1]]().stack_poses(*orbit[2])[0]
+    cams = Camera.from_camposes(poses, fovy_deg=49.1, width=FC_SIZE,
+                                height=FC_SIZE, device=dev)
+    with torch.no_grad():
+        dmax = float(mesh_render.render_mesh(
+            torch.as_tensor(src.v, device=dev),
+            torch.as_tensor(src.f, device=dev), cams)["depth"].max())
+    steps, surf, fits = [], {}, []
+    step, mesh_fn = sdf_fit.SDFFit.step, sdf_fit.SDFFit.mesh
+
+    def timed_step(self, view_idx):
+        if not fits:
+            fits.append(self)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(self, view_idx)
+        steps.append((float(loss), (time.perf_counter() - t) * 1e3))
+        return loss
+
+    def timed_mesh(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        soup = self.surface_soup()
+        surf["extract_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        v, f = tetra.weld(soup, soup.shape[0])
+        surf["weld_s"] = time.perf_counter() - t
+        surf["soup_triangles"] = int(soup.shape[0])
+        return Mesh(v=v, f=f).auto_normal()
+
+    sdf_fit.SDFFit.step, sdf_fit.SDFFit.mesh = timed_step, timed_mesh
+    try:
+        graph = config_graph("flexicubes", fit_size=FC_SIZE,
+                             depth_range=(0.0, dmax))
+        results, graph_rec = timed_graph(
+            "flexicubes", graph, {4: {"training_iterations": FC_ITERS,
+                                      "voxel_grids_resolution": FC_RES}},
+            device=dev)
+    finally:
+        sdf_fit.SDFFit.step, sdf_fit.SDFFit.mesh = step, mesh_fn
+    fitted = results[4][0]
+    losses = [x[0] for x in steps]
+    step_ms = sorted(x[1] for x in steps[1:])
+    check(len(steps) == FC_ITERS, f"22b: {len(steps)} fit steps")
+    renders = results[3]
+    masks = renders[1].to(dev)
+    depths = renders[2][..., 0].to(dev) * dmax * (masks > 0.5)
+    normals = renders[3].to(dev)
+    fit_cfg = fits[0].cfg
+    problem = sdf_fit.SDFFit(cams, masks, depths, normals, fit_cfg)
+    all_views = np.arange(len(poses))
+    with torch.no_grad():
+        loss_init = float(problem.loss(problem.params, all_views))
+        loss_fit = float(fits[0].loss(fits[0].params, all_views))
+    check(loss_fit < loss_init, f"22b: the loss over the {len(poses)} "
+          f"views did not fall: {loss_init} → {loss_fit}")
+    del fits[:]
+    init_mesh = problem.mesh()
+    src_pts = torch.as_tensor(src.v, device=dev)
+    ch_init, *ch_init_ways = chamfer(
+        torch.as_tensor(init_mesh.v, device=dev), src_pts)
+    ch_fit, *ch_fit_ways = chamfer(torch.as_tensor(fitted.v, device=dev),
+                                   src_pts)
+    log(f"22b: Chamfer {ch_init} {ch_init_ways} → {ch_fit} {ch_fit_ways}; "
+        f"loss over the views {loss_init} → {loss_fit}")
+    check(ch_fit < ch_init, f"22b: Chamfer {ch_fit} not below the initial "
+          f"sphere's {ch_init}")
+    # the kernels against the plain version at the graph's shapes: the
+    # initial training surface, view 0
+    with torch.no_grad():
+        tris, _ = problem.geometry(problem.params)
+        flat = tris.reshape(-1, 3).contiguous()
+    tri_faces = torch.arange(flat.shape[0], device=dev,
+                             dtype=torch.int32).reshape(-1, 3)
+    main = silhouette_vs_plain("22b", flat, tri_faces, cams.view_proj[0],
+                               FC_SIZE, 2)
+    del tris, flat, tri_faces
+    views = np.array([0, 2, 4, 6])
+    prof = profile_frames(lambda: problem.step(views), FC_PROFILE_STEPS,
+                          match=("silhouette",))
+    median_ms = step_ms[len(step_ms) // 2]
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / median_ms
+    rec["b"] = dict(
+        graph=graph_rec, iterations=FC_ITERS, depth_max=dmax,
+        launches=graph_rec["launches"], loss_all_views_initial=loss_init,
+        loss_all_views_fitted=loss_fit, step_losses=losses,
+        chamfer_initial_ways=ch_init_ways, chamfer_fitted_ways=ch_fit_ways,
+        step_ms_median=median_ms,
+        step_ms_min=step_ms[0], step_ms_max=step_ms[-1],
+        peak_bytes=graph_rec["peak_bytes"], chamfer_initial=ch_init,
+        chamfer_fitted=ch_fit, fitted_vertices=fitted.num_vertices,
+        fitted_faces=fitted.num_faces, **surf,
+        profile={k: v for k, v in prof.items() if k != "top"},
+        top=prof["top"], main_shape=main, s=time.perf_counter() - t0)
+    want = FC_ITERS * 4
+    check(graph_rec["launches"]["soft_silhouette_fwd"] == want
+          and graph_rec["launches"]["soft_silhouette_bwd"] == want,
+          f"22b: silhouette launches {graph_rec['launches']}, not {want}")
+    del problem, results, renders
+    torch.cuda.empty_cache()
+
+    # c. the first step of the marching-tets engine at 128³ (no warm-up:
+    # its allocations are in the time), its launches counted
+    t0 = time.perf_counter()
+    reset_launches()
+    tets_cfg = dataclasses.replace(fit_cfg, resolution=FC_TETS_RES,
+                                   engine="tets")
+    tets = sdf_fit.SDFFit(cams, masks, depths, normals, tets_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss = float(tets.step(views))
+    torch.cuda.synchronize()
+    rec["c"] = dict(first_step_ms=(time.perf_counter() - t) * 1e3,
+                    loss=loss,
+                    tets=int(tets.tets.shape[0]), launches=read_launches(),
+                    peak_bytes=torch.cuda.max_memory_allocated(),
+                    s=time.perf_counter() - t0)
+    check(np.isfinite(loss), "22c: non-finite loss")
+    del tets
+    torch.cuda.empty_cache()
+    log(f"phase 22: {rec}")
+    return rec
+
+
+# ------------------------------------------------------------------ #
+# 23. TripoSG image / scribble → mesh
+# ------------------------------------------------------------------ #
+TOL_TSG_REL = 1e-3       # card vs CPU, of the largest value, TF32 off
+TSG_SMALL = dict(dit_layers=3, vae_layers=2, cond_layers=2, dense=32)
+TSG_STEPS = 50           # TripoSG_I23D_Model's defaults
+TSG_GUIDANCE = 7.0
+TSG_SEED = 42
+TSG_OCTREE = 256         # dense_octree_depth 8
+SCRIBBLE_STEPS = 16      # TripoSG_Scribble_Model's default
+
+
+def triposg_path(dev, asset_dir, smi_line):
+    """Phase 23, at `TripoSGConfig()` (DINOv2-L at 518², the DiT of 21
+    blocks at width 2,048 on 2,048 latents, the VAE decoder of 16 blocks at
+    1,024) with the nodes' defaults: a. the full config's parameter counts
+    on `meta`; b. the card against the port's CPU path at cut depth; c. the
+    image graph with weights drawn on the card, then the pipeline's step,
+    decode and extraction timed; d. the scribble graph. Runs under
+    `torch.no_grad()`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.models.triposg import (TripoSG, TripoSGConfig,
+                                                  TripoSGPipeline)
+    from comfy3d_tpu_torch.models.vecset import vae as V
+    from comfy3d_tpu_torch.ops.tetra import EXTRACT_SPANS
+
+    cfg = TripoSGConfig()
+    rec = {"card": smi_line, "config": dataclasses.asdict(cfg)}
+    cpu = torch.device("cpu")
+
+    # a. the parameter counts on meta
+    with torch.device("meta"):
+        meta = TripoSG(cfg)
+    params = {name: count_params(getattr(meta, name))
+              for name in ("dit", "vae", "cond")}
+    del meta
+    check(params == TRIPOSG_PARAMS,
+          f"parameters {params}, not {TRIPOSG_PARAMS}")
+    rec["params"] = params
+
+    # b. the card against the port's CPU path at cut depth, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    sm = TSG_SMALL
+    small = dataclasses.replace(
+        cfg, dit=dataclasses.replace(cfg.dit, num_layers=sm["dit_layers"]),
+        vae=dataclasses.replace(cfg.vae,
+                                num_layers_decoder=sm["vae_layers"]),
+        cond=dataclasses.replace(cfg.cond, layers=sm["cond_layers"]))
+    image = white_composite(cfg.image_size)[0]
+    gen = torch.Generator().manual_seed(23)
+    shape = (1, cfg.vae.num_latents, cfg.vae.latent_channels)
+    noise = torch.randn(shape, generator=gen)
+    x2 = torch.randn((2,) + shape[1:], generator=gen)
+    pts = torch.rand((1, 4096, 3), generator=gen) * 2.0 - 1.0
+    host = TripoSGPipeline.init_random(0, small, device=cpu)
+    outs = {}
+    for d in (cpu, dev):
+        pipe = pipe_on(host, d)
+        cond = pipe.encode_cond(image)
+        decoded = pipe.model.vae(noise.to(d))
+        o = {"encode_cond": cond,
+             "dit": pipe.model.dit(x2.to(d), torch.full((2,), 500.0,
+                                                        device=d), cond),
+             "two_steps": pipe.sample_latents(image, num_steps=2,
+                                              guidance_scale=TSG_GUIDANCE,
+                                              draws=noise),
+             "conditional_two_steps": pipe.sample_latents(
+                 image, num_steps=2, draws=noise, distilled=True),
+             "vae_decoder": decoded,
+             "query": pipe.model.vae.query(decoded, pts.to(d)),
+             "dense_decode": V.decode_volume(pipe.model.vae.query, decoded,
+                                             octree_resolution=sm["dense"],
+                                             bounds=1.005)}
+        torch.cuda.synchronize()
+        outs[d.type] = o
+        del pipe
+    parity = dict(sm)
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"triposg b. card vs CPU (cut depth, TF32 off): {parity}")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_TSG_REL,
+              f"triposg {k}: card vs CPU {parity[k + '_rel_err']:.3g} of the "
+              "largest value")
+    rec["card_vs_cpu"] = parity
+    del outs, host, decoded
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. the image graph at the node's defaults (the loader draws the full
+    # config on the card), then the loader's pipeline alone, timed
+    t0 = time.perf_counter()
+    res, graph = timed_graph("triposg", config_graph("triposg"), device=dev)
+    check(not any(graph["launches"].values()),
+          f"the TripoSG path launched a kernel: {graph['launches']}")
+    mesh = res[4][0]
+    check(mesh.num_faces > 0 and bool(np.isfinite(mesh.v).all()),
+          "the TripoSG mesh is empty or not finite")
+    graph.update(vertices=mesh.num_vertices, triangles=mesh.num_faces)
+    pipe = res[3][0]
+    check(isinstance(pipe, TripoSGPipeline) and pipe.cfg == cfg,
+          "the loader's pipeline is not the full config")
+    del res
+    torch.cuda.empty_cache()
+    cond = pipe.encode_cond(image)
+    x = noise.to(dev)
+    xx = torch.cat([x, x])
+    tt = torch.full((2,), 500.0, device=dev)
+
+    def one_step():
+        return pipe.model.dit(xx, tt, cond)
+
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 2)
+    step_flops = flops_of(one_step)
+    lat = pipe.denoise(cond, x, TSG_GUIDANCE, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    td = time.perf_counter()
+    grid = pipe.decode_grid(lat, TSG_OCTREE)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - td) * 1e3
+    decode_peak = torch.cuda.max_memory_allocated()
+    extracted, extract_s, spans, _ = profile_spans(
+        lambda: V.grid_to_mesh(grid[0], bounds=1.005), EXTRACT_SPANS)
+    rec["c"] = dict(
+        graph=graph, guided_step_ms=step_ms, guided_step_tf32_ms=step_tf32_ms,
+        guided_step_flops=step_flops, tokens=2 * (cfg.vae.num_latents + 1),
+        context_tokens=int(cond.shape[1]),
+        steps_ms_estimate=step_ms * TSG_STEPS, decode_ms=decode_ms,
+        decode_peak_bytes=decode_peak, extract_s=extract_s,
+        extract_spans=spans, extracted_triangles=extracted.num_faces,
+        grid_inside_share=float((grid > 0).float().mean()),
+        s=time.perf_counter() - t0)
+    log(f"triposg c: {rec['c']}")
+    del pipe, cond, grid, lat
+    torch.cuda.empty_cache()
+
+    # d. the scribble graph at its defaults (16 steps, the conditional pass)
+    t0 = time.perf_counter()
+    res, graph = timed_graph("triposg_scribble",
+                             config_graph("triposg_scribble"), device=dev)
+    mesh = res[3][0]
+    check(mesh.num_faces > 0 and bool(np.isfinite(mesh.v).all()),
+          "the scribble mesh is empty or not finite")
+    check(not any(graph["launches"].values()),
+          f"the scribble path launched a kernel: {graph['launches']}")
+    graph.update(vertices=mesh.num_vertices, triangles=mesh.num_faces)
+    rec["d"] = dict(graph=graph, steps=SCRIBBLE_STEPS,
+                    s=time.perf_counter() - t0)
+    rec["launches"] = graph["launches"]
+    del res
+    torch.cuda.empty_cache()
+    log(f"phase 23: {rec}")
     return rec
 
 
@@ -5873,6 +6444,22 @@ def main(out_path=None) -> int:
               f"{mvd[part]['launches']}")
     lap("21_mvdiffusion_fit")
 
+    # 22. FlexiCubes multi-view depth → mesh, where the soft-silhouette
+    # kernels launch once per view of each fit step, forward and backward
+    # (counted in the phase)
+    t0 = time.perf_counter()
+    fc = record["flexicubes"] = flexicubes_path(dev, asset_dir, smi_line)
+    fc["s"] = time.perf_counter() - t0
+    lap("22_flexicubes")
+
+    # 23. TripoSG image / scribble → mesh, where no kernel may launch
+    # (counted in the phase)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tsg = record["triposg"] = triposg_path(dev, asset_dir, smi_line)
+    tsg["s"] = time.perf_counter() - t0
+    lap("23_triposg")
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
@@ -5894,7 +6481,12 @@ def main(out_path=None) -> int:
                 "imagedream_lgm_orbit_24": id_orbit["launches"][name],
                 "era3d": mvd["era3d"]["launches"][name],
                 "wonder3d": mvd["wonder3d"]["launches"][name],
-                "workflow_era3d_fit": mvd["graph"]["launches"][name]}
+                "workflow_era3d_fit": mvd["graph"]["launches"][name],
+                "workflow_flexicubes": fc["b"]["launches"][name],
+                "flexicubes_tets_step": fc["c"]["launches"][name],
+                "workflow_triposg": tsg["c"]["graph"]["launches"][name],
+                "workflow_triposg_scribble":
+                    tsg["d"]["graph"]["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -6019,8 +6611,37 @@ def main(out_path=None) -> int:
         "old_scatter_ms": tile_train_times["old_scatter_ms"],
         "old_design": tile_train_rec["old_design"],
     }
+    sil = []
+    for part in ("fwd", "bwd"):
+        a, b = fc["a"], fc["b"]["main_shape"]
+        bound = b[f"{part}_bound"]
+        err = "max_abs_err" if part == "fwd" else "grad_max_abs_err"
+        sil.append({
+            "name": f"soft_silhouette_{part}", "route": "cuda",
+            "source": "comfy3d_tpu_torch/csrc/soft_silhouette.cu",
+            "replaces": "comfy3d_tpu/ops/rasterize.py:442",
+            "replaces_note": "an XLA scan, no Pallas kernel",
+            "launches": fc["b"]["launches"][f"soft_silhouette_{part}"],
+            "launches_by_path": by_path(f"soft_silhouette_{part}"),
+            "max_abs_err": max(a[err], b[err]),
+            "ms": b[f"{part}_ms"], "plain_ms": b[f"plain_{part}_ms"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None,
+            "computes": ("per-pixel log-sum of the clipped coverages"
+                         if part == "fwd" else "its gradient to the "
+                         "faces' screen corners"),
+            "by_path": {
+                "22a_res64_256": dict(
+                    ms=a[f"{part}_ms"], plain_ms=a[f"plain_{part}_ms"],
+                    max_abs_err=a[err], **a[f"{part}_bound"]),
+                "22b_res128_512": dict(
+                    ms=b[f"{part}_ms"], plain_ms=b[f"plain_{part}_ms"],
+                    max_abs_err=b[err], **bound,
+                    launches=fc["b"]["launches"][
+                        f"soft_silhouette_{part}"])}})
     record["phase_s"] = phase_s
-    record["kernels"] = [kernel, kernel_bwd, kernel_tile_fwd, kernel_tile_bwd]
+    record["kernels"] = [kernel, kernel_bwd, kernel_tile_fwd, kernel_tile_bwd,
+                         *sil]
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
@@ -6056,6 +6677,8 @@ def main(out_path=None) -> int:
         for k, v in wf.items()}}))
     print(json.dumps({"crm": crm}))
     print(json.dumps({"mvdiffusion_fit": mvd}))
+    print(json.dumps({"flexicubes": fc}))
+    print(json.dumps({"triposg": tsg}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -12,17 +12,21 @@ Layering:
              file I/O (GS-PLY, OBJ, GLB, mesh PLY)
   ops/       3DGS projection, binning, the bin and tile compositors
              (`gs_flat.py`, `gs_tile.py` wrap `csrc/*.cu`), SSIM, volume
-             decodes, marching tets and the weld, ray marching, the
-             hash-grid encoding, the mesh rasterizer and renderer, UV
-             unwrapping (`uv_atlas.py`, `texture.py`) and baking
+             decodes, marching tets and the weld, FlexiCubes, ray
+             marching, the hash-grid encoding, the mesh rasterizer (its
+             soft silhouette wraps `csrc/soft_silhouette.cu`) and
+             renderer, UV unwrapping (`uv_atlas.py`, `texture.py`) and
+             baking
   models/    TripoSR, InstantMesh, the SD UNet / VAE / samplers, MVDream,
              LGM, CLIP's vision encoder, Zero123Plus, DINOv2, the vecset
              substrate (ShapeVAE with its octree decode, the flow DiT) and
-             Hunyuan3D-2.1 shape generation and paint; checkpoint files
+             Hunyuan3D-2.1 shape generation and paint, CRM, Wonder3D,
+             Era3D and TripoSG; checkpoint files
              and directories (`loader`)
   algorithms/  the 3DGS trainer, the Instant-NGP fit (`ngp.py`), the
              GS→mesh converter (`gs_to_mesh.py`), the multi-view colour
-             projection and bake (`color_project.py`)
+             projection and bake (`color_project.py`), the mesh fit
+             (`diff_mesh.py`) and the FlexiCubes SDF fit (`sdf_fit.py`)
   native/    host C++ mesh clean / decimate / remesh / vertex inpaint (g++
              at first use, ctypes)
   nodes/     the ComfyUI node classes under the JAX package's registry keys

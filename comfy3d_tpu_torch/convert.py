@@ -714,3 +714,106 @@ def hunyuan3d_paint_state_dict_from_flax(params,
             **_join("unet_dual", unet_state_dict_from_flax(
                 params["unet_dual"])),
             **_join("vae", vae_state_dict_from_flax(params["vae"]))}
+
+
+# ------------------------------------------------------------------ TripoSG
+def _unrepack_heads(kernels, heads: int):
+    """The JAX package's per-module flax kernels [in, d] of q, k, v (or k,
+    v) → upstream's, whose concatenation its attention splits head first
+    (the inverse of `comfy3d_tpu/models/triposg/convert.py::
+    _repack_heads`)."""
+    kers = [np.asarray(k) for k in kernels]
+    din, d = kers[0].shape
+    packed = np.stack([k.reshape(din, heads, d // heads) for k in kers], 2)
+    cat = packed.reshape(din, len(kers) * d)
+    return [cat[:, i * d:(i + 1) * d] for i in range(len(kers))]
+
+
+def _triposg_block_state_dict(p, heads: int) -> dict:
+    """One flax `DiTBlock` → upstream's names (norm1/attn1, norm2/attn2
+    with norm_cross, norm3/ff, skip_linear/skip_norm), the attention
+    kernels un-repacked."""
+    sd = {}
+    for n in ("norm1", "norm2", "norm3", "skip_norm", "skip_linear"):
+        if n in p:
+            sd.update(_join(n, _module_sd(p[n])))
+    for a in ("attn1", "attn2"):
+        if a not in p:
+            continue
+        ap = p[a]
+        names = ("to_q", "to_k", "to_v") if a == "attn1" else ("to_k", "to_v")
+        for m, k in zip(names, _unrepack_heads(
+                [ap[m]["kernel"] for m in names], heads)):
+            sd[f"{a}.{m}.weight"] = np.ascontiguousarray(k.T)
+        if a == "attn2":
+            sd.update(_join(f"{a}.to_q", _dense(ap["to_q"])))
+        sd.update(_join(f"{a}.to_out.0", _dense(ap["to_out_0"])))
+        for q in ("q", "k"):
+            if f"norm_{q}_scale" in ap:
+                sd[f"{a}.norm_{q}.weight"] = np.asarray(ap[f"norm_{q}_scale"])
+        if "norm_cross" in ap:
+            sd.update(_join(f"{a}.norm_cross", _norm(ap["norm_cross"])))
+    sd.update(_join("ff.net.0.proj", _dense(p["ff_0"])))
+    sd.update(_join("ff.net.2", _dense(p["ff_2"])))
+    return sd
+
+
+def triposg_dit_state_dict_from_flax(params, heads: int) -> dict:
+    """The JAX package's `TripoSGDiT` params → upstream's
+    `TripoSGDiTModel` names (`time_proj.linear_{1,2}`, `proj_in`,
+    `blocks.{i}.*`, `norm_out`, `proj_out`)."""
+    sd = {}
+    for flax_name, name in (("proj_in", "proj_in"), ("proj_out", "proj_out"),
+                            ("time_proj_linear_1", "time_proj.linear_1"),
+                            ("time_proj_linear_2", "time_proj.linear_2"),
+                            ("norm_out", "norm_out")):
+        sd.update(_join(name, _module_sd(params[flax_name])))
+    for key, p in params.items():
+        m = re.fullmatch(r"blocks_(\d+)", key)
+        if m:
+            sd.update(_join(f"blocks.{m.group(1)}",
+                            _triposg_block_state_dict(p, heads)))
+    return _tensors(sd)
+
+
+def triposg_vae_state_dict_from_flax(params, heads: int) -> dict:
+    """The JAX package's `TripoSGVAE` params → upstream's
+    `TripoSGVAEModel` names (`encoder.{proj_in, blocks.{i}, norm_out}`,
+    `quant`, `post_quant`, `decoder.{blocks.{i}, proj_query, norm_out,
+    proj_out}`, the query block last of `decoder.blocks`); the encoder's
+    only where the flax tree has it (its `init` traces no encode)."""
+    names = {"enc_proj_in": "encoder.proj_in",
+             "enc_norm_out": "encoder.norm_out", "quant": "quant",
+             "post_quant": "post_quant", "proj_query": "decoder.proj_query",
+             "dec_norm_out": "decoder.norm_out",
+             "proj_out": "decoder.proj_out"}
+    sd = {}
+    for flax_name, name in names.items():
+        if flax_name in params:
+            sd.update(_join(name, _module_sd(params[flax_name])))
+    n_dec = sum(1 for k in params if re.fullmatch(r"dec_blocks_\d+", k))
+    for key, p in params.items():
+        m = re.fullmatch(r"(enc|dec)_blocks_(\d+)", key)
+        if m:
+            stage = "encoder" if m.group(1) == "enc" else "decoder"
+            name = f"{stage}.blocks.{m.group(2)}"
+        elif key == "dec_query_block":
+            name = f"decoder.blocks.{n_dec}"
+        else:
+            continue
+        sd.update(_join(name, _triposg_block_state_dict(p, heads)))
+    return _tensors(sd)
+
+
+def triposg_state_dict_from_flax(params, dit_heads: int,
+                                 vae_heads: int) -> dict:
+    """The JAX package's TripoSG params, `{"cond", "dit", "vae"}` → the
+    port's `TripoSG` state dict in upstream's names: `cond.*`
+    (`transformers.Dinov2Model`), `dit.*` (`TripoSGDiTModel`) and `vae.*`
+    (`TripoSGVAEModel`), the attention kernels in upstream's head-major
+    packing, so that the JAX loader reads files written from it."""
+    return {**_join("cond", dinov2_state_dict_from_flax(params["cond"])),
+            **_join("dit", triposg_dit_state_dict_from_flax(params["dit"],
+                                                            dit_heads)),
+            **_join("vae", triposg_vae_state_dict_from_flax(params["vae"],
+                                                            vae_heads))}

@@ -4,15 +4,16 @@ loaders), CLIP's text and vision encoders (`clip`), DINOv2 (`dinov2`), the vecse
 its octree decode, the flow DiT and its schedule), checkpoint files
 (`loader`) and the model families (`triposr`, `instantmesh`, `mvdream`,
 `lgm`, `zero123plus`, `hunyuan3d`: shape generation and paint, `crm`:
-the convolutional reconstruction model and CRM T2I's adapter).
+the convolutional reconstruction model and CRM T2I's adapter, `triposg`:
+image / scribble → mesh).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
 _SUBMODULES = ("clip", "common", "crm", "diffusion", "dinov2", "hunyuan3d",
-               "instantmesh", "lgm", "loader", "mvdream", "triposr", "vecset",
-               "zero123plus")
+               "instantmesh", "lgm", "loader", "mvdream", "triposg", "triposr",
+               "vecset", "zero123plus")
 
 
 def __getattr__(name):

@@ -39,8 +39,6 @@ UNPORTED = {
     **_keys("A.10 sf3d", "Load SF3D Model", "StableFast3D"),
     **_keys("A.10 tgs", "Load Triplane Gaussian Transformers",
             "Triplane Gaussian Transformers"),
-    **_keys("A.10 triposg", "TripoSG I23D Model", "Load TripoSG Pipeline",
-            "TripoSG Scribble Model"),
     **_keys("A.10 craftsman", "Load Craftsman Shape Diffusion Model",
             "Craftsman Shape Diffusion Model"),
     **_keys("A.10 mvadapter", "Load MVAdapter IG2MV Pipeline",
@@ -49,7 +47,6 @@ UNPORTED = {
             "MVAdapter Texture Projection"),
     **_keys("A.10 partcrafter", "Load PartCrafter Pipeline",
             "Load PartCrafter Scene Pipeline", "PartCrafter Generate"),
-    **_keys("A.10 sdf_fit", "FlexiCubes MVS"),
     **_keys("A.10 stablegen", "Load StableGen Trellis Pipeline",
             "Load StableGen StableX Pipeline",
             "StableGen StableX Process Image",

@@ -90,6 +90,21 @@ def _era3d(ckpt_dir=None, device=None):
     return Era3DPipeline.init_random(device=device)
 
 
+def _triposg(ckpt_dir=None, device=None):
+    from ..models.triposg import TripoSGPipeline
+    if ckpt_dir:
+        return TripoSGPipeline.from_pretrained(ckpt_dir, device=device)
+    return TripoSGPipeline.init_random(device=device)
+
+
+def _triposg_scribble(ckpt_dir=None, device=None):
+    """The scribble model is CFG-distilled: its pipeline runs the
+    conditional pass alone (`is_scribble`; ROADMAP §C.10)."""
+    pipe = _triposg(ckpt_dir, device)
+    pipe.is_scribble = True
+    return pipe
+
+
 def _unported(family: str):
     def factory(ckpt_dir=None, device=None):
         raise NotImplementedError(
@@ -109,8 +124,8 @@ DIFFUSERS_PIPE_FACTORIES = {
     "HunYuan3DMVDStdPipeline": _unported("hunyuan3d_v1"),
     "Hunyuan3DMVDLitePipeline": _unported("hunyuan3d_v1"),
     "Hunyuan3DDiTFlowMatchingPipeline": _hunyuan_dit,
-    "TripoSGPipeline": _unported("triposg"),
-    "TripoSGScribblePipeline": _unported("triposg"),
+    "TripoSGPipeline": _triposg,
+    "TripoSGScribblePipeline": _triposg_scribble,
 }
 
 DIFFUSERS_SCHEDULER_NAMES = [

@@ -8,9 +8,14 @@ model at its full default config with random weights drawn on that
 device (`init_random(device=...)`), as the JAX package falls back to
 `init_random()`. Images cross into the pipelines as float32 tensors.
 
-Not ported (ROADMAP A.10): SF3D, TGS, TripoSG (and its scribble model),
-Craftsman, `Fast_Normal_Maps_To_Mesh` and
-`ExplicitTarget_Mesh_Optimization`.
+TripoSG's image and scribble nodes run the pipeline of `Load TripoSG
+Pipeline` or of `Load Diffusers Pipeline`'s TripoSG factories; the scribble
+node runs the conditional pass alone, as its CFG-distilled model is run
+(the JAX package blends at guidance 0, ROADMAP §C.10), and reads its prompt
+and confidences no more than the JAX package's does.
+
+Not ported (ROADMAP A.10): SF3D, TGS, Craftsman, `Fast_Normal_Maps_To_Mesh`
+and `ExplicitTarget_Mesh_Optimization`.
 """
 
 from __future__ import annotations
@@ -360,3 +365,120 @@ class Large_Multiview_Gaussian_Model:
                 f"expected {lgm_model.cfg.num_views} views, got "
                 f"{imgs.shape[0]}")
         return (lgm_model.forward_gaussians(imgs),)
+
+
+def _rgb_on_white(image) -> torch.Tensor:
+    """The first image of a batch, an RGBA one composited on white."""
+    img = image_tensor(image)
+    if img.dim() == 4:
+        img = img[0]
+    if img.shape[-1] == 4:
+        a = img[..., 3:4]
+        img = img[..., :3] * a + (1.0 - a)
+    return img
+
+
+@register
+class TripoSG_I23D_Model:
+    """reference nodes.py:4157 — image (+ mask) → mesh by rectified-flow
+    latent-set diffusion."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "tsg_pipe": ("DIFFUSERS_PIPE",),
+                "reference_image": ("IMAGE",),
+                "seed": ("INT", {"default": 42, "min": 0,
+                                 "max": 0xffffffffffffffff}),
+                "guidance_scale": ("FLOAT", {"default": 7.0, "min": 0.0,
+                                             "step": 0.01}),
+                "num_inference_steps": ("INT", {"default": 50, "min": 1}),
+                "use_flash_decoder": ("BOOLEAN", {"default": True}),
+                "flash_octree_depth": ("INT", {"default": 9, "min": 1}),
+                "hierarchical_octree_depth": ("INT", {"default": 9,
+                                                      "min": 1}),
+                "dense_octree_depth": ("INT", {"default": 8, "min": 1}),
+            },
+            "optional": {"reference_mask": ("MASK",)},
+        }
+
+    RETURN_TYPES = ("MESH",)
+    RETURN_NAMES = ("mesh",)
+    FUNCTION = "run_model"
+    CATEGORY = "Comfy3D/Algorithm"
+
+    def run_model(self, tsg_pipe, reference_image, seed=42,
+                  guidance_scale=7.0, num_inference_steps=50,
+                  use_flash_decoder=True, flash_octree_depth=9,
+                  hierarchical_octree_depth=9, dense_octree_depth=8,
+                  reference_mask=None, **_):
+        if reference_mask is not None:
+            img = img_utils.composite_background(
+                image_tensor(reference_image), image_tensor(reference_mask))[0]
+        else:
+            img = _rgb_on_white(reference_image)
+        mesh = tsg_pipe(img, seed=int(seed),
+                        num_steps=int(num_inference_steps),
+                        guidance_scale=float(guidance_scale),
+                        octree_resolution=2 ** int(dense_octree_depth))[0]
+        return (mesh.auto_normal(),)
+
+
+@register
+class Load_TripoSG_Pipeline:
+    CATEGORY = "Comfy3D/Import|Export"
+    RETURN_TYPES = ("DIFFUSERS_PIPE",)
+    RETURN_NAMES = ("triposg_pipe",)
+    FUNCTION = "load"
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "repo_id": ("STRING", {"default": "VAST-AI/TripoSG",
+                                   "multiline": False}),
+        }}
+
+    def load(self, repo_id="VAST-AI/TripoSG"):
+        from .nodes_mvdiffusion import _load
+        return (_load("TripoSGPipeline", repo_id, "Load_TripoSG_Pipeline"),)
+
+
+@register
+class TripoSG_Scribble_Model:
+    """reference nodes.py:4217 — scribble sketch (+ prompt) → mesh through
+    the CFG-distilled TripoSG-scribble DiT: the conditional pass alone, as
+    the `TripoSGScribblePipeline` factory marks its pipeline
+    (`is_scribble`)."""
+
+    CATEGORY = "Comfy3D/Algorithm"
+    RETURN_TYPES = ("MESH",)
+    RETURN_NAMES = ("mesh",)
+    FUNCTION = "run_model"
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "tsg_scribble_pipe": ("DIFFUSERS_PIPE",),
+            "scribble_image": ("IMAGE",),
+            "prompt": ("STRING", {"default": "3D assets",
+                                  "multiline": True}),
+            "seed": ("INT", {"default": 42, "min": 0,
+                             "max": 0xffffffffffffffff}),
+            "num_inference_steps": ("INT", {"default": 16, "min": 1}),
+            "scribble_confidence": ("FLOAT", {"default": 0.4,
+                                              "min": 0.0, "step": 0.01}),
+            "prompt_confidence": ("FLOAT", {"default": 1.0, "min": 0.0,
+                                            "step": 0.01}),
+            "dense_octree_depth": ("INT", {"default": 8, "min": 1}),
+        }}
+
+    def run_model(self, tsg_scribble_pipe, scribble_image,
+                  prompt="3D assets", seed=42, num_inference_steps=16,
+                  scribble_confidence=0.4, prompt_confidence=1.0,
+                  dense_octree_depth=8, **_):
+        mesh = tsg_scribble_pipe(
+            _rgb_on_white(scribble_image), seed=int(seed),
+            num_steps=int(num_inference_steps),
+            octree_resolution=2 ** int(dense_octree_depth))[0]
+        return (mesh.auto_normal(),)

@@ -7,9 +7,11 @@ IMAGE / MASK output is copied to the host once; the GS orbit renderer
 reaches the coarse-bin compositor kernel (K1′) once per view, the 3DGS
 fit its forward and backward kernels (K1′, K3′) once per view of each
 step; `Fitting_Mesh_With_Multiview_Images` fits a mesh to views on the
-run's device (`algorithms/diff_mesh.py`).
-
-Not ported: `FlexiCubes_MVS` (`sdf_fit`: ROADMAP A.10).
+run's device (`algorithms/diff_mesh.py`); `FlexiCubes_MVS` fits a FlexiCubes
+SDF grid to depth and mask (and normal) maps on the run's device
+(`algorithms/sdf_fit.py`), its mask loss through the soft-silhouette
+kernels (`csrc/soft_silhouette.cu`) once per view of each step, forward and
+backward.
 """
 
 from __future__ import annotations
@@ -416,6 +418,89 @@ class Fitting_Mesh_With_Multiview_Images:
                           if train_mesh_geometry else 0),
             texture_size=texture_resolution)
         return (diff_mesh.fit(mesh, cams, imgs, masks, cfg),)
+
+
+@register
+class FlexiCubes_MVS:
+    """reference nodes.py:2749 — multi-view depth + mask (+ normal) → mesh."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        # names and order mirror the reference (nodes.py:2752-2774), so the
+        # FlexiCubes example workflow's links and positional widgets bind
+        return {
+            "required": {
+                "reference_depth_maps": ("IMAGE",),
+                "reference_masks": ("MASK",),
+                "reference_orbit_camera_poses": ("ORBIT_CAMPOSES",),
+                "reference_orbit_camera_fovy": ("FLOAT",
+                                                {"default": 49.1}),
+                "training_iterations": ("INT", {"default": 512,
+                                                "min": 1}),
+                "batch_size": ("INT", {"default": 4, "min": 1}),
+                "learning_rate": ("FLOAT", {"default": 0.01,
+                                            "min": 0.001}),
+                "voxel_grids_resolution": ("INT", {"default": 128,
+                                                   "min": 1}),
+                "depth_min_distance": ("FLOAT", {"default": 0.5}),
+                "depth_max_distance": ("FLOAT", {"default": 5.5}),
+                "mask_loss_weight": ("FLOAT", {"default": 1.0}),
+                "depth_loss_weight": ("FLOAT", {"default": 100.0}),
+                "normal_loss_weight": ("FLOAT", {"default": 1.0}),
+                "sdf_regularizer_weight": ("FLOAT", {"default": 0.2}),
+                "remove_floaters_weight": ("FLOAT", {"default": 0.5}),
+                "cube_stabilizer_weight": ("FLOAT", {"default": 0.1}),
+                "force_cuda_rast": ("BOOLEAN", {"default": False}),
+            },
+            "optional": {
+                "reference_normal_maps": ("IMAGE",),
+            },
+        }
+
+    RETURN_TYPES = ("MESH",)
+    RETURN_NAMES = ("mesh",)
+    FUNCTION = "run_flexicubes"
+    CATEGORY = "Comfy3D/Algorithm"
+
+    def run_flexicubes(self, reference_depth_maps, reference_masks,
+                       reference_orbit_camera_poses,
+                       reference_orbit_camera_fovy,
+                       training_iterations=512, batch_size=4,
+                       learning_rate=0.01, voxel_grids_resolution=128,
+                       depth_min_distance=0.5, depth_max_distance=5.5,
+                       mask_loss_weight=1.0, depth_loss_weight=100.0,
+                       normal_loss_weight=1.0, sdf_regularizer_weight=0.2,
+                       remove_floaters_weight=0.5,
+                       cube_stabilizer_weight=0.1, force_cuda_rast=False,
+                       reference_normal_maps=None, **_):
+        from ..algorithms import sdf_fit
+
+        dev = base.node_device()
+        depths = image_tensor(reference_depth_maps).to(dev)
+        if depths.dim() == 4:
+            depths = depths[..., 0]
+        # the depth maps encode view distance in [depth_min, depth_max]
+        # over [0, 1] (flexicubes_trainer.py)
+        depths = depth_min_distance + depths \
+            * (depth_max_distance - depth_min_distance)
+        masks = image_tensor(reference_masks).to(dev)
+        depths = depths * (masks > 0.5)
+        cams = _cams_from_poses(reference_orbit_camera_poses,
+                                reference_orbit_camera_fovy,
+                                masks.shape[2], masks.shape[1], dev)
+        cfg = sdf_fit.SDFFitConfig(
+            resolution=voxel_grids_resolution,
+            iterations=training_iterations, batch_size=batch_size,
+            lr=learning_rate, engine="flexicubes",
+            lambda_mask=mask_loss_weight, lambda_depth=depth_loss_weight,
+            lambda_normal=normal_loss_weight,
+            lambda_sign=sdf_regularizer_weight,
+            lambda_dev=remove_floaters_weight,
+            lambda_weights=cube_stabilizer_weight)
+        normals = (None if reference_normal_maps is None
+                   else image_tensor(reference_normal_maps).to(dev))
+        return (sdf_fit.fit(cams, masks, ref_depths=depths,
+                            ref_normals=normals, cfg=cfg),)
 
 
 @register

@@ -49,7 +49,8 @@ def num_tiles(height: int, width: int) -> tuple[int, int]:
 
 def bin_primitives(bbox_min: torch.Tensor, bbox_max: torch.Tensor,
                    active: torch.Tensor, grid_h: int, grid_w: int,
-                   max_per_tile: int, max_tiles_per_prim: int = 16
+                   max_per_tile: int | None,
+                   max_tiles_per_prim: int = 16
                    ) -> TileBins:
     """Bin primitives into 16-px screen tiles.
 
@@ -57,7 +58,8 @@ def bin_primitives(bbox_min: torch.Tensor, bbox_max: torch.Tensor,
     active: [N] bool, culled primitives produce no pairs. A primitive's
     footprint is its clipped tile rectangle, cut to the first
     `max_tiles_per_prim` tiles in row-major order; each tile keeps the
-    first `max_per_tile` of its primitives. Either cut sets `overflow`.
+    first `max_per_tile` of its primitives (None: every one, the lists as
+    long as the longest). Either cut sets `overflow`.
     Within a tile the list is in ascending primitive index (pre-sort the
     primitives if that order matters); invalid slots hold index 0, and
     `count` is the count before truncation.
@@ -105,6 +107,8 @@ def bin_primitives(bbox_min: torch.Tensor, bbox_max: torch.Tensor,
         << prim_bits
     bounds = torch.searchsorted(skeys, probe, side="left")
     starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    if max_per_tile is None:
+        max_per_tile = max(int(counts.max()), 1) if ntiles else 1
 
     # each tile's padded list: a gather from its start (zero padding keeps
     # every read in bounds)

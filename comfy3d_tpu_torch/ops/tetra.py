@@ -6,8 +6,10 @@ triangles (`_tet_triangles`), active cells → compacted soup
 (`_cells_to_tris`), `marching_tets_grid` and `marching_tets_deformed` (the
 same sweep over a deformed lattice), `grid_tets`, the host `weld`,
 `weld_device` and `extract_isosurface_device` with its capacity doubling,
-and `extract_isosurface` (the sweep in blocks on the device, the weld on
-the host, under the `record_function` spans of `EXTRACT_SPANS`).
+`extract_isosurface` (the sweep in blocks on the device, the weld on the
+host, under the `record_function` spans of `EXTRACT_SPANS`), and the
+explicit-tet meshes of `grid_tets`: `marching_tets_diff` (differentiable:
+the surface engine of `algorithms/sdf_fit.py`'s "tets") and `sweep_tets`.
 
 Each cube splits into 6 tets around its 0→6 diagonal; each tet yields 0–2
 triangles, oriented away from its inside corners. Arrays are laid out
@@ -237,6 +239,55 @@ def marching_tets_deformed(v_def, sdf, res: int, max_tris: int = 200_000,
                         for dx, dy, dz in _CORNERS], 1)          # [K, 8]
     soup, count, tri_ovf = _cells_to_tris(v_def[vids], sdf[vids], max_tris)
     return soup, count, tri_ovf or n_active > cell_cap
+
+
+def marching_tets_diff(verts, sdf, tets):
+    """Differentiable surface of an explicit tet mesh (DMTet-style).
+
+    verts [V, 3] (live: a deformable grid); sdf [V] (live, > 0 inside);
+    tets [T, 4]. Returns (tris [2T, 3, 3], valid [2T]), triangle slot s of
+    tet t at row 2t + s: gradients reach verts and sdf through the edge
+    interpolation, the sign pattern (topology) is not differentiated."""
+    t = torch.as_tensor(tets, device=verts.device).long()
+    val = sdf[t]                                                 # [T, 4]
+    tris, valid = _tet_triangles(verts[t], val, val.detach() > 0)
+    return tris.reshape(-1, 3, 3), valid.reshape(-1)
+
+
+def _compact_step(verts, sdf, tets, cap: int):
+    """One chunk of `sweep_tets`: the chunk's valid triangles in slot-major
+    order (slot 0 of every tet, then slot 1), the first `cap` of them, and
+    whether more than `cap` were valid."""
+    t = torch.as_tensor(tets, device=verts.device).long()
+    val = sdf[t]
+    tris, valid = _tet_triangles(verts[t], val, val > 0)
+    order = torch.nonzero(valid.t().reshape(-1)).squeeze(1)
+    n = t.shape[0]
+    keep = order[:cap]
+    return tris[keep % n, keep // n], order.numel() > cap
+
+
+def sweep_tets(verts, sdf, tets, max_tris: int = 2_000_000,
+               tet_chunk: int = 1 << 21, cap: int = 1 << 19):
+    """Explicit-tet marching sweep → (triangle soup [n, 3, 3] numpy,
+    overflow): `tet_chunk` tets at a time on the vertices' device (the
+    whole [T, 4, 3] temporaries do not fit at 128³ lattices), each chunk's
+    first `cap` valid triangles kept in slot-major order, the soup cut at
+    `max_tris`; one copy to the host at the end. Overflow: a chunk held
+    more than `cap` valid triangles, or the soup more than `max_tris`."""
+    verts = torch.as_tensor(verts)
+    sdf = torch.as_tensor(sdf, device=verts.device)
+    parts, count, overflow = [], 0, False
+    with torch.no_grad():
+        for i in range(0, len(tets), tet_chunk):
+            block, ovf = _compact_step(verts, sdf, tets[i:i + tet_chunk], cap)
+            parts.append(block)
+            count += block.shape[0]
+            overflow = overflow or bool(ovf)
+    if not parts:
+        return np.zeros((0, 3, 3), np.float32), False
+    soup = torch.cat(parts)[:max_tris].cpu().numpy()
+    return soup, overflow or count > max_tris
 
 
 def grid_vertices(res: int) -> np.ndarray:

@@ -48,6 +48,23 @@ def quick_jax():
     return quick
 
 
+def quick_jax_renderers(monkeypatch):
+    """The JAX renderer nodes' `mesh_render.render_mesh` and
+    `gs_render.render` as single `QUICK_XLA` jits: their eager calls
+    compile every op on its own."""
+    import types
+
+    from comfy3d_tpu.nodes import nodes_render as jnr
+    from comfy3d_tpu.ops import gs_render as jgs
+    from comfy3d_tpu.ops import mesh_render as jmr
+    jit = functools.partial(jax.jit, compiler_options=QUICK_XLA)
+    monkeypatch.setattr(jnr, "mesh_render", types.SimpleNamespace(
+        render_mesh=jit(jmr.render_mesh, static_argnames=("method",
+                                                          "ssaa"))))
+    monkeypatch.setattr(jnr, "gs_render", types.SimpleNamespace(
+        render=jit(jgs.render, static_argnames=("background", "backend"))))
+
+
 @pytest.fixture(scope="module")
 def one_torch_thread():
     """torch's CPU ops on one thread for a module's tests, then as before:

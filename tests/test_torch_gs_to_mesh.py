@@ -191,7 +191,13 @@ def test_convert_matches_jax(tiny_splat, monkeypatch, tmp_path):
             return {k: torch.tensor(v) for k, v in ref.items()}
 
     captured = {}
-    j_init, j_fit, j_grid = jn.init_params, jn.fit, jn.density_grid
+    # the JAX package's eager init and density grid (op by op there) as
+    # `QUICK_XLA` jits
+    j_init = jax.jit(jn.init_params, static_argnums=1,
+                     compiler_options=QUICK_XLA)
+    j_grid = jax.jit(jn.density_grid, static_argnums=(1, 2, 3),
+                     compiler_options=QUICK_XLA)
+    j_fit = jn.fit
 
     def jax_init(*a, **kw):
         captured["jinit"] = j_init(*a, **kw)

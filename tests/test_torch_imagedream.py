@@ -16,6 +16,7 @@ import pytest
 pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -83,7 +84,17 @@ def _resampler(jcfg):
 
 def tiny_shapes(jcfg, vae=True):
     """The tiny pipeline's flax param tree by shape (`vae=False`: without
-    the VAE's)."""
+    the VAE's). The tree depends on neither the view count nor the UNet's
+    `mv_views` (its multi-view attention is the self-attention's weights
+    over the views' tokens), so one trace at one view serves every count
+    (the module's tests share it)."""
+    one = dataclasses.replace(jcfg, num_views=1, unet=dataclasses.replace(
+        jcfg.unet, mv_views=1))
+    return _tiny_shapes(one, vae)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiny_shapes(jcfg, vae):
     lat = jcfg.image_size // jcfg.vae_factor
     v, emb = jcfg.num_views, jcfg.unet.block_out_channels[0] * 4
     z, key = jnp.zeros, jax.random.PRNGKey(0)
@@ -108,12 +119,16 @@ def tiny_params(jcfg, seed):
     return _randomize(tiny_shapes(jcfg), seed)
 
 
+@functools.lru_cache(maxsize=None)
+def _clip_shapes(cfg):
+    return jax.eval_shape(jclip.CLIPVisionEncoder(cfg).init,
+                          jax.random.PRNGKey(0),
+                          jnp.zeros((1, 28, 28, 3)))["params"]
+
+
 def clip_params(seed):
     cfg = jclip.CLIPVisionConfig(**TINY_CLIP)
-    shapes = jax.eval_shape(jclip.CLIPVisionEncoder(cfg).init,
-                            jax.random.PRNGKey(0),
-                            jnp.zeros((1, 28, 28, 3)))["params"]
-    return cfg, _randomize(shapes, seed)
+    return cfg, _randomize(_clip_shapes(cfg), seed)
 
 
 def port_clip(vparams):
@@ -156,10 +171,8 @@ def small():
         "res": [rng.randn(4, 16, 16, 8).astype(np.float32),
                 rng.randn(4, 8, 8, 16).astype(np.float32)],
         "hidden": rng.randn(2, 5, TINY_CLIP["hidden"]).astype(np.float32)}
-    uparams = _randomize(jax.eval_shape(
-        JUNet(ucfg).init, jax.random.PRNGKey(0), jnp.zeros((4, 16, 16, 4)),
-        jnp.zeros((4,)), jnp.zeros((4, 7 + IP, 16)),
-        class_emb=jnp.zeros((4, 32)))["params"], 3)
+    uparams = _randomize(tiny_shapes(dataclasses.replace(
+        jcfg, unet=ucfg))["unet"], 3)
     enc = jclip.CLIPVisionEncoder(vcfg)
 
     def refs(vp, up, rp, c):

@@ -35,8 +35,8 @@ from comfy3d_tpu_torch.nodes import base as tbase
 from comfy3d_tpu_torch.nodes import graph as tgraph
 from comfy3d_tpu_torch.ops import volume
 
-from tests.test_torch_common import (_load, _np, _params,
-                                     one_torch_thread)  # noqa: F401
+from tests.test_torch_common import (_load, _np, _params,  # noqa: F401
+                                     one_torch_thread, quick_jax_renderers)
 from tests.test_torch_triposr import TINY, _separated_threshold
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,7 +85,7 @@ def test_registry_and_protocol_match_jax(roots):
     os.makedirs(roots / "ckpt" / "TripoSR")
     (roots / "ckpt" / "TripoSR" / "other.ckpt").write_bytes(b"")
     jk, tk = set(jnodes.NODE_CLASS_MAPPINGS), set(tnodes.NODE_CLASS_MAPPINGS)
-    assert tk <= jk and len(tk) == 84
+    assert tk <= jk and len(tk) == 88
     assert jk - tk == set(tnodes.UNPORTED)
     for key in sorted(tk):
         j, t = jnodes.NODE_CLASS_MAPPINGS[key], tnodes.NODE_CLASS_MAPPINGS[key]
@@ -192,10 +192,11 @@ def test_executor_matches_jax(roots, monkeypatch):
                 jgraph.run_workflow(bad)
 
 
-def test_config1_graph_matches_jax(roots):
+def test_config1_graph_matches_jax(roots, monkeypatch):
     """Config 1 at 64² (phase 13's UV cube through the mesh renderer, a
     300-splat GS-PLY through the GS renderer, 8 views): each node's images
-    and masks within 1e-4 of the JAX package's, depths within 1e-3. The
+    and masks within 1e-4 of the JAX package's (its renderers jitted with
+    `QUICK_XLA`), depths within 1e-3. The
     cube's albedo is 64² and linear in the texel position: the packages'
     UVs differ in their last bits, and a sharper texture (phase 13's
     1024² noise, stored as 8 bits) turns that into visible differences."""
@@ -208,6 +209,7 @@ def test_config1_graph_matches_jax(roots):
                 chip_smoke.make_splat(300, 0.05, 0, "cpu"))
     g = chip_smoke.config_graph(1, gs_size=64)
     overrides = {3: {"render_image_size": 64}}
+    quick_jax_renderers(monkeypatch)
     jres = jgraph.run_workflow(g, overrides)
     tres = tgraph.run_workflow(g, overrides, device="cpu")
     assert tres[2] == tuple(jres[2]) or list(tres[2]) == list(jres[2])
@@ -263,6 +265,15 @@ def test_config2_graph_matches_jax(roots, monkeypatch):
     g = chip_smoke.config_graph(2)
     overrides = {4: {"geometry_extract_resolution": 32,
                      "marching_cude_threshold": thr}}
+    # the JAX extraction's soup sized for this mesh, not for 2 M
+    # triangles (an overflow would double it: the result is the same)
+    import types
+    from comfy3d_tpu.models.triposr import pipeline as jpipeline
+    from comfy3d_tpu.ops import tetra as jtetra
+    monkeypatch.setattr(jpipeline, "tetra", types.SimpleNamespace(
+        extract_isosurface_device=lambda *a, **kw: (
+            jtetra.extract_isosurface_device(*a, **{**kw,
+                                                    "max_tris": 65536}))))
     jres = jgraph.run_workflow(g, overrides)
     tres = tgraph.run_workflow(g, overrides, device="cpu")
     from comfy3d_tpu.core.mesh import Mesh as JMesh

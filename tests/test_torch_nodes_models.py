@@ -396,8 +396,9 @@ def test_load_diffusers_pipeline_reads_a_checkpoint(roots):
     with tnodes.base.run_device("cpu"):
         (pipe,) = node.load_diffusers_pipe("Zero123PlusPipeline",
                                            "sudo-ai/zero123plus-v1.2")
-        with pytest.raises(NotImplementedError, match="A.10: triposg"):
-            node.load_diffusers_pipe("TripoSGPipeline", "VAST-AI/TripoSG")
+        with pytest.raises(NotImplementedError, match="A.10: stablegen"):
+            node.load_diffusers_pipe("StableDiffusionPipeline",
+                                     "Stable-X/yoso-normal-v1-8-1")
     assert pipe.repo_id == "sudo-ai/zero123plus-v1.2"
     assert float(pipe.ramping[-1]) == 0.5 and pipe.vision_encoder is None
     assert sorted(pipe.model.state_dict()) == sorted(model.state_dict())

@@ -335,7 +335,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      soft-silhouette kernels `csrc/soft_silhouette.cu`): a. the kernels
      against their plain version on one view of a res-64 training surface
      at 256² (coverage within 1e-5, vertex gradients within 1e-3 of their
-     largest value), their times and bounds; b. `config_graph
+     largest value), their times and bounds; s. the same gates on the
+     window's stress case: that surface at 384 × 512 and σ 1e-4 with a
+     face larger than the view, one partly behind the camera and two at
+     the reach from a tile; b. `config_graph
      ("flexicubes")` — a UV sphere of radius 0.55 → Mesh Orbit Renderer at
      512² on an 8-view orbit → FlexiCubes MVS at its defaults (res 128,
      batch 4, lr 0.01, the normal maps) but FC_ITERS steps and the depths
@@ -346,8 +349,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      times, a profile of a step (device-busy, idle share), peak memory,
      the extraction and weld seconds, and the kernels against their plain
      version again on the graph's initial surface at 512², their bounds
-     counting the live face-pixel pairs only (the walk of every pair
-     beside them); c. the first step of `engine="tets"` at 128³, timed,
+     counting the live face-pixel pairs only (the walk of the pairs the
+     kernels' window leaves beside them, with every pair's count); c. the
+     first step of `engine="tets"` at 128³, timed,
      its peak. It prints a
      `{"flexicubes": {...}}` line.
  23. TripoSG image / scribble → mesh (`TripoSGConfig()`: DINOv2-L at 518²,
@@ -5604,8 +5608,9 @@ TOL_SIL_GRAD_REL = 1e-3  # vertex gradients, kernel vs plain, of their max
 # live pair (sigmoid argument >= -87: the sigmoid, clip, log1p and sum),
 # and more per live pair in the backward (the nearest segment's gradient,
 # the warp sums). A dead pair adds nothing to the f32 sum nor to a
-# gradient, so the bounds count live pairs only; the kernels' walk of
-# every pair is kept beside them (`_full_walk`)
+# gradient, so the bounds count live pairs only; the walk of the pairs the
+# kernels' window leaves (`silhouette_walk`) is kept beside them
+# (`_full_walk`)
 SIL_PAIR_OPS = 68
 SIL_LIVE_OPS = 8
 SIL_BWD_LIVE_OPS = 20
@@ -5613,6 +5618,11 @@ FC_SIZE = 512            # 22b: the Mesh_Orbit_Renderer node's default
 FC_MESH_RADIUS = 0.55    # 22b: the source sphere
 FC_ITERS = 10            # 22b: training_iterations (the node's default 512)
 SIL_PLAIN_CHUNK = 256    # faces a step of the plain version on the card
+# 22s: the window's stress case, held against the plain version at 22a's
+# tolerances: a non-square view of 22a's surface at the smaller sigma (the
+# reach, 47.7 px, from the longer side), a face larger than the view, one
+# partly behind the camera, two at the reach from a tile's pixels
+SIL_STRESS_H, SIL_STRESS_W, SIL_STRESS_SIGMA = 384, 512, 1e-4
 FC_RES = 128             # 22b: voxel_grids_resolution (the node's default)
 FC_PROFILE_STEPS = 1
 FC_TETS_RES = 128        # 22c: SDFFitConfig(engine="tets")'s grid
@@ -5623,44 +5633,76 @@ TRIPOSG_PARAMS = {"dit": 1_439_556_160, "vae": 242_662_017,
                   "cond": 304_368_640}
 
 
-def silhouette_pairs(tri, ok, size, sigma=SIL_SIGMA, block=64):
+def silhouette_pairs(tri, ok, height, width, sigma=SIL_SIGMA, block=64):
     """(face-pixel pairs, live pairs) of the soft silhouette on these
     inputs: every ok face against every pixel, and those whose sigmoid
-    argument is at least -87 (the kernel's transcendental work)."""
+    argument is at least -87 (the kernels' transcendental work)."""
     import torch
     from comfy3d_tpu_torch.ops import rasterize as R
     t = tri[ok].detach()
-    px = R._pixel_centers(size, size, t.device).reshape(-1, 1, 2)
-    scale = 1.0 / size
+    px = R._pixel_centers(height, width, t.device).reshape(-1, 1, 2)
+    scale = 1.0 / max(height, width)
     live = 0
     with torch.no_grad():
         for i in range(0, t.shape[0], block):
             c = t[i:i + block]
             d = R._signed_dist_to_tri(px, c[:, 0], c[:, 1], c[:, 2]) * scale
             live += int((torch.sign(d) * d * d / sigma >= -87.0).sum())
-    return t.shape[0] * size * size, live
+    return t.shape[0] * height * width, live
 
 
-def silhouette_bounds(tri, ok, size):
+def silhouette_walk(tri, ok, height, width, sigma=SIL_SIGMA, block=4096):
+    """The face-pixel pairs the kernels walk on these inputs: for each
+    warp's 16 x 2 pixels, the faces within its window
+    (`rasterize.silhouette_window`) times its pixels in the image; the
+    largest and the mean sum of a 16 x 16 tile; the ok faces kept for every
+    pixel (`rasterize.silhouette_boxes`)."""
+    import torch
+    from comfy3d_tpu_torch.ops import rasterize as R
+    reach = R.silhouette_reach(sigma, height, width)
+    boxes = R.silhouette_boxes(tri, ok, height, width, reach)[ok]
+    rects = R.silhouette_rects(height, width, R.SIL_WARP_ROWS).to(tri.device)
+    npix = (rects[:, 2] - rects[:, 0] + 1) * (rects[:, 3] - rects[:, 1] + 1)
+    n = torch.zeros(rects.shape[0], dtype=torch.float64, device=tri.device)
+    for i in range(0, boxes.shape[0], block):
+        n += R.silhouette_window(boxes[i:i + block], reach, rects).sum(-1)
+    per_warp = (n * npix).reshape(-(-height // R.SIL_WARP_ROWS), -1)
+    rows = R.SIL_TILE // R.SIL_WARP_ROWS
+    per_warp = torch.nn.functional.pad(
+        per_warp, (0, 0, 0, (-per_warp.shape[0]) % rows))
+    tile = per_warp.reshape(-1, rows, per_warp.shape[1]).sum(1)
+    return dict(pairs=int(tile.sum()), tile_max=int(tile.max()),
+                tile_mean=float(tile.mean()),
+                kept_everywhere=int(torch.isneginf(boxes[:, 0]).sum()))
+
+
+def silhouette_bounds(tri, ok, height, width, sigma=SIL_SIGMA):
     """The forward's and backward's bounds (`_bound`) on these inputs: the
     live pairs' operations (`silhouette_pairs`), each face's corners and
     flag read and the coverage written (the backward: the upstream
-    gradient read, each corner's gradient written); with the walk of every
-    pair beside them (`_full_walk`)."""
-    pairs, live = silhouette_pairs(tri, ok, size)
-    nf = int(tri.shape[0])
+    gradient read, each corner's gradient written); with the walk of the
+    pairs the window leaves beside them (`silhouette_walk`, `_full_walk`)
+    and the count of every pair."""
+    pairs, live = silhouette_pairs(tri, ok, height, width, sigma)
+    walk = silhouette_walk(tri, ok, height, width, sigma)
+    nf, npx = int(tri.shape[0]), height * width
     fwd_pair = SIL_PAIR_OPS + SIL_LIVE_OPS
     bwd_pair = fwd_pair + SIL_BWD_LIVE_OPS
-    return (dict(_bound(nf * 25, size * size * 4, live * fwd_pair,
-                        pairs=pairs, live_pairs=live),
-                 **_full_walk(pairs * SIL_PAIR_OPS + live * SIL_LIVE_OPS)),
-            dict(_bound(nf * 25 + size * size * 4, nf * 24, live * bwd_pair,
-                        pairs=pairs, live_pairs=live),
-                 **_full_walk(pairs * SIL_PAIR_OPS
+    counts = dict(pairs=pairs, live_pairs=live, walked_pairs=walk["pairs"],
+                  tile_walked_max=walk["tile_max"],
+                  tile_walked_mean=walk["tile_mean"],
+                  kept_everywhere=walk["kept_everywhere"])
+    walked = walk["pairs"] * SIL_PAIR_OPS
+    return (dict(_bound(nf * 25, npx * 4, live * fwd_pair, **counts),
+                 **_full_walk(walked + live * SIL_LIVE_OPS)),
+            dict(_bound(nf * 25 + npx * 4, nf * 24, live * bwd_pair,
+                        **counts),
+                 **_full_walk(walked
                               + live * (SIL_LIVE_OPS + SIL_BWD_LIVE_OPS))))
 
 
-def silhouette_vs_plain(label, flat, faces, mvp, size, seed):
+def silhouette_vs_plain(label, flat, faces, mvp, height, width, seed,
+                        sigma=SIL_SIGMA):
     """The soft silhouette on the card through the kernels against its
     plain version (`SIL_PLAIN_CHUNK` faces a step) on the same vertices:
     coverage and vertex gradients of a seeded cotangent; the kernels'
@@ -5669,14 +5711,14 @@ def silhouette_vs_plain(label, flat, faces, mvp, size, seed):
     import torch
     from comfy3d_tpu_torch.ops import rasterize as R
     g = torch.Generator(flat.device).manual_seed(seed)
-    cot = torch.randn((size, size), generator=g, device=flat.device)
+    cot = torch.randn((height, width), generator=g, device=flat.device)
     out, grads, pass_ms = {}, {}, {}
     for name, fn in (("kernel", R.soft_silhouette),
                      ("plain", R.soft_silhouette_plain)):
         v = flat.detach().clone().requires_grad_()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cov = fn(v, faces, mvp, size, size, sigma=SIL_SIGMA,
+        cov = fn(v, faces, mvp, height, width, sigma=sigma,
                  chunk=SIL_PLAIN_CHUNK)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -5692,22 +5734,70 @@ def silhouette_vs_plain(label, flat, faces, mvp, size, seed):
     check(err <= TOL_SIL, f"{label}: coverage kernel vs plain {err}")
     check(gerr <= TOL_SIL_GRAD_REL * gmax,
           f"{label}: vertex gradients kernel vs plain {gerr} of {gmax}")
-    tri, ok = R._face_screen(flat.detach(), faces, mvp, size, size, None)
+    tri, ok = R._face_screen(flat.detach(), faces, mvp, height, width, None)
     g_l = -(1.0 - out["kernel"]) * cot
-    rec = dict(faces=int(faces.shape[0]), ok_faces=int(ok.sum()), size=size,
+    rec = dict(faces=int(faces.shape[0]), ok_faces=int(ok.sum()),
+               height=height, width=width, sigma=sigma,
+               reach=R.silhouette_reach(sigma, height, width),
+               splits=R._sil_splits(int(tri.shape[0]), height, width),
                max_abs_err=err, grad_max_abs_err=gerr,
                grad_max_rel_err=gerr / max(gmax, 1e-30), grad_max=gmax,
                coverage_mean=float(out["kernel"].mean()),
                fwd_ms=cuda_ms(lambda: R.soft_silhouette_fwd(
-                   tri, ok, size, size, SIL_SIGMA), 5, warmup=1),
+                   tri, ok, height, width, sigma), 5, warmup=1),
                bwd_ms=cuda_ms(lambda: R.soft_silhouette_bwd(
-                   tri, ok, g_l, size, size, SIL_SIGMA), 5, warmup=1),
+                   tri, ok, g_l, height, width, sigma), 5, warmup=1),
                plain_fwd_ms=pass_ms["plain"][0],
                plain_bwd_ms=pass_ms["plain"][1],
                plain_chunk=SIL_PLAIN_CHUNK, pass_ms=pass_ms)
-    rec["fwd_bound"], rec["bwd_bound"] = silhouette_bounds(tri, ok, size)
+    rec["fwd_bound"], rec["bwd_bound"] = silhouette_bounds(
+        tri, ok, height, width, sigma)
     log(f"22 silhouette {label}: {rec}")
     return rec
+
+
+def silhouette_stress(flat, faces, dev):
+    """22s: 22a's surface seen at SIL_STRESS_H x SIL_STRESS_W and sigma
+    SIL_STRESS_SIGMA, with four faces placed in screen space (their
+    vertices unprojected through the view's inverse): one larger than the
+    view, covering its upper-left corner; one with a corner behind the
+    camera (not ok); two whose box lies 0.25 px inside the reach of tile
+    (10, 10)'s pixel centres, beside it and diagonal to it. Returns
+    (vertices, faces, mvp)."""
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.camera import Camera
+    from comfy3d_tpu_torch.ops import rasterize as R
+    h, w = SIL_STRESS_H, SIL_STRESS_W
+    cam = Camera.from_orbit([15.0], [30.0], MR_RADIUS, width=w, height=h,
+                            device=dev)
+    mvp = cam.view_proj[0]
+    inv = np.linalg.inv(mvp.detach().cpu().double().numpy())
+
+    def world(sx, sy):
+        """The point of ndc depth 0 that lands on screen (sx, sy)."""
+        p = inv @ np.array([sx / w * 2.0 - 1.0, 1.0 - 2.0 * sy / h, 0.0, 1.0])
+        return p[:3] / p[3]
+
+    eye = inv @ np.array([0.0, 0.0, 1.0, 0.0])
+    eye = eye[:3] / eye[3]
+    gap = R.silhouette_reach(SIL_STRESS_SIGMA, h, w) - 0.25
+    x1 = y1 = 10 * R.SIL_TILE + R.SIL_TILE - 0.5     # tile (10, 10)
+    diag = gap / np.sqrt(2.0)
+    screen = [[(2.4 * w, -1.8 * h), (-1.8 * w, 2.4 * h), (-2.0 * w, -2.0 * h)],
+              [(x1 + gap, y1 - 7.0), (x1 + gap + 3.0, y1 - 6.0),
+               (x1 + gap + 1.0, y1 - 4.0)],
+              [(x1 + diag, y1 + diag), (x1 + diag + 3.0, y1 + diag + 1.0),
+               (x1 + diag + 1.0, y1 + diag + 3.0)]]
+    pts = [world(*p) for tri in screen for p in tri]
+    front = world(0.5 * w, 0.5 * h)
+    pts += [2.0 * eye - front, world(0.4 * w, 0.5 * h),
+            world(0.5 * w, 0.6 * h)]
+    extra = torch.as_tensor(np.array(pts), dtype=torch.float32, device=dev)
+    n = flat.shape[0]
+    more = torch.arange(n, n + extra.shape[0], device=dev,
+                        dtype=faces.dtype).reshape(-1, 3)
+    return torch.cat([flat, extra]), torch.cat([faces, more]), mvp
 
 
 def chamfer(a, b, block=8192):
@@ -5725,7 +5815,8 @@ def chamfer(a, b, block=8192):
 def flexicubes_path(dev, asset_dir, smi_line):
     """Phase 22: FlexiCubes multi-view depth → mesh (`algorithms/sdf_fit.py`,
     the soft-silhouette kernels): a. the kernels against their plain
-    version on one view of a res-64 training surface at 256²; b. a sphere's
+    version on one view of a res-64 training surface at 256²; s. again on
+    the window's stress case (`silhouette_stress`); b. a sphere's
     8-view orbit renders at 512² → FlexiCubes_MVS at its defaults through
     `run_workflow` (FC_ITERS steps), with the kernels held against the
     plain version again at the graph's shapes; c. one step of
@@ -5762,9 +5853,18 @@ def flexicubes_path(dev, asset_dir, smi_line):
     cam = Camera.from_orbit([15.0], [30.0], MR_RADIUS, width=SIL_SIZE,
                             height=SIL_SIZE, device=dev)
     rec["a"] = silhouette_vs_plain("22a", flat, tri_faces, cam.view_proj[0],
-                                   SIL_SIZE, 1)
+                                   SIL_SIZE, SIL_SIZE, 1)
     rec["a"]["s"] = time.perf_counter() - t0
-    del params, grid, v, w, vd, faces, flat, tri_faces
+    # s. the window's stress case: a non-square view at the smaller sigma
+    t0 = time.perf_counter()
+    s_flat, s_faces, s_mvp = silhouette_stress(flat, tri_faces, dev)
+    st = rec["stress"] = silhouette_vs_plain(
+        "22s", s_flat, s_faces, s_mvp, SIL_STRESS_H, SIL_STRESS_W, 3,
+        sigma=SIL_STRESS_SIGMA)
+    check(st["ok_faces"] == rec["a"]["ok_faces"] + 3,
+          f"22s: {st['ok_faces']} ok faces, not 22a's + 3")
+    st["s"] = time.perf_counter() - t0
+    del params, grid, v, w, vd, faces, flat, tri_faces, s_flat, s_faces
     torch.cuda.empty_cache()
 
     # b. the graph: a sphere's orbit renders → FlexiCubes_MVS
@@ -5848,7 +5948,7 @@ def flexicubes_path(dev, asset_dir, smi_line):
     tri_faces = torch.arange(flat.shape[0], device=dev,
                              dtype=torch.int32).reshape(-1, 3)
     main = silhouette_vs_plain("22b", flat, tri_faces, cams.view_proj[0],
-                               FC_SIZE, 2)
+                               FC_SIZE, FC_SIZE, 2)
     del tris, flat, tri_faces
     views = np.array([0, 2, 4, 6])
     prof = profile_frames(lambda: problem.step(views), FC_PROFILE_STEPS,
@@ -6613,7 +6713,7 @@ def main(out_path=None) -> int:
     }
     sil = []
     for part in ("fwd", "bwd"):
-        a, b = fc["a"], fc["b"]["main_shape"]
+        a, b, st = fc["a"], fc["b"]["main_shape"], fc["stress"]
         bound = b[f"{part}_bound"]
         err = "max_abs_err" if part == "fwd" else "grad_max_abs_err"
         sil.append({
@@ -6623,7 +6723,7 @@ def main(out_path=None) -> int:
             "replaces_note": "an XLA scan, no Pallas kernel",
             "launches": fc["b"]["launches"][f"soft_silhouette_{part}"],
             "launches_by_path": by_path(f"soft_silhouette_{part}"),
-            "max_abs_err": max(a[err], b[err]),
+            "max_abs_err": max(a[err], b[err], st[err]),
             "ms": b[f"{part}_ms"], "plain_ms": b[f"plain_{part}_ms"],
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": None,
@@ -6634,6 +6734,9 @@ def main(out_path=None) -> int:
                 "22a_res64_256": dict(
                     ms=a[f"{part}_ms"], plain_ms=a[f"plain_{part}_ms"],
                     max_abs_err=a[err], **a[f"{part}_bound"]),
+                "22s_384x512_sigma1e-4": dict(
+                    ms=st[f"{part}_ms"], plain_ms=st[f"plain_{part}_ms"],
+                    max_abs_err=st[err], **st[f"{part}_bound"]),
                 "22b_res128_512": dict(
                     ms=b[f"{part}_ms"], plain_ms=b[f"plain_{part}_ms"],
                     max_abs_err=b[err], **bound,

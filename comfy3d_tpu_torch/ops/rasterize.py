@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -461,16 +462,121 @@ def soft_silhouette_logsum_plain(tri, ok, height: int, width: int,
     return out
 
 
+# The kernels' window (`csrc/soft_silhouette.cu`, its source note): a pair
+# whose sigmoid argument is below SIL_S_MIN adds nothing in float32, and
+# outside a face that holds exactly beyond `silhouette_reach` pixels, so
+# each 16 x 16 tile and each warp's 16 x 2 pixels skip the faces whose box
+# lies farther than the reach + SIL_MARGIN from their pixel centres.
+SIL_S_MIN = -87.0          # sigmoid(SIL_S_MIN) < 2^-126
+SIL_MARGIN = 1.0           # px: the float32 rounding of dist and s
+SIL_BOX_PAD = 2.0 ** -16   # of M: each box widened by it (dist's rounding)
+SIL_ILL = 2.0 ** -17       # the angle guard of faces kept for every pixel
+SIL_TILE, SIL_WARP_ROWS = 16, 2
+
+
+def silhouette_reach(sigma: float, height: int, width: int) -> float:
+    """R = √(87σ)·max(H, W) pixels: outside a face, the sigmoid argument
+    −(dist / max(H, W))² / σ is below −87 exactly when dist > R (82.7 px
+    at 512² and σ 3e-4). Infinite for σ ≤ 0 (nothing is skipped)."""
+    if not sigma > 0:
+        return math.inf
+    return math.sqrt(-SIL_S_MIN * sigma) * max(height, width)
+
+
+def silhouette_boxes(tri, ok, height: int, width: int,
+                     reach: float) -> torch.Tensor:
+    """[F, 4] float32 (x0, y0, x1, y1), each face's box as the kernels'
+    record pre-pass computes it: the corners' box widened by 2^-16·M (M the
+    largest magnitude among the corners and max(H, W)); empty (+inf, +inf,
+    −inf, −inf) where not ok; the whole plane where the face has a corner
+    that is not finite or its float32 inside test may err far from it (2A·R
+    ≤ 2^-17·L1·L2·(R + 3M), A its area, L1 ≥ L2 its two longest edges, or
+    L2² < 1e-20; a point, all corners equal, is never inside and keeps its
+    box)."""
+    t = tri.detach().to(torch.float32).reshape(-1, 6)
+    c = [t[:, i] for i in range(6)]
+    u = [(c[(2 * e + 2) % 6] - c[2 * e], c[(2 * e + 3) % 6] - c[2 * e + 1])
+         for e in range(3)]
+    den = [ux * ux + uy * uy for ux, uy in u]
+    m = torch.clamp_min(t.abs().amax(1), float(max(height, width)))
+    a2 = (u[0][1] * u[2][0] - u[0][0] * u[2][1]).abs()
+    l1 = torch.maximum(torch.maximum(den[0], den[1]), den[2])
+    l2 = torch.maximum(torch.minimum(den[0], den[1]),
+                       torch.minimum(torch.maximum(den[0], den[1]), den[2]))
+    point = ((u[0][0] == 0) & (u[0][1] == 0) & (u[1][0] == 0)
+             & (u[1][1] == 0))
+    r = torch.tensor(reach, dtype=torch.float32)
+    sound = (torch.isfinite(t).all(1)
+             & (point | ((l2 >= 1e-20)
+                         & (a2 * r > SIL_ILL * torch.sqrt(l1) * torch.sqrt(l2)
+                            * (r + 3.0 * m)))))
+    pad = SIL_BOX_PAD * m
+    box = torch.stack([torch.minimum(torch.minimum(c[0], c[2]), c[4]) - pad,
+                       torch.minimum(torch.minimum(c[1], c[3]), c[5]) - pad,
+                       torch.maximum(torch.maximum(c[0], c[2]), c[4]) + pad,
+                       torch.maximum(torch.maximum(c[1], c[3]), c[5]) + pad],
+                      -1)
+    inf = t.new_tensor([math.inf, math.inf, -math.inf, -math.inf])
+    box = torch.where(sound[:, None], box, -inf)
+    return torch.where(ok.to(t.device)[:, None], box, inf)
+
+
+def silhouette_rects(height: int, width: int, rows: int) -> torch.Tensor:
+    """[N, 4] float32 (x0, y0, x1, y1): the rectangles of pixel centres of
+    the kernels' 16-column blocks of `rows` rows (16: a CTA's tile, 2: a
+    warp's pixels) that hold a pixel of the image, row-major, clipped to
+    the image."""
+    y0 = torch.arange(0, height, rows, dtype=torch.float32)
+    x0 = torch.arange(0, width, SIL_TILE, dtype=torch.float32)
+    y1 = torch.clamp_max(y0 + (rows - 1), height - 1)
+    x1 = torch.clamp_max(x0 + (SIL_TILE - 1), width - 1)
+    gy0, gx0 = torch.meshgrid(y0, x0, indexing="ij")
+    gy1, gx1 = torch.meshgrid(y1, x1, indexing="ij")
+    return torch.stack([gx0, gy0, gx1, gy1], -1).reshape(-1, 4) + 0.5
+
+
+def silhouette_window(boxes, reach: float, rect) -> torch.Tensor:
+    """bool [..., F]: the faces (`silhouette_boxes` [F, 4]) within reach of
+    the rectangles of pixel centres rect [..., 4] (x0, y0, x1, y1), as the
+    kernels test them at each tile and warp: not empty, and the gap in x
+    and in y, squared and summed, not above (R + 1)² (float32; NaN keeps
+    the face)."""
+    lim = torch.tensor(reach, dtype=torch.float32) + SIL_MARGIN
+    b = boxes[None] if rect.dim() > 1 else boxes
+    r = rect[..., None, :]
+    gx = torch.clamp_min(torch.maximum(b[..., 0] - r[..., 2],
+                                       r[..., 0] - b[..., 2]), 0.0)
+    gy = torch.clamp_min(torch.maximum(b[..., 1] - r[..., 3],
+                                       r[..., 1] - b[..., 3]), 0.0)
+    return (b[..., 0] <= b[..., 2]) & ~(gx * gx + gy * gy > lim * lim)
+
+
+SIL_CTAS, SIL_MAX_SPLITS, SIL_CHUNK = 32768, 32, 256
+
+
+def _sil_splits(nf: int, height: int, width: int) -> int:
+    """The face ranges a tile walks in CTAs of their own
+    (`csrc/soft_silhouette.cu`, design step 5): about SIL_CTAS CTAs in all,
+    so that the tiles over the object, which hold most of the pairs,
+    spread over the card; at most SIL_MAX_SPLITS (each adds a partial
+    log-sum of H x W floats) and a chunk of SIL_CHUNK faces each."""
+    tiles = -(-height // SIL_TILE) * -(-width // SIL_TILE)
+    return max(1, min(SIL_MAX_SPLITS, -(-SIL_CTAS // tiles),
+                      -(-nf // SIL_CHUNK)))
+
+
 def _sil_lib():
     lib = _build.load("soft_silhouette")
     if not getattr(lib, "_argtypes_set", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # tri, ok, nf, h, w, scale, inv_sigma, out, stream
+        # tri, ok, nf, h, w, scale, inv_sigma, reach, splits, rec, part,
+        # out, stream
         lib.soft_silhouette_fwd.argtypes = [vp, vp, i32, i32, i32, f32, f32,
-                                            vp, vp]
-        # tri, ok, nf, h, w, scale, inv_sigma, g_out, g_tri, stream
+                                            f32, i32, vp, vp, vp, vp]
+        # tri, ok, nf, h, w, scale, inv_sigma, reach, splits, rec, g_out,
+        # g_tri, stream
         lib.soft_silhouette_bwd.argtypes = [vp, vp, i32, i32, i32, f32, f32,
-                                            vp, vp, vp]
+                                            f32, i32, vp, vp, vp, vp]
         for fn in (lib.soft_silhouette_fwd, lib.soft_silhouette_bwd):
             fn.restype = i32
         lib.soft_silhouette_error_string.argtypes = [i32]
@@ -490,9 +596,20 @@ def _sil_check(tri, ok):
         raise ValueError("tri and ok must lie on one device")
 
 
-def _sil_launch(name, *args):
+def _sil_launch(name, tri, ok, height, width, sigma, splits, *ptrs):
+    """Launch `name` (the record pre-pass, then the kernel) on tri / ok
+    with a scratch of 20 floats a face for the records; `ptrs` are the
+    kernel's own tensors."""
+    tri = tri.detach().contiguous()
+    ok8 = ok.to(torch.uint8).contiguous()
+    rec = torch.empty(20 * tri.shape[0], dtype=torch.float32,
+                      device=tri.device)
     lib = _sil_lib()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, name)(
+        tri.data_ptr(), ok8.data_ptr(), tri.shape[0], height, width,
+        1.0 / max(height, width), 1.0 / sigma,
+        silhouette_reach(sigma, height, width), splits, rec.data_ptr(),
+        *ptrs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.soft_silhouette_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
@@ -503,18 +620,38 @@ def soft_silhouette_fwd(tri, ok, height: int, width: int,
     """Per-pixel Σ_f log1p(−clip(sigmoid(sign(d)·d²/σ), 0, 1 − 1e-7)) over
     the faces with `ok`: tri [F, 3, 2] float32 screen corners (pixels), ok
     [F] bool → L [H, W]; the coverage is 1 − exp(L). Not differentiable
-    itself (`soft_silhouette` wraps it). On a CUDA tensor it launches
-    `csrc/soft_silhouette.cu`'s forward or raises; on a CPU tensor it runs
-    `soft_silhouette_logsum_plain`."""
+    itself (`soft_silhouette` wraps it). On a CPU tensor it runs
+    `soft_silhouette_logsum_plain`; on a CUDA tensor it launches
+    `csrc/soft_silhouette.cu` (its source note has the details) or raises:
+
+    - the window: outside a face the sigmoid argument is below −87, where
+      a pair adds nothing in float32, exactly when dist >
+      `silhouette_reach` R, and a pixel inside a face lies in its box, so
+      each 16 × 16 tile and each warp's 16 × 2 pixels walk only the faces
+      whose box (`silhouette_boxes`) lies within R + 1 px of their pixel
+      centres (`silhouette_window`; the pixel covers float32 rounding,
+      the box is widened by 2^-16 of its corners' magnitude, and faces
+      whose float32 inside test may err far away are kept everywhere).
+      The skipped pairs are a subset of those the walk of every pair
+      skipped (argument < −87), in the same face order;
+    - a record pre-pass writes each face's box and geometry once; each CTA
+      copies a chunk's boxes into a double-buffered shared ring
+      (cp.async), compacts the survivors by ballot in face order and
+      gathers their geometry while it walks the previous chunk;
+    - `_sil_splits` face ranges a tile run as CTAs of their own and are
+      added in order by a second pass: L is deterministic, and with one
+      split bit for bit the walk of every pair;
+    - bound: the instructions run for the walked pairs (~1.2 × the
+      live ones at 512²), not the scan."""
     _sil_check(tri, ok)
     if not tri.is_cuda:
         return soft_silhouette_logsum_plain(tri, ok, height, width, sigma)
-    tri = tri.detach().contiguous()
-    ok8 = ok.to(torch.uint8).contiguous()
+    splits = _sil_splits(tri.shape[0], height, width)
     out = torch.empty((height, width), dtype=torch.float32, device=tri.device)
-    _sil_launch("soft_silhouette_fwd", tri.data_ptr(), ok8.data_ptr(),
-                tri.shape[0], height, width, 1.0 / max(height, width),
-                1.0 / sigma, out.data_ptr())
+    part = (torch.empty((splits, height, width), dtype=torch.float32,
+                        device=tri.device) if splits > 1 else None)
+    _sil_launch("soft_silhouette_fwd", tri, ok, height, width, sigma, splits,
+                0 if part is None else part.data_ptr(), out.data_ptr())
     soft_silhouette_fwd.launches += 1
     return out
 
@@ -526,9 +663,12 @@ def soft_silhouette_bwd(tri, ok, g_out, height: int, width: int,
                         sigma: float) -> torch.Tensor:
     """The gradient of Σ_p g_out[p]·L[p] (`soft_silhouette_fwd`'s L) with
     respect to tri: [F, 3, 2]. On a CUDA tensor it launches
-    `csrc/soft_silhouette.cu`'s backward (atomics: the order of the sums
-    varies from run to run) or raises; on a CPU tensor it differentiates
-    `soft_silhouette_logsum_plain`."""
+    `csrc/soft_silhouette.cu`'s record pre-pass and backward or raises:
+    the forward's window, copy ring, compaction and splits; per face and
+    warp a vote, a halving warp sum into a shared row of the face, and one
+    atomicAdd per nonzero value (the order of the sums varies from run to
+    run); a pixel whose g_out is 0 walks nothing. On a CPU tensor it
+    differentiates `soft_silhouette_logsum_plain`."""
     _sil_check(tri, ok)
     if tuple(g_out.shape) != (height, width):
         raise ValueError(f"g_out {tuple(g_out.shape)}, not {(height, width)}")
@@ -537,13 +677,11 @@ def soft_silhouette_bwd(tri, ok, g_out, height: int, width: int,
             t = tri.detach().requires_grad_()
             L = soft_silhouette_logsum_plain(t, ok, height, width, sigma)
             return torch.autograd.grad(L, t, g_out)[0]
-    tri = tri.detach().contiguous()
-    ok8 = ok.to(torch.uint8).contiguous()
     g_out = g_out.detach().to(torch.float32).contiguous()
-    g_tri = torch.zeros_like(tri)
-    _sil_launch("soft_silhouette_bwd", tri.data_ptr(), ok8.data_ptr(),
-                tri.shape[0], height, width, 1.0 / max(height, width),
-                1.0 / sigma, g_out.data_ptr(), g_tri.data_ptr())
+    g_tri = torch.zeros(tri.shape, dtype=torch.float32, device=tri.device)
+    _sil_launch("soft_silhouette_bwd", tri, ok, height, width, sigma,
+                _sil_splits(tri.shape[0], height, width),
+                g_out.data_ptr(), g_tri.data_ptr())
     soft_silhouette_bwd.launches += 1
     return g_tri
 

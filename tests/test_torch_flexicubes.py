@@ -223,6 +223,81 @@ def test_soft_silhouette_plain_matches_jax():
             tr.soft_silhouette_bwd.launches) == launches
 
 
+def window_faces(rng, height, width, reach):
+    """[F, 3, 2] screen corners: small faces over and around the view,
+    points, slivers, faces larger than the view, faces partly off-screen,
+    and small faces whose box lies within a pixel of R from a warp's pixel
+    centres (beside, below or diagonal to it; on either side)."""
+    ext = np.array([width, height], np.float64)
+    centre = rng.uniform(-reach, ext + reach, (60, 2))
+    small = centre[:, None] + rng.uniform(-4.0, 4.0, (60, 3, 2))
+    points = np.repeat(rng.uniform(0, ext, (8, 1, 2)), 3, 1)
+    a = rng.uniform(0, ext, (8, 2))
+    b = a + rng.uniform(-20.0, 20.0, (8, 2))
+    c = (a + rng.uniform(0, 1, (8, 1)) * (b - a)
+         + rng.uniform(-1e-3, 1e-3, (8, 2)))
+    slivers = np.stack([a, b, c], 1)
+    e = max(height, width)
+    large = np.array([[[-2.0 * e, -2.0 * e], [4.0 * e, -e], [0.0, 4.0 * e]],
+                      [[-e, 0.3 * height], [2.0 * e, 0.2 * height],
+                       [0.5 * width, 3.0 * e]]])
+    off = (rng.uniform(-0.1, 1.1, (8, 1, 2)) * ext
+           + rng.uniform(-0.4, 0.4, (8, 3, 2)) * ext)
+    rects = tr.silhouette_rects(height, width, tr.SIL_WARP_ROWS).numpy()
+    rim = []
+    for k in range(24):
+        x0, y0, x1, y1 = rects[rng.randint(len(rects))]
+        gap = reach + rng.uniform(-1.0, 1.0)
+        way = k % 3        # beside, below, diagonal
+        dx, dy = ((gap, 0.0), (0.0, gap),
+                  (gap / np.sqrt(2), gap / np.sqrt(2)))[way]
+        corner = np.array([x1 + dx, y1 + dy]) if way != 0 else \
+            np.array([x1 + dx, rng.uniform(y0, y1)])
+        rim.append(corner + np.array([[0.0, 0.0], [3.0, 1.0], [1.0, 3.0]]))
+    return np.concatenate([small, points, slivers, large, off,
+                           np.stack(rim)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("sigma,height,width", [
+    (1e-4, 64, 64), (3e-4, 64, 64), (1e-4, 48, 80), (3e-4, 48, 80)])
+def test_silhouette_window_holds_every_live_pair(sigma, height, width):
+    """Every face-pixel pair whose plain sigmoid argument
+    (`_signed_dist_to_tri`, as `soft_silhouette_logsum_plain` computes it)
+    is at least −87 lies in the kernels' window: the face's box
+    (`silhouette_boxes`) within `silhouette_reach` + 1 px
+    (`silhouette_window`) of the pixel's 16 × 16 tile and of its warp's
+    16 × 2 pixels. Random faces from a seed (`window_faces`), a fifth not
+    ok. On the non-square views the reach taken from the smaller side
+    would miss live pairs."""
+    rng = np.random.RandomState(17)
+    reach = tr.silhouette_reach(sigma, height, width)
+    tri = torch.as_tensor(window_faces(rng, height, width, reach))
+    ok = torch.as_tensor(rng.rand(tri.shape[0]) > 0.2)
+    boxes = tr.silhouette_boxes(tri, ok, height, width, reach)[ok]
+    t = tri[ok]
+    px = tr._pixel_centers(height, width, "cpu")
+    d = tr._signed_dist_to_tri(px[:, :, None], t[:, 0], t[:, 1],
+                               t[:, 2]) * (1.0 / max(height, width))
+    live = torch.sign(d) * d * d / sigma >= tr.SIL_S_MIN     # [H, W, F]
+    assert int(live.sum()) > 0
+    for rows in (tr.SIL_TILE, tr.SIL_WARP_ROWS):
+        # each pixel's block of `rows` rows by 16 columns
+        rects = tr.silhouette_rects(height, width, rows).reshape(
+            -(-height // rows), -(-width // tr.SIL_TILE), 4)
+        ys = torch.arange(height) // rows
+        xs = torch.arange(width) // tr.SIL_TILE
+        rect = rects[ys[:, None], xs[None, :]]                # [H, W, 4]
+        window = tr.silhouette_window(boxes, reach, rect)
+        assert not bool((live & ~window).any()), (rows, int(
+            (live & ~window).sum()))
+        assert bool((~window).any())
+        if height != width:
+            short = tr.silhouette_reach(sigma, height, min(height, width))
+            assert bool((live & ~tr.silhouette_window(
+                tr.silhouette_boxes(tri, ok, height, width, short)[ok],
+                short, rect)).any())
+
+
 def test_mip_chain_and_antialias_match_jax():
     """`build_mip_chain` (a 16 × 8 texture: 4 levels; with `max_levels` 2),
     `uv_mip_level`, `texture_sample_mip` in wrap and clamp mode, and

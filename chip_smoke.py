@@ -317,13 +317,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      composited on white): the sampler by CUDA events in f32, one guided
      step of 24 frames f32 and TF32 with its FLOPs, a profile of it (idle
      share, SDPA kernel), the decode of 12 views, peak memory per stage,
-     views and normals finite in [0, 1]; c. Wonder3D (50 steps at
-     guidance 1: 12 frames), the same measures, the sampler in TF32 too
+     views and normals finite in [0, 1]; c. Wonder3D (W3D_TIMED_STEPS of
+     the node's 50 steps at guidance 1: 12 frames), the same measures,
+     the sampler in TF32 too
      and the step at guidance 2 (24 frames); d. the graph
      `config_graph("era3d_fit")` — LoadImage → Era3D (10 steps) → masks
      from the normals → a UV sphere fitted at the fit node's defaults
-     (512² views, batch 3, texture 512) for 136 steps with one remesh after
-     128 → Save 3D Mesh — each node timed on the host between
+     (512² views, batch 3, texture 512) for FIT_ITERS steps with one remesh
+     after 128 → Save 3D Mesh — each node timed on the host between
      synchronisations, the segments and the remesh timed, the GLB read
      back, a profiled fit step (device-busy, idle share); e. the analytic
      fit: a textured UV sphere's six Era3D views at 256², fitted from a
@@ -368,7 +369,36 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      into sweep and weld; d. `config_graph("triposg_scribble")` (16 steps,
      the conditional pass alone); c. times the loader's pipeline, drawn
      once. It prints a `{"triposg": {...}}` line.
-Phases 11–13, 16–18, 20a–e, 21 and 23 launch none of the compositor
+ 24. PartCrafter image → part meshes (`PartCrafterConfig()`: DINOv2-L at
+     518², TripoSG's 21-block DiT at width 2,048 with a 32-part embedding
+     and global attention in every other block, 512 latents a part,
+     TripoSG's VAE decoder): a. the parameter counts on `meta` against
+     PARTCRAFTER_PARAMS; b. the card against the port's CPU path with TF32
+     off at 3 DiT blocks (blocks 0 and 2 global, 2 a skip block), 2
+     decoder blocks, 2 DINOv2 layers and 2 parts: the conditioning, a DiT
+     pass, two guided steps, the VAE's decoder, a query and a dense decode
+     at 32, each within 1e-3 of its largest value; c. `config_graph
+     ("partcrafter")` at the node's defaults (4 parts, 50 steps, CFG 7,
+     octree 128; weights drawn on the card): the zip's four part GLBs and
+     the scene GLB read back; then `config_graph("partcrafter_scene")`
+     (the scene loader; one part, 2 steps, octree 64); d. a guided step of four
+     parts f32 and TF32 with its FLOPs (and the repeated context's k / v
+     share counted), one part's decode with its peak and its extraction
+     split into sweep and weld. It prints a `{"partcrafter": {...}}` line.
+ 25. Craftsman views → mesh (`CraftsmanConfig()`: CLIP ViT-L/14 at 224²
+     with the camera ModLN, the denoiser of width 768 with 6 + 1 + 6
+     blocks, the Michelangelo decoder of width 768 with 16 layers): a. the
+     parameter counts against CRAFTSMAN_PARAMS; b. the card against the
+     port's CPU path with TF32 off at one block per stack, 2 decoder
+     layers and 2 CLIP layers on four views: the context, a denoiser
+     pass, two DDIM steps, the decoder, a query and a dense decode at 32;
+     c. `config_graph("craftsman")` at the node's defaults (a 2 × 2 grid
+     split into four views, 50 DDIM steps, CFG 7.5, octree 256; weights
+     drawn on the card) with the GLB read back; d. a guided step f32 and
+     TF32 with its FLOPs, the 50-step sampler alone, the decode at 256
+     with its peak and the extraction at 128 split into sweep and weld. It prints a
+     `{"craftsman": {...}}` line.
+Phases 11–13, 16–18, 20a–e, 21 and 23–25 launch none of the compositor
 kernels, and every phase but 22 none of the silhouette kernels (counted).
 It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"mesh_render": {...}}`, an `{"mvdream_lgm": {...}}`, a
@@ -376,7 +406,8 @@ It prints a `{"triposr": {...}}`, an `{"instantmesh": {...}}`, a
 `{"hunyuan3d_shape": {...}}` and a `{"hunyuan3d_paint": {...}}` line, a
 `{"workflows": {...}}` line (each graph's seconds, per-node split, peak
 memory and launches), a `{"crm": {...}}` line, an `{"mvdiffusion_fit":
-{...}}` line, a `{"flexicubes": {...}}` and a `{"triposg": {...}}` line,
+{...}}` line, a `{"flexicubes": {...}}`, a `{"triposg": {...}}`, a
+`{"partcrafter": {...}}` and a `{"craftsman": {...}}` line,
 one `{"kernels": [...]}` line (the graphs' counts in `launches_by_path`,
 ImageDream → LGM's view 0 in K1′'s `by_path`; the silhouette's forward and
 backward, at the graph's shapes, with 22a's in their `by_path`), then
@@ -890,11 +921,12 @@ def bwd_vs_plain(label, inp, fwd, seed):
 
 
 def pipe_on(pipe, device):
-    """A pipeline drawn on the CPU, on `device`: `pipe` itself on the CPU,
-    else a pipeline around a copy of its model. One seed draws different
+    """`pipe` on `device`: `pipe` itself where its model lives, else a
+    pipeline around a copy of its model there. One seed draws different
     weights from the CPU's and the card's generators, so a card-vs-CPU
-    check draws once, on the CPU."""
-    if device.type == "cpu":
+    check draws once (on the card, where a draw of the cut model takes no
+    host seconds) and copies."""
+    if next(pipe.model.parameters()).device.type == device.type:
         return pipe
     return type(pipe)(copy.deepcopy(pipe.model).to(device))
 
@@ -2049,7 +2081,7 @@ def instantmesh_path(dev, asset_dir, smi_line):
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
     small = dataclasses.replace(cfg, vit_layers=CPU_LAYERS,
                                 transformer_layers=CPU_LAYERS)
-    host = InstantMeshPipeline.init_random(0, small, device=cpu)
+    host = InstantMeshPipeline.init_random(0, small, device=dev)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
@@ -2548,8 +2580,8 @@ def mvdream_lgm_path(dev, asset_dir, smi_line):
         mv_cfg, unet=dataclasses.replace(mv_cfg.unet, layers_per_block=1),
         vae=dataclasses.replace(mv_cfg.vae, layers_per_block=1))
     small_lgm = dataclasses.replace(lgm_cfg, layers_per_block=1)
-    host_mv = MVDreamPipeline.init_random(0, small_mv, device=cpu)
-    host_lgm = LGMPipeline.init_random(0, small_lgm, device=cpu)
+    host_mv = MVDreamPipeline.init_random(0, small_mv, device=dev)
+    host_lgm = LGMPipeline.init_random(0, small_lgm, device=dev)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
@@ -3061,7 +3093,7 @@ def clip_encoder(seed, cfg, device):
 
 def zero123plus_pipe(seed, cfg, clip_cfg, device, host=None):
     """`Zero123PlusPipeline.init_random(seed, cfg)` on `device` (or
-    `pipe_on(host, device)` of a pipeline drawn on the CPU) with a seeded
+    `pipe_on(host, device)` of a pipeline drawn once) with a seeded
     CLIP vision encoder attached and ramping coefficients seeded in [0, 1]
     (the JAX default's zeros would null the global term)."""
     import numpy as np
@@ -3216,7 +3248,7 @@ def zero123plus_instantmesh_path(dev, asset_dir, smi_line):
     rng = np.random.RandomState(5)
     cond_np = rng.randn(2, 4, cs, cs).astype(np.float32)
     lat_np = rng.randn(2, *lat_shape[1:]).astype(np.float32)
-    host = Zero123PlusPipeline.init_random(0, small, device=cpu)
+    host = Zero123PlusPipeline.init_random(0, small, device=dev)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
@@ -3386,7 +3418,7 @@ TOL_HY3D_BAND = 1e-5     # 17c: octree vs dense grid near the surface
 TOL_HY3D_ALONE = 1e-5    # 17b: the pipeline alone's grid vs the graph's,
 #                          of the largest value (the same calls, same card)
 HY3D_STEPS = 30          # the Hunyuan3D_21_ShapeGen node's defaults
-HY3D_TIMED_STEPS = 10    # 17b's denoise timed alone, f32 and TF32
+HY3D_TIMED_STEPS = 4     # 17b's denoise timed alone, f32 and TF32
 HY3D_GUIDANCE = 7.5
 HY3D_SEED = 1234
 HY3D_OCTREE = 256
@@ -3398,7 +3430,7 @@ HY3D_PARAMS = {"dit": 1_113_274_432, "vae": 214_260_737,
                "cond": 1_136_479_232}
 # 17a's cut (the widths kept): DiT blocks, DINOv2 layers, VAE layers, the
 # dense decode's and the octree decode's resolutions
-HY3D_SMALL = dict(depth=1, depth_single_blocks=2, cond_layers=2,
+HY3D_SMALL = dict(depth=1, depth_single_blocks=1, cond_layers=2,
                   vae_layers=1, dense=16, coarse=8, octree=32)
 
 
@@ -3464,7 +3496,7 @@ def hunyuan3d_shape_path(dev, asset_dir, smi_line):
                         generator=gen)
     x_np = torch.randn((2, cfg.vae.num_latents, cfg.vae.embed_dim),
                        generator=gen)
-    host = Hunyuan3DShapePipeline.init_random(0, small, device=cpu)
+    host = Hunyuan3DShapePipeline.init_random(0, small, device=dev)
     outs = {}
     for d in (cpu, dev):
         th = time.perf_counter()
@@ -3827,7 +3859,7 @@ def hunyuan3d_paint_path(dev, asset_dir, smi_line, shape_mesh):
     draws = {"latents": draw(rows, 4, lat, lat),
              "step": [draw(rows, 4, lat, lat)]}
     t_a = time.perf_counter()
-    host = Hunyuan3DPaintPipeline.init_random(0, small, device=cpu)
+    host = Hunyuan3DPaintPipeline.init_random(0, small, device=dev)
     init_small_s = time.perf_counter() - t_a
     outs = {}
     for d in (cpu, dev):
@@ -4102,6 +4134,7 @@ def _orbit(nid, radius, views=WF_VIEWS, elevation=WF_ELEVATION):
 
 
 def config_graph(n, image="reference.png", rgba="reference_rgba.png",
+                 views="reference_views.png",
                  mesh="uv_cube.glb", splat="splat_100k.ply",
                  sphere="sphere.ply", gs_size=None, fit_size=None,
                  uv_sphere="uv_sphere.glb", fc_mesh="fc_sphere.glb",
@@ -4115,12 +4148,16 @@ def config_graph(n, image="reference.png", rgba="reference_rgba.png",
     or of FlexiCubes ("flexicubes": `fc_mesh`'s 8-view orbit renders at
     `fit_size` → FlexiCubes MVS from their depths, masks and normal maps,
     the depths decoded over `depth_range`) or of TripoSG ("triposg": image
-    → mesh; "triposg_scribble": the scribble model's image → mesh) at the
-    nodes' defaults, its files named relative to the nodes' input root;
-    only the standard library is needed to build it."""
+    → mesh; "triposg_scribble": the scribble model's image → mesh) or of
+    PartCrafter ("partcrafter": image → part meshes, their GLB zip and the
+    exploded scene; "partcrafter_scene": the same through the scene
+    loader) or of Craftsman ("craftsman": `views`, a 2 × 2 grid, → four
+    views → mesh) at the nodes' defaults, its files named relative to the
+    nodes' input root; only the standard library is needed to build it."""
     out = f"{WF_DIR}/" + (n if n in ("3dgs_fit", "crm", "crm_t2i",
                                      "wonder3d", "era3d_fit", "flexicubes",
-                                     "triposg", "triposg_scribble")
+                                     "triposg", "triposg_scribble",
+                                     "craftsman")
                           else f"config{n}")
     gs_size = WF_GS_SIZE if gs_size is None else gs_size
     fit_size = WF_FIT_SIZE if fit_size is None else fit_size
@@ -4315,6 +4352,25 @@ def config_graph(n, image="reference.png", rgba="reference_rgba.png",
               "reference_orbit_camera_poses": (2, 0),
               "reference_normal_maps": (3, 3)}),
             (5, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (4, 0)}))
+    if n in ("partcrafter", "partcrafter_scene"):   # image → part meshes
+        loader = ("Load PartCrafter Scene Pipeline" if n.endswith("scene")
+                  else "Load PartCrafter Pipeline")
+        return workflow(
+            (1, "LoadImage", [image], {}),
+            (2, C3D + loader, [], {}),
+            (3, C3D + "PartCrafter Generate",
+             [4, 1234, "fixed", 1024, 50, 7.0, 128, 0.3],
+             {"partcrafter_pipe": (2, 0), "image": (1, 0)}))
+    if n == "craftsman":     # four views → a mesh
+        return workflow(
+            (1, "LoadImage", [views], {}),
+            (2, C3D + "Split Image Grid", [2, True], {"image": (1, 0)}),
+            (3, C3D + "Load Craftsman Shape Diffusion Model",
+             ["image-to-shape-diffusion"], {}),
+            (4, C3D + "Craftsman Shape Diffusion Model",
+             [0, "fixed", 7.5, 50, 256],
+             {"craftsman_model": (3, 0), "multiview_images": (2, 0)}),
+            (5, C3D + "Save 3D Mesh", [f"{out}_mesh.glb"], {"mesh": (4, 0)}))
     raise ValueError(f"no workflow {n!r}")
 
 
@@ -4333,6 +4389,31 @@ def write_reference_images(asset_dir, size=WF_IMAGE):
     cv2.imwrite(os.path.join(asset_dir, "reference.png"),
                 cv2.cvtColor(q(rgb), cv2.COLOR_RGB2BGR))
     return "reference.png", "reference_rgba.png"
+
+
+def reference_views(size):
+    """Four seeded views [4, S, S, 3]: `reference_image(size, seed)`
+    composited on white over its disc for seeds 3–6."""
+    import numpy as np
+    views = []
+    for seed in range(3, 7):
+        img, mask = reference_image(size, seed)
+        views.append(img[0] * mask[0, ..., None] + (1.0 - mask[0, ..., None]))
+    return np.stack(views).astype(np.float32)
+
+
+def write_view_grid(asset_dir, size=WF_IMAGE // 2):
+    """`reference_views(size)` as one 2 × 2 grid PNG (the Craftsman graph's
+    input, split by Split Image Grid). Returns its file name."""
+    import cv2
+    import numpy as np
+    views = reference_views(size)
+    grid = np.concatenate([np.concatenate(views[:2], 1),
+                           np.concatenate(views[2:], 1)], 0)
+    q = np.clip(np.round(grid * 255.0), 0, 255).astype(np.uint8)
+    cv2.imwrite(os.path.join(asset_dir, "reference_views.png"),
+                cv2.cvtColor(q, cv2.COLOR_RGB2BGR))
+    return "reference_views.png"
 
 
 def _tensors_of(value):
@@ -4398,7 +4479,8 @@ def workflow_files(asset_dir, out_dir):
     """The nodes' input root at `asset_dir` (with no checkpoints under it:
     every loader draws its weights) and their output root at `out_dir`;
     the graphs' input files written there: the reference images
-    (`write_reference_images`), phase 13's UV cube as GLB and its sphere,
+    (`write_reference_images`, `write_view_grid`), phase 13's UV cube as
+    GLB and its sphere,
     with vertex colours, as PLY."""
     from comfy3d_tpu_torch.core.io.ply import save_mesh_ply
     from comfy3d_tpu_torch.nodes import base
@@ -4406,6 +4488,7 @@ def workflow_files(asset_dir, out_dir):
     base.OUTPUT_ROOT_PATH = out_dir
     base.CKPT_ROOT_PATH = os.path.join(asset_dir, "no_checkpoints")
     write_reference_images(asset_dir)
+    write_view_grid(asset_dir)
     uv_cube().write(os.path.join(asset_dir, "uv_cube.glb"))
     sph = sphere_mesh()
     save_mesh_ply(os.path.join(asset_dir, "sphere.ply"), sph.v, sph.f,
@@ -4593,7 +4676,7 @@ def workflows_path(dev, asset_dir, lgm_splat):
 # ------------------------------------------------------------------ #
 TOL_CRM_REL = 1e-3       # card vs CPU, of the largest value, TF32 off
 CRM_STEPS = 50           # the CRM samplers' nodes' defaults
-CRM_TIMED_STEPS = 25     # 20b-c: the samplers timed at full width
+CRM_TIMED_STEPS = 10     # 20b-c: the samplers timed at full width
 CRM_GUIDANCE = 5.5
 CRM_SEED = 1234
 CRM_T2I_STEPS = 10       # 20e's T2I V2 graph (the node's 50, cut)
@@ -4774,20 +4857,20 @@ def crm_path(dev, asset_dir, smi_line):
                 c.vae, layers_per_block=sm["layers_per_block"]))
 
     host_enc = vision_encoder_on(1, crm_vision_config(
-        layers=sm["clip_layers"]), cpu)
-    host_pix = MVDreamPipeline.init_random(0, small_mv(4), device=cpu)
+        layers=sm["clip_layers"]), dev)
+    host_pix = MVDreamPipeline.init_random(0, small_mv(4), device=dev)
     # the CCM stage shares the pixel stage's host draw, its conv_in's 4
     # more input channels a copy of the first 4 (the std kept)
     sd = dict(host_pix.model.state_dict())
     w = sd["unet.conv_in.weight"]
     sd["unet.conv_in.weight"] = torch.cat([w, w], 1) * 0.5 ** 0.5
     host_ccm = MVDreamPipeline(load_module(lambda: MVDream(small_mv(8)), sd,
-                                           cpu))
+                                           dev))
     del sd, w
     host_crm = CRMReconPipeline.init_random(0, crm_recon_config(
         plane_resolution=sm["plane"], unet=dataclasses.replace(
             crm_recon_config().unet,
-            layers_per_block=sm["layers_per_block"])), device=cpu)
+            layers_per_block=sm["layers_per_block"])), device=dev)
     pix_np = rng.rand(v, 256, 256, 3).astype(np.float32)
     lat = host_pix.cfg.image_size // host_pix.cfg.vae_factor
     x_np = rng.randn(v + 1, 4, lat, lat).astype(np.float32)
@@ -5036,19 +5119,20 @@ def crm_path(dev, asset_dir, smi_line):
 # ------------------------------------------------------------------ #
 TOL_MV_REL = 1e-3        # card vs CPU, of the largest value, TF32 off
 ERA3D_STEPS = 40         # the Era3D node's defaults
-ERA3D_TIMED_STEPS = 10   # 21b: the sampler timed at full width
+ERA3D_TIMED_STEPS = 5    # 21b: the sampler timed at full width
 ERA3D_GUIDANCE = 3.0
 ERA3D_SEED = 600
 ERA3D_RADIUS = 4.0
 ERA3D_AZIMUTHS = (0.0, 45.0, 90.0, 180.0, 270.0, 315.0)
 W3D_STEPS = 50           # the Wonder3D node's defaults
+W3D_TIMED_STEPS = 20     # 21c: the sampler timed at full width
 W3D_GUIDANCE = 1.0
 W3D_SEED = 0
 # 21d: the graph's Era3D steps (the node's 40, run in full in 21b) and the
 # fit node's 1,024 iterations, cut to one remesh (at the widget's least,
 # 128) and a few steps after it
 FIT_GRAPH_STEPS = 10
-FIT_ITERS = 136
+FIT_ITERS = 130
 FIT_REMESH = 128
 FIT_PROFILE_STEPS = 1
 # 21e: the analytic fit — a textured UV sphere scaled by GATE_SCALE with a
@@ -5265,12 +5349,12 @@ def mvdiffusion_fit_path(dev, asset_dir, smi_line):
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
     host_w = Wonder3DPipeline.init_random(0, cut(Wonder3DConfig()),
-                                          device=cpu)
-    host_e = Era3DPipeline.init_random(0, cut(Era3DConfig()), device=cpu)
+                                          device=dev)
+    host_e = Era3DPipeline.init_random(0, cut(Era3DConfig()), device=dev)
     host_wv = vision_encoder_on(1, w3d_vision_config(
-        layers=sm["clip_layers"]), cpu)
+        layers=sm["clip_layers"]), dev)
     host_ev = vision_encoder_on(2, era3d_vision_config(
-        layers=sm["clip_layers"]), cpu)
+        layers=sm["clip_layers"]), dev)
     ecfg = host_e.cfg
     prompt = rng.randn(2 * ecfg.num_views, ecfg.prompt_tokens,
                        ecfg.prompt_dim).astype(np.float32)
@@ -5434,8 +5518,8 @@ def mvdiffusion_fit_path(dev, asset_dir, smi_line):
                               x0)
 
     rec["wonder3d"], w_colors, _ = _mv_stage(
-        "c. Wonder3D", w3d, image, W3D_STEPS, W3D_GUIDANCE, W3D_SEED,
-        w3d_step, tf32_sampler=True, node_steps=W3D_STEPS)
+        "c. Wonder3D", w3d, image, W3D_TIMED_STEPS, W3D_GUIDANCE,
+        W3D_SEED, w3d_step, tf32_sampler=True, node_steps=W3D_STEPS)
     rec["wonder3d"].update(
         init_s=init_s, clip_params=count_params(enc),
         unet_frames=2 * wcfg.num_views, latent=wcfg.image_size // 8,
@@ -6057,7 +6141,7 @@ def triposg_path(dev, asset_dir, smi_line):
     noise = torch.randn(shape, generator=gen)
     x2 = torch.randn((2,) + shape[1:], generator=gen)
     pts = torch.rand((1, 4096, 3), generator=gen) * 2.0 - 1.0
-    host = TripoSGPipeline.init_random(0, small, device=cpu)
+    host = TripoSGPipeline.init_random(0, small, device=dev)
     outs = {}
     for d in (cpu, dev):
         pipe = pipe_on(host, d)
@@ -6156,6 +6240,380 @@ def triposg_path(dev, asset_dir, smi_line):
     del res
     torch.cuda.empty_cache()
     log(f"phase 23: {rec}")
+    return rec
+
+
+# ------------------------------------------------------------------ #
+# 24. PartCrafter image → part meshes; 25. Craftsman views → mesh
+# ------------------------------------------------------------------ #
+# 24a: TripoSG's counts with the DiT's 32 × 2,048 part table
+# (tests/test_torch_partcrafter.py holds them so)
+PARTCRAFTER_PARAMS = {"dit": 1_439_621_696, "vae": 242_662_017,
+                      "cond": 304_368_640}
+# 25a: CLIP ViT-L/14 with the camera ModLN, the denoiser, the Michelangelo
+# decoder (tests/test_torch_craftsman.py holds them against the JAX
+# package's by shape)
+CRAFTSMAN_PARAMS = {"denoiser": 104_816_448, "vae": 120_548_353,
+                    "cond": 307_210_240}
+TOL_PC_REL = 1e-3        # card vs CPU, of the largest value, TF32 off
+# 24b's cut (the widths kept): DiT blocks (a global block with a skip among
+# them), VAE decoder blocks, DINOv2 layers, parts, the dense decode
+PC_SMALL = dict(dit_layers=3, global_ids=(0, 2), vae_layers=2, cond_layers=2,
+                parts=2, dense=32)
+PC_PARTS = 4             # PartCrafter_Generate's defaults
+PC_STEPS = 50
+PC_GUIDANCE = 7.0
+PC_OCTREE = 128
+# 24c: the scene loader's graph, cut (the node's 50 steps, 4 parts, 128)
+PC_SCENE = {"num_inference_steps": 2, "num_parts": 1,
+            "octree_resolution": 64}
+TOL_CM_REL = 1e-3        # card vs CPU, of the largest value, TF32 off
+# 25b's cut: denoiser blocks per stack, decoder layers, CLIP layers, the
+# dense decode
+CM_SMALL = dict(denoiser_layers=1, vae_layers=2, cond_layers=2, dense=32)
+CM_VIEWS = 4             # Craftsman_Shape_Diffusion_Model's defaults
+CM_STEPS = 50
+CM_GUIDANCE = 7.5
+CM_OCTREE = 256
+CM_EXTRACT_OCTREE = 128  # 25d: the timed extraction's grid (the graph's 256)
+
+
+def partcrafter_path(dev, asset_dir, smi_line):
+    """Phase 24, at `PartCrafterConfig()` (DINOv2-L at 518², TripoSG's DiT
+    of 21 blocks at width 2,048 with a part embedding and global attention
+    in every other block, 512 latents a part, TripoSG's VAE decoder) with
+    the node's defaults: a. the parameter counts on `meta`; b. the card
+    against the port's CPU path at cut depth; c. the object graph with
+    weights drawn on the card, then the scene loader's graph; d. a guided
+    step of four parts, the per-part decode and the extraction timed. Runs
+    under `torch.no_grad()`."""
+    import dataclasses
+    import zipfile
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models.partcrafter import (PartCrafter,
+                                                      PartCrafterConfig,
+                                                      PartCrafterPipeline)
+    from comfy3d_tpu_torch.models.vecset import vae as V
+    from comfy3d_tpu_torch.nodes import base
+    from comfy3d_tpu_torch.ops.tetra import EXTRACT_SPANS
+
+    cfg = PartCrafterConfig()
+    rec = {"card": smi_line, "config": dataclasses.asdict(cfg)}
+    cpu = torch.device("cpu")
+
+    # a. the parameter counts on meta
+    with torch.device("meta"):
+        meta = PartCrafter(cfg)
+    params = {name: count_params(getattr(meta, name))
+              for name in ("dit", "vae", "cond")}
+    del meta
+    check(params == PARTCRAFTER_PARAMS,
+          f"parameters {params}, not {PARTCRAFTER_PARAMS}")
+    rec["params"] = params
+
+    # b. the card against the port's CPU path at cut depth, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    sm = PC_SMALL
+    small = dataclasses.replace(
+        cfg, dit=dataclasses.replace(
+            cfg.dit, base=dataclasses.replace(cfg.dit.base,
+                                              num_layers=sm["dit_layers"]),
+            global_attn_block_ids=sm["global_ids"]),
+        vae=dataclasses.replace(cfg.vae, num_layers_decoder=sm["vae_layers"]),
+        cond=dataclasses.replace(cfg.cond, layers=sm["cond_layers"]))
+    image = white_composite(cfg.image_size)[0]
+    gen = torch.Generator().manual_seed(24)
+    parts = sm["parts"]
+    shape = (parts, cfg.vae.num_latents, cfg.vae.latent_channels)
+    noise = torch.randn(shape, generator=gen)
+    x2 = torch.randn((2,) + shape, generator=gen)
+    pts = torch.rand((1, 4096, 3), generator=gen) * 2.0 - 1.0
+    host = PartCrafterPipeline.init_random(0, small, device=dev)
+    outs = {}
+    for d in (cpu, dev):
+        pipe = pipe_on(host, d)
+        cond = pipe.encode_cond(image)
+        decoded = pipe.model.vae(noise[:1].to(d))
+        o = {"encode_cond": cond,
+             "dit": pipe.model.dit(
+                 x2.to(d), torch.full((2,), 500.0, device=d),
+                 torch.cat([cond, torch.zeros_like(cond)]),
+                 torch.arange(parts, device=d)),
+             "two_steps": pipe.sample_latents(image, parts, num_steps=2,
+                                              guidance_scale=PC_GUIDANCE,
+                                              draws=noise),
+             "vae_decoder": decoded,
+             "query": pipe.model.vae.query(decoded, pts.to(d)),
+             "dense_decode": V.decode_volume(pipe.model.vae.query, decoded,
+                                             octree_resolution=sm["dense"])}
+        torch.cuda.synchronize()
+        outs[d.type] = o
+        del pipe
+    parity = dict(sm)
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"partcrafter b. card vs CPU (cut depth, TF32 off): {parity}")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_PC_REL,
+              f"partcrafter {k}: card vs CPU {parity[k + '_rel_err']:.3g} of "
+              "the largest value")
+    rec["card_vs_cpu"] = parity
+    del outs, host, decoded
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. the object graph at the node's defaults (the loader draws the full
+    # config on the card), then the scene loader's, cut to PC_SCENE
+    t0 = time.perf_counter()
+    res, graph = timed_graph("partcrafter", config_graph("partcrafter"),
+                             device=dev)
+    check(not any(graph["launches"].values()),
+          f"the PartCrafter path launched a kernel: {graph['launches']}")
+    zip_path, glb, _, merged = res[3]
+    with zipfile.ZipFile(zip_path) as zf:
+        names = zf.namelist()
+    check(names == [f"part_{i:02d}.glb" for i in range(PC_PARTS)],
+          f"the parts' zip holds {names}")
+    scene = Mesh.load(os.path.join(base.OUTPUT_ROOT_PATH, glb))
+    check(merged.num_faces > 0 and bool(np.isfinite(merged.v).all())
+          and scene.num_faces == merged.num_faces,
+          "the PartCrafter scene is empty, not finite or not its GLB")
+    pipe = res[2][0]
+    check(isinstance(pipe, PartCrafterPipeline) and pipe.cfg == cfg
+          and not pipe.is_scene, "the loader's pipeline is not the full "
+          "object config")
+    graph.update(zip_entries=names, zip_bytes=os.path.getsize(zip_path),
+                 scene_glb_bytes=os.path.getsize(
+                     os.path.join(base.OUTPUT_ROOT_PATH, glb)),
+                 vertices=merged.num_vertices, triangles=merged.num_faces)
+    del res, scene, merged
+    torch.cuda.empty_cache()
+    sres, sgraph = timed_graph(
+        "partcrafter_scene", config_graph("partcrafter_scene"),
+        {3: PC_SCENE}, device=dev)
+    check(sres[2][0].is_scene and sres[3][3].num_faces > 0
+          and not any(sgraph["launches"].values()),
+          "the scene loader's graph: no scene flag, an empty scene or a "
+          f"kernel launched ({sgraph['launches']})")
+    sgraph.update(cut=PC_SCENE, triangles=sres[3][3].num_faces)
+    del sres
+    torch.cuda.empty_cache()
+    rec["c"] = dict(graph=graph, scene_graph=sgraph,
+                    s=time.perf_counter() - t0)
+    log(f"partcrafter c: {rec['c']}")
+
+    # d. a guided step of the node's four parts (2 × 4 sequences of 513
+    # tokens) f32 and TF32 with its FLOPs, one part's decode with its
+    # peak, and its extraction split into sweep and weld
+    t0 = time.perf_counter()
+    cond = pipe.encode_cond(image)
+    ctx2 = torch.cat([cond, torch.zeros_like(cond)])
+    x = torch.randn((PC_PARTS,) + shape[1:],
+                    generator=torch.Generator().manual_seed(1234)).to(dev)
+    xx = torch.stack([x, x])
+    tt = torch.full((2,), 500.0, device=dev)
+    pid = torch.arange(PC_PARTS, device=dev)
+
+    def one_step():
+        return pipe.model.dit(xx, tt, ctx2, pid)
+
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 2)
+    step_flops = flops_of(one_step)
+    base_cfg = cfg.dit.base
+    local = base_cfg.num_layers - len(cfg.dit.global_attn_block_ids)
+    # the local blocks' k and v of the context repeated for every part
+    ctx_kv_flops = (local * 2 * 2 * (2 * PC_PARTS * cond.shape[1])
+                    * base_cfg.cross_attention_dim * base_cfg.width)
+    lat = pipe.denoise(cond, x, PC_PARTS, 2, PC_GUIDANCE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    td = time.perf_counter()
+    grid = pipe.decode_grid(lat[:1], PC_OCTREE)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - td) * 1e3
+    decode_peak = torch.cuda.max_memory_allocated()
+    extracted, extract_s, spans, _ = profile_spans(
+        lambda: V.grid_to_mesh(grid[0]), EXTRACT_SPANS)
+    rec["d"] = dict(
+        guided_step_ms=step_ms, guided_step_tf32_ms=step_tf32_ms,
+        guided_step_flops=step_flops, parts=PC_PARTS,
+        tokens=2 * PC_PARTS * (cfg.vae.num_latents + 1),
+        context_tokens=int(cond.shape[1]),
+        repeated_context_kv_flops=ctx_kv_flops,
+        steps_ms_estimate=step_ms * PC_STEPS,
+        part_decode_ms=decode_ms, part_decode_peak_bytes=decode_peak,
+        octree=PC_OCTREE, extract_s=extract_s, extract_spans=spans,
+        extracted_triangles=extracted.num_faces,
+        grid_inside_share=float((grid > 0).float().mean()),
+        s=time.perf_counter() - t0)
+    log(f"partcrafter d: {rec['d']}")
+    rec["launches"] = graph["launches"]
+    del pipe, cond, grid, lat, xx
+    torch.cuda.empty_cache()
+    log(f"phase 24: {rec}")
+    return rec
+
+
+def craftsman_path(dev, asset_dir, smi_line):
+    """Phase 25, at `CraftsmanConfig()` (CLIP ViT-L/14 at 224² with the
+    camera ModLN, the denoiser of width 768 with 6 + 1 + 6 blocks over
+    1 + 4·257 + 256 tokens, the Michelangelo decoder of width 768 with 16
+    layers over 256 × 64 latents) with the node's defaults: a. the
+    parameter counts on `meta`; b. the card against the port's CPU path at
+    cut depth; c. the graph (a 2 × 2 grid of views split into an IMAGE
+    batch of four) with weights drawn on the card; d. a guided step, the
+    decode and the extraction timed. Runs under `torch.no_grad()`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from comfy3d_tpu_torch.core.mesh import Mesh
+    from comfy3d_tpu_torch.models.craftsman import (Craftsman,
+                                                    CraftsmanConfig,
+                                                    CraftsmanPipeline)
+    from comfy3d_tpu_torch.models.vecset import vae as V
+    from comfy3d_tpu_torch.ops.tetra import EXTRACT_SPANS
+
+    cfg = CraftsmanConfig()
+    rec = {"card": smi_line, "config": dataclasses.asdict(cfg)}
+    cpu = torch.device("cpu")
+
+    # a. the parameter counts on meta
+    with torch.device("meta"):
+        meta = Craftsman(cfg)
+    params = {name: count_params(getattr(meta, name))
+              for name in ("denoiser", "vae", "cond")}
+    del meta
+    check(params == CRAFTSMAN_PARAMS,
+          f"parameters {params}, not {CRAFTSMAN_PARAMS}")
+    rec["params"] = params
+
+    # b. the card against the port's CPU path at cut depth, TF32 off
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    sm = CM_SMALL
+    small = dataclasses.replace(
+        cfg, denoiser=dataclasses.replace(cfg.denoiser,
+                                          layers=sm["denoiser_layers"]),
+        vae=dataclasses.replace(cfg.vae, num_decoder_layers=sm["vae_layers"]),
+        cond=dataclasses.replace(cfg.cond, layers=sm["cond_layers"]))
+    views = reference_views(WF_IMAGE // 2)
+    gen = torch.Generator().manual_seed(25)
+    shape = (1, cfg.vae.num_latents, cfg.vae.embed_dim)
+    noise = torch.randn(shape, generator=gen)
+    x2 = torch.randn((2,) + shape[1:], generator=gen)
+    pts = torch.rand((1, 4096, 3), generator=gen) * 2.0 - 1.0
+    host = CraftsmanPipeline.init_random(0, small, device=dev)
+    outs = {}
+    for d in (cpu, dev):
+        pipe = pipe_on(host, d)
+        cond = pipe.encode_cond(views)
+        decoded = pipe.model.vae(noise.to(d))
+        o = {"encode_cond": cond,
+             "denoiser": pipe.model.denoiser(
+                 x2.to(d), torch.full((2,), 500.0, device=d),
+                 torch.cat([cond, torch.zeros_like(cond)])),
+             "two_steps": pipe.sample_latents(views, num_steps=2,
+                                              guidance_scale=CM_GUIDANCE,
+                                              draws=noise),
+             "vae_transformer": decoded,
+             "query": pipe.model.vae.query(decoded, pts.to(d)),
+             "dense_decode": V.decode_volume(pipe.model.vae.query, decoded,
+                                             octree_resolution=sm["dense"])}
+        torch.cuda.synchronize()
+        outs[d.type] = o
+        del pipe
+    parity = dict(sm)
+    for k, ref in outs["cpu"].items():
+        parity[f"{k}_rel_err"] = rel_err(outs[dev.type][k], ref)
+    log(f"craftsman b. card vs CPU (cut depth, TF32 off): {parity}")
+    for k in outs["cpu"]:
+        check(parity[f"{k}_rel_err"] <= TOL_CM_REL,
+              f"craftsman {k}: card vs CPU {parity[k + '_rel_err']:.3g} of "
+              "the largest value")
+    rec["card_vs_cpu"] = parity
+    del outs, host, decoded
+    rec["b_s"] = time.perf_counter() - t0
+
+    # c. the graph at the node's defaults (the loader draws the full config
+    # on the card)
+    t0 = time.perf_counter()
+    res, graph = timed_graph("craftsman", config_graph("craftsman"),
+                             device=dev)
+    check(not any(graph["launches"].values()),
+          f"the Craftsman path launched a kernel: {graph['launches']}")
+    check(tuple(res[2][0].shape) == (CM_VIEWS, WF_IMAGE // 2, WF_IMAGE // 2,
+                                     3), f"views {tuple(res[2][0].shape)}")
+    mesh = res[4][0]
+    check(mesh.num_faces > 0 and bool(np.isfinite(mesh.v).all()),
+          "the Craftsman mesh is empty or not finite")
+    back = Mesh.load(res[5][0])
+    check(back.num_faces == mesh.num_faces, "GLB round trip changed the mesh")
+    pipe = res[3][0]
+    check(isinstance(pipe, CraftsmanPipeline) and pipe.cfg == cfg,
+          "the loader's pipeline is not the full config")
+    graph.update(vertices=mesh.num_vertices, triangles=mesh.num_faces,
+                 glb_bytes=os.path.getsize(res[5][0]))
+    rec["c"] = dict(graph=graph, s=time.perf_counter() - t0)
+    log(f"craftsman c: {rec['c']}")
+    del res, back, mesh
+    torch.cuda.empty_cache()
+
+    # d. a guided step f32 and TF32 with its FLOPs, the sampler alone, the
+    # decode at the graph's octree with its peak, the extraction (of a
+    # CM_EXTRACT_OCTREE grid: the graph extracted the full one) split into
+    # sweep and weld
+    t0 = time.perf_counter()
+    cond = pipe.encode_cond(views)
+    ctx2 = torch.cat([cond, torch.zeros_like(cond)])
+    x = noise.to(dev)
+    xx = torch.cat([x, x])
+    tt = torch.full((2,), 500.0, device=dev)
+
+    def one_step():
+        return pipe.model.denoiser(xx, tt, ctx2)
+
+    step_ms = cuda_ms(one_step, 3, warmup=1)
+    step_tf32_ms = tf32_ms(one_step, 2)
+    step_flops = flops_of(one_step)
+    sampler_ms = cuda_ms(lambda: pipe.denoise(cond, x, CM_STEPS,
+                                              CM_GUIDANCE), 1, warmup=0)
+    encode_ms = cuda_ms(lambda: pipe.encode_cond(views), 3, warmup=1)
+    lat = pipe.denoise(cond, x, 2, CM_GUIDANCE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    td = time.perf_counter()
+    grid = pipe.decode_grid(lat, CM_OCTREE)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - td) * 1e3
+    decode_peak = torch.cuda.max_memory_allocated()
+    inside = float((grid > 0).float().mean())
+    del grid
+    grid = pipe.decode_grid(lat, CM_EXTRACT_OCTREE)
+    extracted, extract_s, spans, _ = profile_spans(
+        lambda: V.grid_to_mesh(grid[0]), EXTRACT_SPANS)
+    rec["d"] = dict(
+        guided_step_ms=step_ms, guided_step_tf32_ms=step_tf32_ms,
+        guided_step_flops=step_flops,
+        tokens=2 * (1 + int(cond.shape[1]) + cfg.vae.num_latents),
+        context_tokens=int(cond.shape[1]), sampler_ms=sampler_ms,
+        steps=CM_STEPS, encode_cond_ms=encode_ms, decode_ms=decode_ms,
+        decode_peak_bytes=decode_peak, octree=CM_OCTREE,
+        grid_inside_share=inside, extract_octree=CM_EXTRACT_OCTREE,
+        extract_s=extract_s, extract_spans=spans,
+        extracted_triangles=extracted.num_faces,
+        s=time.perf_counter() - t0)
+    log(f"craftsman d: {rec['d']}")
+    rec["launches"] = graph["launches"]
+    del pipe, cond, grid, lat
+    torch.cuda.empty_cache()
+    log(f"phase 25: {rec}")
     return rec
 
 
@@ -6560,6 +7018,20 @@ def main(out_path=None) -> int:
     tsg["s"] = time.perf_counter() - t0
     lap("23_triposg")
 
+    # 24. PartCrafter image → part meshes; 25. Craftsman views → mesh,
+    # where no kernel may launch (counted in the phases)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pc = record["partcrafter"] = partcrafter_path(dev, asset_dir,
+                                                      smi_line)
+    pc["s"] = time.perf_counter() - t0
+    lap("24_partcrafter")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cm = record["craftsman"] = craftsman_path(dev, asset_dir, smi_line)
+    cm["s"] = time.perf_counter() - t0
+    lap("25_craftsman")
+
     def by_path(name):
         return {"render_8_views": launches[name],
                 "train_10_steps": train_rec["launches"][name],
@@ -6586,7 +7058,11 @@ def main(out_path=None) -> int:
                 "flexicubes_tets_step": fc["c"]["launches"][name],
                 "workflow_triposg": tsg["c"]["graph"]["launches"][name],
                 "workflow_triposg_scribble":
-                    tsg["d"]["graph"]["launches"][name]}
+                    tsg["d"]["graph"]["launches"][name],
+                "workflow_partcrafter": pc["c"]["graph"]["launches"][name],
+                "workflow_partcrafter_scene":
+                    pc["c"]["scene_graph"]["launches"][name],
+                "workflow_craftsman": cm["c"]["graph"]["launches"][name]}
 
     kernel["launches_by_path"] = by_path("gs_flat_fwd")
     kernel["design"] = ("one CTA per sub-tile, a cluster per bin, rows "
@@ -6782,6 +7258,8 @@ def main(out_path=None) -> int:
     print(json.dumps({"mvdiffusion_fit": mvd}))
     print(json.dumps({"flexicubes": fc}))
     print(json.dumps({"triposg": tsg}))
+    print(json.dumps({"partcrafter": pc}))
+    print(json.dumps({"craftsman": cm}))
     print(json.dumps({"kernels": record["kernels"]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ Layering:
              LGM, CLIP's vision encoder, Zero123Plus, DINOv2, the vecset
              substrate (ShapeVAE with its octree decode, the flow DiT) and
              Hunyuan3D-2.1 shape generation and paint, CRM, Wonder3D,
-             Era3D and TripoSG; checkpoint files
+             Era3D, TripoSG, PartCrafter and Craftsman; checkpoint files
              and directories (`loader`)
   algorithms/  the 3DGS trainer, the Instant-NGP fit (`ngp.py`), the
              GS→mesh converter (`gs_to_mesh.py`), the multi-view colour

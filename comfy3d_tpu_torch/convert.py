@@ -566,13 +566,15 @@ _CLIP_RENAMES = (
     (r"^layers_(\d+)/(q|k|v|out)_proj",
      r"encoder.layers.\1.self_attn.\2_proj"),
     (r"^layers_(\d+)/(fc\d)", r"encoder.layers.\1.mlp.\2"),
+    (r"^layers_(\d+)/(mod_norm\d)", r"encoder.layers.\1.\2.mlp.1"),
     (r"^layers_(\d+)/", r"encoder.layers.\1."),
 )
 
 
 def clip_vision_state_dict_from_flax(params) -> dict:
     """The JAX package's `CLIPVisionEncoder` params → the port's
-    `CLIPVisionEncoder` state dict (HF names, `models/clip.py`)."""
+    `CLIPVisionEncoder` state dict (HF names, `models/clip.py`; a camera
+    ModLN's dense layers as `encoder.layers.{i}.mod_norm{1,2}.mlp.1`)."""
     modules = {k: v for k, v in params.items()
                if k not in ("class_embedding", "position_embedding")}
     return _tensors({
@@ -817,3 +819,52 @@ def triposg_state_dict_from_flax(params, dit_heads: int,
                                                             dit_heads)),
             **_join("vae", triposg_vae_state_dict_from_flax(params["vae"],
                                                             vae_heads))}
+
+
+# --------------------------------------------------------------- PartCrafter
+def partcrafter_state_dict_from_flax(params, dit_heads: int,
+                                     vae_heads: int) -> dict:
+    """The JAX package's PartCrafter params, `{"cond", "dit", "vae"}` → the
+    port's `PartCrafter` state dict in upstream's names: TripoSG's
+    (`triposg_state_dict_from_flax`) and `dit.part_embedding.weight`."""
+    sd = triposg_state_dict_from_flax(params, dit_heads, vae_heads)
+    sd["dit.part_embedding.weight"] = torch.as_tensor(
+        np.array(params["dit"]["part_embedding"], np.float32))
+    return sd
+
+
+# ----------------------------------------------------------------- Craftsman
+# the JAX package's SimpleDenoiser names → upstream's
+_CRAFTSMAN_RENAMES = (
+    (r"^context_embed$", "context_embed.1"),
+    (r"^context_ln$", "context_embed.0"),
+    (r"/encoder_(\d+)", r"/encoder.\1"),
+    (r"/decoder_(\d+)_resblock", r"/decoder.\1.0"),
+    (r"/decoder_(\d+)_linear", r"/decoder.\1.1"),
+    (r"/decoder_(\d+)_ln", r"/decoder.\1.2"),
+)
+
+
+def craftsman_denoiser_state_dict_from_flax(params) -> dict:
+    """The JAX package's `SimpleDenoiser` params → the port's (upstream's
+    names without `denoiser_model.`: `context_embed.{0,1}`,
+    `backbone.{encoder.{i}, middle_block, decoder.{i}.{0,1,2}}`, …)."""
+    return _tensors(_renamed_params(params, _CRAFTSMAN_RENAMES))
+
+
+def craftsman_state_dict_from_flax(params) -> dict:
+    """The JAX package's Craftsman params, `{"cond", "denoiser", "vae"}` →
+    the state dict of upstream's Lightning checkpoint: `shape_model.*` (the
+    ShapeVAE's decode path, `geo_decoder` as `decoder`),
+    `denoiser_model.*` and `condition.model.{vision_model.*,
+    visual_projection.weight}`, which both packages' loaders read."""
+    vae = {("shape_model.decoder." + k[len("geo_decoder."):]
+            if k.startswith("geo_decoder.") else "shape_model." + k): v
+           for k, v in shape_vae_state_dict_from_flax(params["vae"]).items()}
+    cond = {("condition.model." + k if k.startswith("visual_projection.")
+             else "condition.model.vision_model." + k): v
+            for k, v in clip_vision_state_dict_from_flax(
+                params["cond"]).items()}
+    return {**vae, **cond, **_join(
+        "denoiser_model",
+        craftsman_denoiser_state_dict_from_flax(params["denoiser"]))}

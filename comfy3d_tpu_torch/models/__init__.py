@@ -5,15 +5,16 @@ its octree decode, the flow DiT and its schedule), checkpoint files
 (`loader`) and the model families (`triposr`, `instantmesh`, `mvdream`,
 `lgm`, `zero123plus`, `hunyuan3d`: shape generation and paint, `crm`:
 the convolutional reconstruction model and CRM T2I's adapter, `triposg`:
-image / scribble → mesh).
+image / scribble → mesh, `partcrafter`: image → part meshes,
+`craftsman`: views → mesh).
 
 Lazy imports, as in the package root."""
 
 import importlib as _importlib
 
-_SUBMODULES = ("clip", "common", "crm", "diffusion", "dinov2", "hunyuan3d",
-               "instantmesh", "lgm", "loader", "mvdream", "triposg", "triposr",
-               "vecset", "zero123plus")
+_SUBMODULES = ("clip", "common", "craftsman", "crm", "diffusion", "dinov2",
+               "hunyuan3d", "instantmesh", "lgm", "loader", "mvdream",
+               "partcrafter", "triposg", "triposr", "vecset", "zero123plus")
 
 
 def __getattr__(name):

@@ -28,8 +28,12 @@ ImageDream's image prompt reads the vision encoder's penultimate hidden
 states (`project="penultimate"`: the tokens that enter the last layer,
 without the post-LayerNorm; `make_vision_hidden_conditioner`).
 
-Not ported, raising NotImplementedError naming its ROADMAP item: the
-camera-modulated blocks (`modulation_dim > 0`, Craftsman, A.10).
+Craftsman's conditional CLIP (`modulation_dim > 0`,
+`modeling_conditional_clip.py:42-110`) modulates each block's two
+LayerNorm outputs by a camera code: x·(1 + scale) + shift, (shift | scale)
+= Linear(silu(mod_cond)), shift first, under upstream's names
+`encoder.layers.{i}.mod_norm{1,2}.mlp.1`; `forward(..., mod_cond=)` takes
+one code per image.
 """
 
 from __future__ import annotations
@@ -44,10 +48,6 @@ from .common import _attend
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported (ROADMAP {item})")
 
 
 def quick_gelu(x):
@@ -78,7 +78,7 @@ class CLIPVisionConfig:
     projection_dim: int = 768
     eps: float = 1e-5
     act: str = "quick_gelu"      # openai CLIP; open_clip laion2b: "gelu"
-    modulation_dim: int = 0      # > 0: Craftsman's camera ModLN (A.10)
+    modulation_dim: int = 0      # > 0: Craftsman's camera ModLN
 
 
 class CLIPAttention(nn.Module):
@@ -98,12 +98,28 @@ class CLIPAttention(nn.Module):
                                      self.v_proj(x), self.heads, bias))
 
 
+class ModLN(nn.Module):
+    """Upstream's `ModLN` without its norm: x·(1 + scale) + shift, (shift |
+    scale) = `mlp`(cond), `mlp` = [SiLU, Linear(mod_dim, 2·hidden)]."""
+
+    def __init__(self, hidden: int, mod_dim: int):
+        super().__init__()
+        self.mlp = nn.Sequential(nn.SiLU(), nn.Linear(mod_dim, 2 * hidden))
+
+    def forward(self, x, cond):
+        shift, scale = self.mlp(cond)[:, None].chunk(2, dim=-1)
+        return x * (1.0 + scale) + shift
+
+
 class CLIPBlock(nn.Module):
     """HF `CLIPEncoderLayer`: pre-LN attention and MLP, each with a
-    residual; the MLP's activation is quick-GELU or the exact GELU."""
+    residual; the MLP's activation is quick-GELU or the exact GELU. With
+    `modulation_dim`, each LayerNorm's output goes through a `ModLN` of
+    `mod_cond` [B, modulation_dim]."""
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
-                 eps: float = 1e-5, act: str = "quick_gelu"):
+                 eps: float = 1e-5, act: str = "quick_gelu",
+                 modulation_dim: int = 0):
         super().__init__()
         if act not in ("quick_gelu", "gelu"):
             raise ValueError(f"CLIP activation {act!r}")
@@ -113,10 +129,21 @@ class CLIPBlock(nn.Module):
         self.layer_norm2 = nn.LayerNorm(hidden, eps=eps)
         self.mlp = nn.ModuleDict({"fc1": nn.Linear(hidden, mlp_dim),
                                   "fc2": nn.Linear(mlp_dim, hidden)})
+        if modulation_dim > 0:
+            self.mod_norm1 = ModLN(hidden, modulation_dim)
+            self.mod_norm2 = ModLN(hidden, modulation_dim)
+        else:
+            self.mod_norm1 = self.mod_norm2 = None
 
-    def forward(self, x, bias=None):
-        x = x + self.self_attn(self.layer_norm1(x), bias)
-        h = self.mlp["fc1"](self.layer_norm2(x))
+    def forward(self, x, bias=None, mod_cond=None):
+        h = self.layer_norm1(x)
+        if self.mod_norm1 is not None:
+            h = self.mod_norm1(h, mod_cond)
+        x = x + self.self_attn(h, bias)
+        h = self.layer_norm2(x)
+        if self.mod_norm2 is not None:
+            h = self.mod_norm2(h, mod_cond)
+        h = self.mlp["fc1"](h)
         h = quick_gelu(h) if self.act == "quick_gelu" else F.gelu(h)
         return x + self.mlp["fc2"](h)
 
@@ -145,32 +172,35 @@ class CLIPVisionEncoder(nn.Module):
     projected embedding [B, P]) with `project=True`, (tokens, the pooled
     class token [B, C]) with `project=False`, or (the tokens that enter the
     last layer, their token 0) with `project="penultimate"` (HF's
-    `hidden_states[-2]`; the last layer does not run)."""
+    `hidden_states[-2]`; the last layer does not run). With
+    `cfg.modulation_dim`, `mod_cond` [B, modulation_dim] modulates every
+    block."""
 
     def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig()):
         super().__init__()
-        if cfg.modulation_dim > 0:
-            raise _unported("CLIPVisionConfig.modulation_dim (Craftsman's "
-                            "camera-modulated blocks)", "A.10")
         c = self.cfg = cfg
         self.embeddings = CLIPVisionEmbeddings(c)
         self.pre_layrnorm = nn.LayerNorm(c.hidden, eps=c.eps)
         self.encoder = nn.ModuleDict({"layers": nn.ModuleList([
-            CLIPBlock(c.hidden, c.heads, c.mlp_dim, c.eps, c.act)
+            CLIPBlock(c.hidden, c.heads, c.mlp_dim, c.eps, c.act,
+                      c.modulation_dim)
             for _ in range(c.layers)])})
         self.post_layernorm = nn.LayerNorm(c.hidden, eps=c.eps)
         self.visual_projection = nn.Linear(c.hidden, c.projection_dim,
                                            bias=False)
 
-    def forward(self, images, project=True):
+    def forward(self, images, project=True, mod_cond=None):
+        if (mod_cond is None) != (self.cfg.modulation_dim == 0):
+            raise ValueError("mod_cond is needed exactly when "
+                             "modulation_dim > 0")
         x = self.pre_layrnorm(self.embeddings(images))
         layers = self.encoder["layers"]
         if project == "penultimate":
             for block in layers[:-1]:
-                x = block(x)
+                x = block(x, mod_cond=mod_cond)
             return x, x[:, 0]
         for block in layers:
-            x = block(x)
+            x = block(x, mod_cond=mod_cond)
         pooled = self.post_layernorm(x[:, 0])
         if not project:
             return x, pooled

@@ -57,19 +57,26 @@ def triposg_config(path: str, **cfg_overrides):
     return TripoSGConfig(**kw)
 
 
-def load_triposg_dir(path: str, device, **cfg_overrides):
-    """An upstream TripoSG directory → `TripoSG` on `device`."""
-    from .pipeline import random_model
-    cfg = triposg_config(path, **cfg_overrides)
-    model = random_model(0, cfg, device)
+def load_dit_vae_cond(model, path: str, tag: str):
+    """`model.dit`, `model.vae` and `model.cond` loaded strictly from the
+    `transformer/`, `vae/` and `image_encoder_dinov2/` folders under
+    `path`; without the last the conditioner keeps its weights (`tag`
+    names the family in the message). Returns `model`."""
     parts = [(model.dit, "transformer"), (model.vae, "vae")]
-    cond_dir = os.path.join(path, "image_encoder_dinov2")
-    if os.path.isdir(cond_dir):
+    if os.path.isdir(os.path.join(path, "image_encoder_dinov2")):
         parts.append((model.cond, "image_encoder_dinov2"))
     else:
-        print("[triposg.convert] no image_encoder_dinov2/ — random "
+        print(f"[{tag}.convert] no image_encoder_dinov2/ — random "
               "conditioner")
     for module, sub in parts:
         module.load_state_dict(load_dir_state_dict(os.path.join(path, sub)),
                                strict=True)
     return model
+
+
+def load_triposg_dir(path: str, device, **cfg_overrides):
+    """An upstream TripoSG directory → `TripoSG` on `device`."""
+    from .pipeline import random_model
+    return load_dit_vae_cond(
+        random_model(0, triposg_config(path, **cfg_overrides), device),
+        path, "triposg")

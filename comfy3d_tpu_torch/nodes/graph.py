@@ -154,6 +154,6 @@ def load_node_mappings():
     """Import every node module (each registers its classes)."""
     from . import (nodes_crm, nodes_diffusers, nodes_hunyuan3d,  # noqa: F401
                    nodes_io, nodes_models, nodes_mvdiffusion,
-                   nodes_preprocess, nodes_render, nodes_texture,
-                   nodes_vendor)
+                   nodes_partcrafter, nodes_preprocess, nodes_render,
+                   nodes_texture, nodes_vendor)
     return NODE_CLASS_MAPPINGS

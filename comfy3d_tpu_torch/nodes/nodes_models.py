@@ -14,8 +14,13 @@ node runs the conditional pass alone, as its CFG-distilled model is run
 (the JAX package blends at guidance 0, ROADMAP §C.10), and reads its prompt
 and confidences no more than the JAX package's does.
 
-Not ported (ROADMAP A.10): SF3D, TGS, Craftsman, `Fast_Normal_Maps_To_Mesh`
-and `ExplicitTarget_Mesh_Optimization`.
+Craftsman's loader reads the first `.ckpt` under
+`<CKPT_ROOT_PATH>/Craftsman/<model_name>` (or under `Craftsman/`), else
+draws the full default config on the run's device; its model node takes
+the views as one IMAGE batch, one fixed camera each.
+
+Not ported (ROADMAP A.10): SF3D, TGS, `Fast_Normal_Maps_To_Mesh` and
+`ExplicitTarget_Mesh_Optimization`.
 """
 
 from __future__ import annotations
@@ -481,4 +486,69 @@ class TripoSG_Scribble_Model:
             _rgb_on_white(scribble_image), seed=int(seed),
             num_steps=int(num_inference_steps),
             octree_resolution=2 ** int(dense_octree_depth))[0]
+        return (mesh.auto_normal(),)
+
+
+@register
+class Load_Craftsman_Shape_Diffusion_Model:
+    """reference nodes.py:3332."""
+
+    CATEGORY = "Comfy3D/Import|Export"
+    RETURN_TYPES = ("CRAFTSMAN_MODEL",)
+    RETURN_NAMES = ("craftsman_model",)
+    FUNCTION = "load"
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "model_name": (["image-to-shape-diffusion"],),
+        }}
+
+    def load(self, model_name="image-to-shape-diffusion"):
+        from ..models.craftsman import CraftsmanPipeline
+        root = os.path.join(base.CKPT_ROOT_PATH, "Craftsman")
+        dev = base.node_device()
+        for path in (os.path.join(root, model_name), root):
+            if os.path.isdir(path):
+                try:
+                    pipe = CraftsmanPipeline.from_pretrained(path, device=dev)
+                except FileNotFoundError:
+                    continue
+                print(f"[Load_Craftsman_Shape_Diffusion_Model] loaded {path}")
+                return (pipe,)
+        print("[Load_Craftsman_Shape_Diffusion_Model] initializing random "
+              f"weights (no ckpt under {root})")
+        return (CraftsmanPipeline.init_random(device=dev),)
+
+
+@register
+class Craftsman_Shape_Diffusion_Model:
+    """reference nodes.py:3377 — multi-view images → mesh."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "craftsman_model": ("CRAFTSMAN_MODEL",),
+            "multiview_images": ("IMAGE",),
+            "seed": ("INT", {"default": 0, "min": 0,
+                             "max": 0xffffffffffffffff}),
+            "guidance_scale": ("FLOAT", {"default": 7.5, "min": 0.0,
+                                         "step": 0.01}),
+            "num_inference_steps": ("INT", {"default": 50, "min": 1}),
+            "octree_resolution": ("INT", {"default": 256, "min": 64}),
+        }}
+
+    RETURN_TYPES = ("MESH",)
+    RETURN_NAMES = ("mesh",)
+    FUNCTION = "run_model"
+    CATEGORY = "Comfy3D/Algorithm"
+
+    def run_model(self, craftsman_model, multiview_images, seed=0,
+                  guidance_scale=7.5, num_inference_steps=50,
+                  octree_resolution=256):
+        mesh = craftsman_model(
+            image_tensor(multiview_images), seed=int(seed),
+            num_steps=int(num_inference_steps),
+            guidance_scale=float(guidance_scale),
+            octree_resolution=int(octree_resolution))[0]
         return (mesh.auto_normal(),)

@@ -48,6 +48,43 @@ def quick_jax():
     return quick
 
 
+def quick_jax_pipeline(jpipe, sample_static):
+    """A JAX latent-set pipeline (TripoSG, PartCrafter, Craftsman) with its
+    `_sample` (static argnums `sample_static`), `encode_cond` and VAE
+    decode as `QUICK_XLA` jits on the instance, so its own calls and the
+    JAX nodes' share one compile each: eager, they compile every op on its
+    own (seconds each at tiny widths). The VAE's other methods (the query,
+    traced inside the decode's `lax.map`) stay as they are."""
+    import types
+    fn = jax.jit(type(jpipe)._sample.__wrapped__,
+                 static_argnums=sample_static, compiler_options=QUICK_XLA)
+    jpipe._sample = lambda *a: fn(jpipe, *a)
+    jpipe.encode_cond = jax.jit(jpipe.encode_cond, compiler_options=QUICK_XLA)
+    vae = jpipe.vae
+    decode = jax.jit(vae.apply, compiler_options=QUICK_XLA)
+    jpipe.vae = types.SimpleNamespace(apply=lambda *a, method=None, **kw: (
+        decode(*a, **kw) if method is None
+        else vae.apply(*a, method=method, **kw)))
+    return jpipe
+
+
+@functools.lru_cache(maxsize=None)
+def _orbit_jit(static):
+    from comfy3d_tpu.core.camera import Camera
+    return jax.jit(functools.partial(Camera.from_orbit, **dict(static)),
+                   compiler_options=QUICK_XLA)
+
+
+def jax_orbit_camera(elevation_deg, azimuth_deg, radius, **kw):
+    """The JAX package's `Camera.from_orbit` as one `QUICK_XLA` jit for
+    each width, height, near and far: eager, it compiles each op on its
+    own (about 1 s for each new shape). Its matrices agree with the eager
+    call's to 1 ulp."""
+    static = tuple(sorted((k, kw.pop(k)) for k in
+                          ("width", "height", "near", "far") if k in kw))
+    return _orbit_jit(static)(elevation_deg, azimuth_deg, radius, **kw)
+
+
 def quick_jax_renderers(monkeypatch):
     """The JAX renderer nodes' `mesh_render.render_mesh` and
     `gs_render.render` as single `QUICK_XLA` jits: their eager calls

@@ -14,7 +14,6 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from comfy3d_tpu.core.camera import Camera as JCamera
 from comfy3d_tpu.core.gaussian import GaussianSplat as JSplat
 from comfy3d_tpu.ops import binning as jbin
 from comfy3d_tpu.ops import gs_render as JG
@@ -26,7 +25,8 @@ from comfy3d_tpu_torch.ops import _build, binning, gs_flat
 from comfy3d_tpu_torch.ops import gs_render as G
 
 from tests.test_torch_kernels import CASES, make_bins_case, rows_of_payload
-from tests.test_torch_common import one_torch_thread  # noqa: F401
+from tests.test_torch_common import (jax_orbit_camera,
+                                     one_torch_thread)  # noqa: F401
 
 
 def make_scene(seed, n=24, spread=0.6):
@@ -43,7 +43,7 @@ def make_scene(seed, n=24, spread=0.6):
 
 
 def both_cameras(elev, azim, radius, W, H):
-    ref = JCamera.from_orbit(elev, azim, radius, width=W, height=H)
+    ref = jax_orbit_camera(elev, azim, radius, width=W, height=H)
     port = convert.camera_from_numpy(np.asarray(ref.c2w),
                                      np.asarray(ref.fovy_deg), W, H,
                                      ref.near, ref.far, "cpu")

@@ -89,16 +89,20 @@ def tiny_shapes(jcfg, vae=True):
     over the views' tokens), so one trace at one view serves every count
     (the module's tests share it)."""
     one = dataclasses.replace(jcfg, num_views=1, unet=dataclasses.replace(
-        jcfg.unet, mv_views=1))
-    return _tiny_shapes(one, vae)
+        jcfg.unet, mv_views=1), vae=None)
+    shapes = dict(_tiny_shapes(one, jcfg.image_size // jcfg.vae_factor))
+    if vae:
+        shapes["vae"] = _vae_shapes(jcfg.vae)
+    return shapes
 
 
 @functools.lru_cache(maxsize=None)
-def _tiny_shapes(jcfg, vae):
-    lat = jcfg.image_size // jcfg.vae_factor
+def _tiny_shapes(jcfg, lat):
+    """The UNet's (on `lat`² latents), camera MLP's and Resampler's trees,
+    each traced once per config whether the VAE's is asked for or not."""
     v, emb = jcfg.num_views, jcfg.unet.block_out_channels[0] * 4
     z, key = jnp.zeros, jax.random.PRNGKey(0)
-    shapes = {
+    return {
         "unet": jax.eval_shape(
             JUNet(jcfg.unet).init, key,
             z((v, lat, lat, jcfg.unet.in_channels)), z((v,)),
@@ -108,10 +112,12 @@ def _tiny_shapes(jcfg, vae):
                                  z((1, jcfg.camera_dim)))["params"],
         "resampler": jax.eval_shape(_resampler(jcfg).init, key,
                                     z((1, 5, jcfg.ip_embed_dim)))["params"]}
-    if vae:
-        shapes["vae"] = jax.eval_shape(JVAE(jcfg.vae).init, key,
-                                       z((1, 64, 64, 3)))["params"]
-    return shapes
+
+
+@functools.lru_cache(maxsize=None)
+def _vae_shapes(vcfg):
+    return jax.eval_shape(JVAE(vcfg).init, jax.random.PRNGKey(0),
+                          jnp.zeros((1, 64, 64, 3)))["params"]
 
 
 def tiny_params(jcfg, seed):

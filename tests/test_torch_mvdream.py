@@ -14,6 +14,7 @@ import pytest
 pytestmark = [pytest.mark.heavy, pytest.mark.usefixtures("one_torch_thread")]
 
 import dataclasses
+import functools
 import math
 
 import jax
@@ -21,7 +22,6 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from comfy3d_tpu.core.camera import Camera as JCamera
 from comfy3d_tpu.models.convert import convert_with_rules, set_path
 from comfy3d_tpu.models.diffusion.convert import unet_rules, vae_rules
 from comfy3d_tpu.models.diffusion.unet import UNet2DCondition as JUNet
@@ -42,6 +42,7 @@ from tests.test_diffusion import tiny_unet_cfg, tiny_vae_cfg
 from tests.test_torch_lgm import (SPLAT_FIELDS, TINY, _port_lgm,
                                   _tiny_params)
 from tests.test_torch_common import (QUICK_XLA, _load, _np, _randomize,
+                                     jax_orbit_camera,
                                      one_torch_thread)  # noqa: F401
 
 # outputs against the JAX package: within this share of their largest value
@@ -76,8 +77,13 @@ def port_cfg(jcfg):
 
 def tiny_params(jcfg, seed):
     """The tiny MVDream's flax params, `{"unet", "vae", "camera"}` as the
-    JAX package's `init_random` builds them, by shape alone, every leaf
-    drawn from `seed`."""
+    JAX package's `init_random` builds them, by shape alone (traced once a
+    config, `_tiny_shapes`), every leaf drawn from `seed`."""
+    return _randomize(_tiny_shapes(jcfg), seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiny_shapes(jcfg):
     lat = jcfg.image_size // jcfg.vae_factor
     v, emb = jcfg.num_views, jcfg.unet.block_out_channels[0] * 4
     z, key = jnp.zeros, jax.random.PRNGKey(0)
@@ -90,7 +96,7 @@ def tiny_params(jcfg, seed):
                               z((1, 64, 64, 3)))["params"],
         "camera": jax.eval_shape(jp.CameraEmbed(emb).init, key,
                                  z((1, jcfg.camera_dim)))["params"]}
-    return _randomize(shapes, seed)
+    return shapes
 
 
 def tiny_pipelines(seed=0):
@@ -165,13 +171,14 @@ def test_text_to_views_to_splats_to_orbit_matches_jax(views):
 
     elev = np.array([-30.0, 0.0], np.float32)
     azim = np.array([0.0, 15.0], np.float32)
-    jc = JCamera.from_orbit(elev, azim, 2.0, fovy_deg=49.1, width=64,
-                            height=64)
+    jc = jax_orbit_camera(elev, azim, 2.0, fovy_deg=49.1, width=64,
+                          height=64)
     cams = convert.camera_from_numpy(np.asarray(jc.c2w),
                                      np.asarray(jc.fovy_deg), 64, 64,
                                      jc.near, jc.far, "cpu")
-    ref = JG.render(jsplat, jc, background=(1.0, 1.0, 1.0),
-                    backend="pallas", interpret=True)
+    ref = jax.jit(lambda s, c: JG.render(
+        s, c, background=(1.0, 1.0, 1.0), backend="pallas",
+        interpret=True), compiler_options=QUICK_XLA)(jsplat, jc)
     out = G.render(splat, cams, background=(1.0, 1.0, 1.0), backend="flat")
     img, jimg = _np(out["image"]), np.asarray(ref["image"])
     assert img.shape == (2, 64, 64, 3)

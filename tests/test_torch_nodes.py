@@ -85,7 +85,7 @@ def test_registry_and_protocol_match_jax(roots):
     os.makedirs(roots / "ckpt" / "TripoSR")
     (roots / "ckpt" / "TripoSR" / "other.ckpt").write_bytes(b"")
     jk, tk = set(jnodes.NODE_CLASS_MAPPINGS), set(tnodes.NODE_CLASS_MAPPINGS)
-    assert tk <= jk and len(tk) == 88
+    assert tk <= jk and len(tk) == 93
     assert jk - tk == set(tnodes.UNPORTED)
     for key in sorted(tk):
         j, t = jnodes.NODE_CLASS_MAPPINGS[key], tnodes.NODE_CLASS_MAPPINGS[key]

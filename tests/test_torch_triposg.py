@@ -37,7 +37,8 @@ from comfy3d_tpu_torch.models.triposg import pipeline as tp
 from comfy3d_tpu_torch.models.triposg import vae as tvae
 
 from tests.test_torch_common import (QUICK_XLA, _load, _np, _params,
-                                     one_torch_thread)  # noqa: F401
+                                     one_torch_thread,  # noqa: F401
+                                     quick_jax_pipeline)
 
 # single passes against the JAX package: within REL of the largest value;
 # sampled latents and decoded grids within REL_STEPS
@@ -103,8 +104,8 @@ def tiny():
     """`TripoSGConfig.tiny()` in both packages on one set of weights."""
     jcfg = jp.TripoSGConfig.tiny()
     params = jax_params(jcfg, 40)
-    return jcfg, params, jp.TripoSGPipeline(params, jcfg), \
-        port_pipe(jcfg, params)
+    return jcfg, params, quick_jax_pipeline(
+        jp.TripoSGPipeline(params, jcfg), (0, 4)), port_pipe(jcfg, params)
 
 
 def test_dit_matches_jax():
@@ -203,7 +204,7 @@ def test_sample_latents_and_mesh_match_jax(tiny):
     img = np.random.RandomState(2).rand(40, 40, 3).astype(np.float32)
     noise = jax_noise(jcfg, 5)
     shifted = dataclasses.replace(jcfg, shift=3.0)
-    jshift = jp.TripoSGPipeline(params, shifted)
+    jshift = quick_jax_pipeline(jp.TripoSGPipeline(params, shifted), (0, 4))
     cond_j = jpipe.encode_cond(img)
     lat_j = jpipe._sample(params["dit"], cond_j, jnp.asarray(noise), 3,
                           jnp.float32(7.0))
@@ -287,7 +288,7 @@ def test_from_pretrained_and_counts_match_jax(tiny, tmp_path):
     x = rng.randn(1, 6, 8).astype(np.float32)
     lat = rng.randn(1, 6, 8).astype(np.float32)
     pts = (rng.rand(1, 20, 3) * 2 - 1).astype(np.float32)
-    cond_j = jl.encode_cond(img)
+    cond_j = jax.jit(jl.encode_cond, compiler_options=QUICK_XLA)(img)
 
     def refs(p, cond):
         v = jl.dit.apply({"params": p["dit"]}, x, jnp.array([500.0]),
@@ -370,6 +371,9 @@ def _graph_env(tmp_path, monkeypatch, jpipe, model):
         (tmp_path / name).mkdir()
         for b in (jbase, tbase):
             monkeypatch.setattr(b, attr, str(tmp_path / name))
+    # the JAX loader node keeps the tiny pipeline unsharded, so its calls
+    # reuse the compiles of the tests before (the port has no mesh)
+    monkeypatch.setenv("COMFY3D_NO_SHARD", "1")
     monkeypatch.setattr(jnd, "CKPT_DIFFUSERS_PATH",
                         str(tmp_path / "ckpt" / "Diffusers"))
     monkeypatch.setattr(jnm, "_local_ckpt", lambda repo_id: None)

@@ -28,6 +28,7 @@ from comfy3d_tpu_torch.models.triposr import (TripoSR, TripoSRConfig,
 from comfy3d_tpu_torch.ops import volume
 
 from tests.test_torch_common import (_load, _np, _params,
+                                     jax_orbit_camera,
                                      one_torch_thread)  # noqa: F401
 
 # tiny, with the ViT's grid (48 / 8 = 6²) unlike its checkpoint grid (4²)
@@ -169,12 +170,10 @@ def test_pipeline_extracts_jaxs_mesh_from_one_grid(pair, jax_grid,
 
 
 def test_render_matches_jax(pair):
-    from comfy3d_tpu.core.camera import Camera as JCamera
-
     from comfy3d_tpu_torch.core.camera import Camera
     jpipe, pipe, jcodes, _ = pair
     codes = jcodes[0]
-    jcam = JCamera.from_orbit(15.0, 30.0, 2.0, width=12, height=10)
+    jcam = jax_orbit_camera(15.0, 30.0, 2.0, width=12, height=10)
     ref = jpipe.render(jnp.asarray(codes), jcam, num_steps=24)
     cam = Camera.from_orbit(15.0, 30.0, 2.0, width=12, height=10,
                             device="cpu")

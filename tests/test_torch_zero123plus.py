@@ -231,9 +231,9 @@ def test_unet_reference_write_and_read_match_jax(pipes):
 def test_clip_vision_matches_jax(pipes):
     """The conditioner (a 32² image resized to 28², CLIP-normalised,
     encoded, projected) and the encoder with `project=False` (tokens and
-    the pooled class token), within 1e-4 of their largest value; the
-    camera-modulated blocks, not ported, raise naming their ROADMAP
-    item."""
+    the pooled class token), within 1e-4 of their largest value; an
+    encoder with the camera-modulated blocks (Craftsman's, held in
+    `test_torch_craftsman.py`) asks for its camera code."""
     ccfg = jclip.CLIPVisionConfig(**TINY_CLIP)
     rng = np.random.RandomState(1)
     img = rng.rand(2, 32, 32, 3).astype(np.float32)
@@ -254,8 +254,9 @@ def test_clip_vision_matches_jax(pipes):
         t_tokens, t_pooled = clip(nchw(norm), project=False)
     _close(t_tokens, tokens, what="tokens")
     _close(t_pooled, pooled, what="pooled")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tclip.CLIPVisionEncoder(tclip.CLIPVisionConfig(modulation_dim=4))
+    with pytest.raises(ValueError, match="mod_cond"):
+        tclip.CLIPVisionEncoder(tclip.CLIPVisionConfig(
+            **TINY_CLIP, modulation_dim=4))(nchw(norm))
 
 
 def test_encode_condition_and_states_match_jax(pipes):
